@@ -24,7 +24,19 @@ Phases, one line each, any failure exits non-zero without the final line:
    which they may part are checked (``phase_mixed``): with the plain run's
    int8 activation codes the kernels give the plain streams, and on the
    plain run's inputs the kernels' activation codes are within one
-   rounding step of the plain run's.
+   rounding step of the plain run's;
+6. the paged main path: the serving CLI with MAIN_ARGV + ``--paged
+   --page-size 16`` and its defaults (yi-9b, 48 layers, bf16), i.e. the
+   paged ServeEngine over a page pool with block tables and prefix
+   sharing; kv_flash_paged_decode launches once per layer and decode step
+   and kv_flash_decode never, the block manager's refcounts are clean, and
+   the 8 streams equal phase 3's dense streams;
+7. the paging machinery at yi-9b width, 4 layers, f32, kernels on, driving
+   ``ServeEngine(paged=True)`` directly: shared prefixes (whole pages, one
+   ending inside a page, so copy-on-write runs), one identical prompt, and
+   one request evicted and resumed (its pages re-attached); prefix hits,
+   copies and frees as the requests imply, and streams identical to the
+   dense engine and to the all-plain paged engine.
 
 TF32 is off for matmuls and convolutions, so every f32 product (the plain
 versions included) is a true f32 product. Details go to
@@ -196,6 +208,81 @@ def phase_kernels(torch, timer, rows):
                    "bound_ms": b, "bound_by": kind}
             rows.append(row)
             log(f"  {row}")
+    paged_rows(torch, timer, rows, g)
+
+
+PAGED_SHAPES = ((96, [65, 80, 90, 96]), (1000, [1, 333, 999, 1000]))
+
+
+def paged_rows(torch, timer, rows, g):
+    """kv_flash_paged_decode against its plain version and against
+    kv_flash_decode on the gathered cache, ps = 16, tables scrambled so
+    that no slot's pages are contiguous in the pool, garbage page 0 past
+    each slot's pages."""
+    from repro_torch.core.policy import parse_spec
+    from repro_torch.core.quantizers import kv_dequantize, kv_quantize
+    from repro_torch.kernels.kv_flash_decode import kv_flash_decode
+    from repro_torch.kernels.kv_flash_paged_decode import (kv_flash_paged_decode,
+                                                           kv_flash_paged_decode_ref)
+    from repro_torch.kernels.ref import gather_pages
+    dev = torch.device("cuda")
+    B, G, R, Dh, ps = 4, 4, 8, 128, 16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for spec_s in ("fxp8", "pofx8es2"):
+        spec = parse_spec(spec_s)
+        for S, pos_list in PAGED_SHAPES:
+            mp = -(-S // ps)
+            n_pages = B * mp + 1
+            q = torch.randn(B, G, R, Dh, generator=g, device=dev)
+            ks = torch.exp2(torch.randint(0, 2, (G, 1, Dh), generator=g, device=dev).float())
+            vs = torch.exp2(torch.randint(0, 2, (G, 1, Dh), generator=g, device=dev).float())
+            kc = kv_quantize(torch.randn(n_pages, G, ps, Dh, generator=g, device=dev), spec, ks)
+            vc = kv_quantize(torch.randn(n_pages, G, ps, Dh, generator=g, device=dev), spec, vs)
+            tables = torch.zeros(B, mp, dtype=torch.int32, device=dev)
+            used = [-(-p // ps) for p in pos_list]
+            for b in range(B):   # slot b owns pages 1+b+B*j in a random order
+                order = torch.randperm(mp, generator=g, device=dev)[:used[b]]
+                tables[b, :used[b]] = (1 + b + B * order).to(torch.int32)
+            pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
+            args = (q, kc, ks, vc, vs, tables, pos, spec)
+            got = kv_flash_paged_decode(*args)
+            want = kv_flash_paged_decode_ref(*args)
+            err = (got - want).abs().max().item()
+            tol = 1e-5 + 1e-4 * want.abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f"kv_flash_paged_decode {spec_s} S={S}: err {err} > {tol}")
+            kg, vg = gather_pages(kc, tables), gather_pages(vc, tables)
+            ksb, vsb = ks[None].expand(B, G, 1, Dh), vs[None].expand(B, G, 1, Dh)
+            dense = kv_flash_decode(q, kg, ksb, vg, vsb, pos, spec)
+            dense_err = (got - dense).abs().max().item()
+
+            def gather_dequant():
+                return (kv_dequantize(gather_pages(kc, tables), spec, ks[None]),
+                        kv_dequantize(gather_pages(vc, tables), spec, vs[None]))
+            kf, vf = gather_dequant()
+            Sg = mp * ps
+            mask = (torch.arange(Sg, device=dev)[None, :] < pos[:, None].long())[:, None, None, :]
+            valid = sum(min(p, Sg) for p in pos_list)
+            nbytes = (2 * G * valid * Dh + 4 * sum(used) + 2 * B * G * R * Dh * 4
+                      + 2 * G * Dh * 4 + B * 4)
+            b_ms, kind = bound_ms(nbytes, 4 * G * R * valid * Dh, "f32")
+            row = {"name": "kv_flash_paged_decode",
+                   "shape": f"{spec_s} B={B} G={G} R={R} ps={ps} pages={mp} S={Sg} Dh={Dh} "
+                            f"pos={pos_list}",
+                   "max_abs_err": err, "tol": tol, "max_abs_diff_dense_kernel": dense_err,
+                   "ms": timer.ms(lambda: kv_flash_paged_decode(*args)),
+                   "plain_ms": timer.ms(lambda: kv_flash_paged_decode_ref(*args)),
+                   "dense_kernel_ms": timer.ms(lambda: kv_flash_decode(q, kg, ksb, vg, vsb, pos, spec)),
+                   "library_ms": timer.ms(lambda: sdpa(q, kf, vf, attn_mask=mask)),
+                   "library": "scaled_dot_product_attention on K/V gathered and dequantized "
+                              "(gather not timed)",
+                   "gather_dequant_ms": timer.ms(gather_dequant),
+                   "bound_ms": b_ms, "bound_by": kind}
+            rows.append(row)
+            log(f"  {row}")
+            if dense_err != 0.0:
+                raise AssertionError(f"kv_flash_paged_decode {spec_s} S={S} differs from "
+                                     f"kv_flash_decode on the gathered cache by {dense_err}")
 
 
 def serve(torch, model, params, *, n_req=8, prompt_len=64, gen=32, slots=4, chunk=8,
@@ -278,6 +365,7 @@ def phase_main_path(torch, result):
         "decode_steps": st["decode_steps"], "launches": counts,
         "first_logit_max_abs_diff": diff,
         "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    result["main_streams"] = [s.out for s in done]
     del run, model, params, eng
     torch.cuda.empty_cache()
     return counts
@@ -296,36 +384,57 @@ def compare(done_k, done_p, what):
     return same
 
 
-def profile_decode(torch, model, params, steps: int = 4):
+def profile_decode(torch, model, params, steps: int = 4, paged: bool = False):
     """Device time by kernel over ``steps`` decode steps at 4 slots and a
     64-token context (torch.profiler, CUDA activity), against the host
-    wall time of the same steps: where a decode step's time goes."""
+    wall time of the same steps: where a decode step's time goes. ``paged``
+    profiles the paged cache (16-token pages, 6 per slot)."""
     try:
         from torch.profiler import ProfilerActivity, profile
-        cache = model.init_cache(4, 96)
+        if paged:
+            cache = model.init_paged_cache(4, 96, n_pages=25, page_size=16)
+            cache["pages"] = torch.arange(1, 25, dtype=torch.int32, device="cuda").reshape(4, 6)
+        else:
+            cache = model.init_cache(4, 96)
         cache["pos"] = torch.full((4,), 64, dtype=torch.int32, device="cuda")
         tok = torch.zeros((4, 1), dtype=torch.long, device="cuda")
         cache, _ = model.decode_step(params, cache, tok)
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            cache, _ = model.decode_step(params, cache, tok)
+        torch.cuda.synchronize()
+        bare_ms = (time.perf_counter() - t0) * 1e3 / steps
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
                 cache, _ = model.decode_step(params, cache, tok)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-        by_name = {}
+        by_name, host, syncs = {}, {}, {}
         for evt in prof.key_averages():
             dev_us = getattr(evt, "self_device_time_total", 0) or 0
             if dev_us > 0:
                 by_name[evt.key] = dev_us / 1e3 / steps
+            host[evt.key] = evt.self_cpu_time_total / 1e3 / steps
+            # host calls that wait for the card (the last one, after the
+            # loop, is the timing's own synchronize)
+            if ("Synchronize" in evt.key or evt.key in ("cudaMemcpy", "aten::item",
+                                                        "aten::_local_scalar_dense")):
+                syncs[evt.key] = evt.count / steps
         busy = sum(by_name.values())
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-        log(f"  decode step profile: wall {wall_ms:.2f} ms, device busy {busy:.2f} ms "
-            f"({100 * (1 - busy / wall_ms):.1f}% idle)")
+        top_host = sorted(host.items(), key=lambda kv: -kv[1])[:6]
+        log(f"  decode step profile: wall {wall_ms:.2f} ms ({bare_ms:.2f} ms without the "
+            f"profiler), device busy {busy:.2f} ms ({100 * (1 - busy / wall_ms):.1f}% idle); "
+            f"host waits per step {syncs}")
         for name, ms in top:
             log(f"    {ms:8.3f} ms/step  {name[:90]}")
-        return {"wall_ms": wall_ms, "device_busy_ms": busy,
-                "top": [[n, ms] for n, ms in top]}
+        for name, ms in top_host:
+            log(f"    {ms:8.3f} ms/step host  {name[:84]}")
+        return {"wall_ms": wall_ms, "bare_wall_ms": bare_ms, "device_busy_ms": busy,
+                "host_waits_per_step": syncs, "top": [[n, ms] for n, ms in top],
+                "top_host": [[n, ms] for n, ms in top_host]}
     except Exception:  # the profile is an aside: record why it is missing
         log(f"  decode step profile: not measured\n{traceback.format_exc()}")
         return None
@@ -535,10 +644,165 @@ def phase_mixed(torch, result):
     return counts
 
 
+PAGED_ARGV = MAIN_ARGV + ["--paged", "--page-size", "16"]
+
+
+def phase_paged_main(torch, result):
+    """Phase 6: ``python -m repro_torch.launch.serve`` with PAGED_ARGV and
+    the CLI's defaults, in this process so that the launch counts can be
+    read; its streams against phase 3's dense streams."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch import serve as serve_cli
+    dense = result.get("main_streams")
+    if dense is None:
+        raise AssertionError("phase 6 compares with phase 3's streams: run phase 3 too")
+    torch.cuda.reset_peak_memory_stats()
+    log(f"  repro_torch.launch.serve {' '.join(PAGED_ARGV)}")
+    reset_launches()
+    run = serve_cli.main(PAGED_ARGV)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    model, eng, done = run.model, run.engine, run.done
+    cfg = model.cfg
+    st = eng.stats()
+    n_prompt = sum(len(s.context) for s in done)
+    prefill_tps = n_prompt / eng.prefill_time
+    decode_tps = st["decode_tokens"] / eng.decode_time
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  served {len(done)} requests: prefill {n_prompt} tokens in {eng.prefill_time:.3f}s "
+        f"({prefill_tps:.1f} tok/s), decode {st['decode_tokens']} tokens in "
+        f"{eng.decode_time:.3f}s over {st['decode_steps']} steps ({decode_tps:.1f} tok/s), "
+        f"peak {peak:.2f} GiB (init included)")
+    log(f"  pages: {st['resident_pages']}/{eng.n_pages - 1} resident at the end, "
+        f"{st['pages_reclaimed']} reclaimed, {st['pages_freed']} freed, prefix hits "
+        f"{st['prefix_hits']}/{st['prefix_queries']}, {st['cow_copies']} CoW copies")
+    log(f"  launches on the paged main path: {counts}")
+    eng._pager.check()
+    per_fwd = 7 * cfg.n_layers + 1
+    want = {"pofx_matmul": per_fwd * (st["prefill_sampled_tokens"] + st["decode_steps"]),
+            "kv_flash_paged_decode": cfg.n_layers * st["decode_steps"],
+            "kv_flash_decode": 0, "fxp_matmul": 0}
+    if counts["kv_flash_paged_decode"] <= 0 or counts != want:
+        raise AssertionError(f"launch counts {counts} != expected {want}")
+    if cfg.n_layers != 48 or cfg.d_model != 4096 or len(done) != 8 or not eng.paged:
+        raise AssertionError(f"paged path ran {cfg.n_layers} layers, d={cfg.d_model}, "
+                             f"{len(done)} requests, paged={eng.paged}")
+    streams = [s.out for s in done]
+    same = sum(a == b for a, b in zip(streams, dense))
+    log(f"  streams: {same}/{len(dense)} identical to phase 3's dense streams")
+    result["paged_decode_profile"] = profile_decode(torch, model, run.params, paged=True)
+    result["paged_main_path"] = {
+        "argv": PAGED_ARGV, "arch": "yi-9b", "n_layers": cfg.n_layers,
+        "requests": len(done), "slots": eng.n_slots, "page_size": eng.page_size,
+        "n_pages": eng.n_pages, "prefill_tok_s": prefill_tps, "decode_tok_s": decode_tps,
+        "prefill_s": eng.prefill_time, "decode_s": eng.decode_time,
+        "decode_steps": st["decode_steps"], "launches": counts, "peak_gib": peak,
+        "identical_to_dense": same,
+        "paging": {k: st[k] for k in ("resident_pages", "free_pages", "prefix_queries",
+                                      "prefix_hits", "prefix_hit_tokens", "pages_freed",
+                                      "pages_reclaimed", "cow_copies", "index_holdings")}}
+    if same != len(dense):
+        raise AssertionError("paged streams differ from the dense main path's")
+    del run, model, eng
+    torch.cuda.empty_cache()
+    return counts
+
+
+def paging_requests(vocab: int):
+    """Phase 7's workload, 16 new tokens each, all arriving at once on 4
+    slots. rids 0-5 share a 48-token prefix (three full 16-token pages) and
+    rid 5 repeats rid 4's whole prompt; rid 6's 40-token prompt is rid 7's
+    prefix, which ends inside a page. Returns the requests and the prefix
+    hit each admission implies (the hit is capped at the context length
+    minus one, so that one token prefills)."""
+    import numpy as np
+    from repro_torch.launch.engine import Request
+    rng = np.random.default_rng(7)
+    pre_a, pre_b = rng.integers(0, vocab, 48), rng.integers(0, vocab, 40)
+    prompts = []
+    for i in range(5):
+        suffix = rng.integers(0, vocab, 16)
+        suffix[0] = i      # distinct first suffix tokens: the shared run is exactly 48
+        prompts.append(np.concatenate([pre_a, suffix]))
+    prompts.append(prompts[4].copy())
+    prompts.append(pre_b)
+    prompts.append(np.concatenate([pre_b, rng.integers(0, vocab, 24)]))
+    hits = [0, 48, 48, 48, 48, 63, 0, 40]
+    return [Request(rid=i, prompt=p, max_new=16) for i, p in enumerate(prompts)], hits
+
+
+def drive_paging(eng, requests, evict_rid=None):
+    """``eng.run`` with ``evict_rid`` evicted after the first decode chunk;
+    returns ({rid: tokens}, the evicted request's context length)."""
+    for r in requests:
+        eng.submit(r)
+    resumed_ctx = None
+    while eng.pending_rids or eng.active_rids:
+        eng.admit_ready()
+        eng.step()
+        if resumed_ctx is None and evict_rid in eng.active_rids:
+            eng.evict(evict_rid)
+            resumed_ctx = len(eng._states[evict_rid].context)
+    return {rid: st.out for rid, st in eng._states.items()}, resumed_ctx
+
+
+def phase_paging(torch, result):
+    """Phase 7: the paging machinery at yi-9b width, 4 layers, f32, kernels
+    on: prefix hits, copy-on-write, frees and an evict -> resume that
+    re-attaches its pages, with streams identical to the dense engine
+    (uninterrupted) and to the all-plain paged engine."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.ops import PLAIN
+    from repro_torch.launch.engine import ServeEngine
+    model, params = small_model(4, "pofx8", "fxp8")
+    requests, hits = paging_requests(model.cfg.vocab_size)
+    kw = dict(n_slots=4, max_len=80, chunk=8)
+    reset_launches()
+    eng = ServeEngine(model, params, paged=True, page_size=16, **kw)
+    got, ctx = drive_paging(eng, requests, evict_rid=0)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    st = eng.stats()
+    eng._pager.check()
+    want_hits = sum(hits) + ctx - 1    # the resume re-attaches all but one token
+    plain_eng = ServeEngine(dataclasses.replace(model, kernel_set=PLAIN), params,
+                            paged=True, page_size=16, **kw)
+    plain, _ = drive_paging(plain_eng, requests, evict_rid=0)
+    dense_eng = ServeEngine(model, params, **kw)
+    dense = {s.req.rid: s.out for s in dense_eng.run(requests)}
+    same_dense = sum(got[r] == dense[r] for r in dense)
+    same_plain = sum(got[r] == plain[r] for r in plain)
+    paging = {k: st[k] for k in ("prefix_queries", "prefix_hits", "prefix_hit_tokens",
+                                 "cow_copies", "pages_freed", "pages_reclaimed",
+                                 "resident_pages", "index_holdings")}
+    log(f"  paging: {paging}; expected prefix_hit_tokens {want_hits} "
+        f"(resumed context {ctx} tokens)")
+    log(f"  launches {counts}; streams: {same_dense}/8 identical to the dense engine "
+        f"(uninterrupted), {same_plain}/8 to the all-plain paged engine")
+    result["paging_4l"] = {"n_layers": 4, "policy": "pofx8", "kv": "fxp8", "page_size": 16,
+                           "paging": paging, "expected_prefix_hit_tokens": want_hits,
+                           "launches": counts, "identical_to_dense": same_dense,
+                           "identical_to_plain_paged": same_plain}
+    if st["prefix_hit_tokens"] != want_hits or st["prefix_hits"] != 7:
+        raise AssertionError(f"prefix hits {st['prefix_hits']} / {st['prefix_hit_tokens']} "
+                             f"tokens, expected 7 / {want_hits}")
+    if st["cow_copies"] < 1 or st["pages_freed"] <= 0:
+        raise AssertionError(f"no copy-on-write or no page freed: {paging}")
+    if counts["kv_flash_paged_decode"] <= 0 or counts["kv_flash_decode"] != 0:
+        raise AssertionError(f"paged engine launches {counts}")
+    if eng._states[0].n_evictions != 1:
+        raise AssertionError("rid 0 was not evicted and resumed")
+    for r in requests:
+        if len(got[r.rid]) != r.max_new:
+            raise AssertionError(f"rid {r.rid}: {len(got[r.rid])} tokens")
+    if same_dense != 8 or same_plain != 8:
+        raise AssertionError("paged streams differ from the dense or the all-plain engine")
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="drive the port on one card")
-    ap.add_argument("--phases", default="2,3,4,5",
+    ap.add_argument("--phases", default="2,3,4,5,6,7",
                     help="comma-separated phases after the build (default: all)")
     want = {int(p) for p in ap.parse_args(argv).phases.split(",")}
     import torch
@@ -578,6 +842,10 @@ def main(argv) -> int:
          lambda: identity(torch, result)),
         ("phase 5: mixed policy, 2 layers, f32",
          lambda: result.__setitem__("mixed_counts", phase_mixed(torch, result))),
+        ("phase 6: paged main path, yi-9b full width and depth",
+         lambda: result.__setitem__("paged_counts", phase_paged_main(torch, result))),
+        ("phase 7: paging machinery, 4 layers, f32",
+         lambda: phase_paging(torch, result)),
     ]
     for label, fn in phases:
         if int(label.split()[1].rstrip(":")) not in want:
@@ -601,18 +869,23 @@ def main(argv) -> int:
     if failed:
         log(f"FAILED: {failed}")
         return 1
-    if want != {2, 3, 4, 5}:
+    if want != {2, 3, 4, 5, 6, 7}:
         log(f"ran phases {sorted(want)} only: no result line")
         return 1
     main_counts = result["main_counts"]
     pick = {"pofx_matmul": ("m=4 k=4096 n=11008 x=bf16", main_counts["pofx_matmul"]),
             "kv_flash_decode": ("fxp8 B=4 G=4 R=8 S=96 Dh=128 pos=[65, 80, 90, 96]",
                                 main_counts["kv_flash_decode"]),
-            "fxp_matmul": ("m=4 k=4096 n=11008", mixed["fxp_matmul"])}
+            "fxp_matmul": ("m=4 k=4096 n=11008", mixed["fxp_matmul"]),
+            "kv_flash_paged_decode": (
+                "fxp8 B=4 G=4 R=8 ps=16 pages=6 S=96 Dh=128 pos=[65, 80, 90, 96]",
+                result["paged_counts"]["kv_flash_paged_decode"])}
     src = {"pofx_matmul": ("src/repro_torch/csrc/pofx_matmul.cu", "src/repro/kernels/pofx_matmul.py:89"),
            "kv_flash_decode": ("src/repro_torch/csrc/kv_flash_decode.cu",
                                "src/repro/kernels/kv_flash_decode.py:139"),
-           "fxp_matmul": ("src/repro_torch/csrc/fxp_matmul.cu", "src/repro/kernels/fxp_matmul.py:51")}
+           "fxp_matmul": ("src/repro_torch/csrc/fxp_matmul.cu", "src/repro/kernels/fxp_matmul.py:51"),
+           "kv_flash_paged_decode": ("src/repro_torch/csrc/kv_flash_paged_decode.cu",
+                                     "src/repro/kernels/kv_flash_paged_decode.py:142")}
     kernels = []
     for name, (shape, launches) in pick.items():
         row = next(r for r in rows if r["name"] == name and r["shape"] == shape)

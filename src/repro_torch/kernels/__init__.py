@@ -4,6 +4,9 @@ pofx_matmul:     fused PoFx decode + matmul (Move&Store), csrc/pofx_matmul.cu
 kv_flash_decode: flash-decode over a byte-wide quantized KV cache,
                  csrc/kv_flash_decode.cu
 fxp_matmul:      int8 x int8 -> int32 MAC, csrc/fxp_matmul.cu
+kv_flash_paged_decode: flash-decode through a block table over a page pool,
+                 csrc/kv_flash_paged_decode.cu (shares the body
+                 csrc/kv_flash_common.cuh with kv_flash_decode)
 ref:             the plain PyTorch versions every kernel is held against.
 
 A wrapper given CUDA tensors launches its kernel (or raises); given CPU
@@ -13,7 +16,7 @@ per kernel, so a run can show that its path went through them.
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"pofx_matmul": 0, "kv_flash_decode": 0,
-                            "fxp_matmul": 0}
+                            "fxp_matmul": 0, "kv_flash_paged_decode": 0}
 
 
 def reset_launches() -> None:

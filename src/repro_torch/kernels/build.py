@@ -23,7 +23,8 @@ from typing import Dict
 __all__ = ["CSRC", "build_dir", "build_all", "library", "check"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-KERNELS = ("pofx_matmul", "kv_flash_decode", "fxp_matmul")
+KERNELS = ("pofx_matmul", "kv_flash_decode", "fxp_matmul",
+           "kv_flash_paged_decode")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -103,6 +104,9 @@ _SIGNATURES = {
     "fxp_matmul": {
         "fxp_matmul": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
         + [ctypes.c_void_p]},
+    "kv_flash_paged_decode": {
+        "kv_flash_paged_decode": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
+        + [ctypes.c_float, ctypes.c_void_p]},
 }
 
 

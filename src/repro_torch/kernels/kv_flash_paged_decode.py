@@ -1,0 +1,87 @@
+"""Flash-decode attention through a block table over a page pool, on Hopper.
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/kv_flash_paged_decode.py::
+kv_flash_paged_decode`` (``pallas_call`` at :142). The CUDA kernel
+(``csrc/kv_flash_paged_decode.cu``) is ``kv_flash_decode``'s body
+(``csrc/kv_flash_common.cuh``) with each position's code row resolved
+through the slot's block table: one block per (b, g), one warp per query
+row, 32-position tiles over the logical positions [0, max_pages * ps).
+Garbage page 0 and tails at or past ``pos`` are read and masked, not
+trimmed. On the same logical cache its output equals ``kv_flash_decode``'s
+bit for bit (same summation order), so paged and dense serving give the
+same tokens.
+
+Bound on the card: the code bytes of the valid positions, 2 * S_valid * Dh
+per (b, g) per layer and step, plus the block table.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.quantizers import QuantSpec
+from . import LAUNCHES, require_cuda
+from .kv_flash_decode import _byte_table
+from .ref import kv_flash_paged_decode_ref
+
+__all__ = ["kv_flash_paged_decode", "kv_flash_paged_decode_ref"]
+
+
+def kv_flash_paged_decode(q: torch.Tensor, k_pool: torch.Tensor,
+                          k_scale: torch.Tensor, v_pool: torch.Tensor,
+                          v_scale: torch.Tensor, tables: torch.Tensor, pos,
+                          spec: QuantSpec) -> torch.Tensor:
+    """One-token attention against a paged quantized code pool.
+
+    q (B, G, R, Dh); pools (n_pages, G, ps, Dh) int8/uint8; scales global
+    per layer (G, 1, Dh); tables (B, max_pages) physical page ids in
+    [0, n_pages) (garbage-page padded; the engine's ``PagedKVManager``
+    hands out only such ids, and checking them here would cost a device
+    sync per layer); pos scalar or (B,) valid lengths (mask
+    ``idx < pos``). Returns (B, G, R, Dh) f32.
+    """
+    B, G, R, Dh = q.shape
+    n_pages, Gp, ps, Dhp = k_pool.shape
+    if v_pool.shape != k_pool.shape:
+        raise ValueError(f"k/v pool shape mismatch: {tuple(k_pool.shape)} vs "
+                         f"{tuple(v_pool.shape)}")
+    if (Gp, Dhp) != (G, Dh):
+        raise ValueError(f"pool (G, Dh) {(Gp, Dhp)} does not match queries "
+                         f"{(G, Dh)}")
+    for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if tuple(sc.shape) != (G, 1, Dh):
+            raise ValueError(
+                f"paged kv {name} must be global per-head-dim-channel "
+                f"({G}, 1, {Dh}); got {tuple(sc.shape)}")
+    if tables.ndim != 2 or tables.shape[0] != B:
+        raise ValueError(f"tables must be (B={B}, max_pages); got "
+                         f"{tuple(tables.shape)}")
+    if not q.is_cuda:
+        return kv_flash_paged_decode_ref(q, k_pool, k_scale, v_pool, v_scale,
+                                         tables, pos, spec)
+    pos = torch.as_tensor(pos, device=q.device)
+    require_cuda("kv_flash_paged_decode", q, k_pool, k_scale, v_pool,
+                 v_scale, tables, pos)
+    if k_pool.element_size() != 1 or v_pool.element_size() != 1:
+        raise ValueError("kv_flash_paged_decode wants byte-wide codes")
+    if Dh not in (32, 64, 128, 256) or R > 32:
+        raise ValueError(f"kv_flash_paged_decode supports Dh in 32/64/128/256 "
+                         f"and R <= 32, got Dh={Dh}, R={R}")
+    from .build import check, library
+    max_pages = tables.shape[1]
+    qf = q.to(torch.float32).contiguous()
+    kc = k_pool.contiguous()
+    vc = v_pool.contiguous()
+    ks = k_scale.to(torch.float32).contiguous()
+    vs = v_scale.to(torch.float32).contiguous()
+    tb = tables.to(torch.int32).contiguous()
+    pos_b = pos.reshape(-1).to(torch.int32).expand(B).contiguous()
+    table = _byte_table(spec, str(q.device))
+    out = torch.empty((B, G, R, Dh), dtype=torch.float32, device=q.device)
+    check(library("kv_flash_paged_decode").kv_flash_paged_decode(
+        qf.data_ptr(), kc.data_ptr(), ks.data_ptr(), vc.data_ptr(),
+        vs.data_ptr(), tb.data_ptr(), pos_b.data_ptr(), table.data_ptr(),
+        out.data_ptr(), B, G, R, ps, max_pages, Dh, Dh ** -0.5,
+        torch.cuda.current_stream(q.device).cuda_stream),
+        "kv_flash_paged_decode")
+    LAUNCHES["kv_flash_paged_decode"] += 1
+    return out

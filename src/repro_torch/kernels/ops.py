@@ -22,6 +22,8 @@ import torch
 from repro_torch.core.quantizers import QuantizedTensor, dequantize, fxp_view
 from .fxp_matmul import fxp_matmul, fxp_matmul_ref
 from .kv_flash_decode import kv_flash_decode, kv_flash_decode_ref
+from .kv_flash_paged_decode import (kv_flash_paged_decode,
+                                    kv_flash_paged_decode_ref)
 from .pofx_matmul import pofx_matmul, pofx_matmul_ref
 
 __all__ = ["KernelSet", "KERNELS", "PLAIN", "quant_matmul",
@@ -33,10 +35,13 @@ class KernelSet:
     pofx_matmul: Callable
     fxp_matmul: Callable
     kv_flash_decode: Callable
+    kv_flash_paged_decode: Callable
 
 
-KERNELS = KernelSet(pofx_matmul, fxp_matmul, kv_flash_decode)
-PLAIN = KernelSet(pofx_matmul_ref, fxp_matmul_ref, kv_flash_decode_ref)
+KERNELS = KernelSet(pofx_matmul, fxp_matmul, kv_flash_decode,
+                    kv_flash_paged_decode)
+PLAIN = KernelSet(pofx_matmul_ref, fxp_matmul_ref, kv_flash_decode_ref,
+                  kv_flash_paged_decode_ref)
 
 
 def out_channel_scale(scale: torch.Tensor, codes_shape) -> torch.Tensor:

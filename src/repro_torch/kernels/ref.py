@@ -12,7 +12,7 @@ from repro_torch.core.pofx import pofx_normalized
 from repro_torch.core.quantizers import QuantSpec, _codes_to_values, kv_dequantize
 
 __all__ = ["decode_norm_to_fxp", "pofx_matmul_ref", "fxp_matmul_ref",
-           "kv_flash_decode_ref"]
+           "kv_flash_decode_ref", "gather_pages", "kv_flash_paged_decode_ref"]
 
 
 def decode_norm_to_fxp(codes: torch.Tensor, N: int, ES: int,
@@ -58,3 +58,31 @@ def kv_flash_decode_ref(q, k_codes, k_scale, v_codes, v_scale, pos,
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bgrs,bgsd->bgrd", p, v)
+
+
+def gather_pages(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """Per-slot contiguous caches from a page pool.
+
+    pool: (n_pages, G, ps, Dh); tables: (B, max_pages) physical page ids
+    (garbage-page entries gather junk that per-slot ``pos`` masks).
+    Returns (B, G, max_pages * ps, Dh), the heads-major dense layout.
+    """
+    B, max_pages = tables.shape
+    _, G, ps, Dh = pool.shape
+    gathered = pool[tables.long()]                # (B, max_pages, G, ps, Dh)
+    return gathered.permute(0, 2, 1, 3, 4).reshape(B, G, max_pages * ps, Dh)
+
+
+def kv_flash_paged_decode_ref(q, k_pool, k_scale, v_pool, v_scale, tables,
+                              pos, spec: QuantSpec) -> torch.Tensor:
+    """Gather every slot's pages into a contiguous cache, then the dense
+    plain version; the pool's global (G, 1, Dh) scales broadcast over the
+    gathered batch axis.
+
+    q: (B, G, R, Dh); pools: (n_pages, G, ps, Dh); tables: (B, max_pages);
+    pos: scalar or (B,) valid lengths.
+    """
+    k = gather_pages(k_pool, tables)
+    v = gather_pages(v_pool, tables)
+    return kv_flash_decode_ref(q, k, k_scale[None], v, v_scale[None], pos,
+                               spec)

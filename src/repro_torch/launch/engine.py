@@ -17,6 +17,15 @@ Port of ``repro/launch/engine.py`` (dense cache, single device):
 * **Eviction.** ``evict`` returns a running request to the head of the
   queue with its generated prefix folded into the context; re-admission
   prefills prompt+prefix and continues the identical greedy stream.
+* **Paged mode** (``paged=True``). The per-slot dense cache becomes one
+  pool of fixed-size token pages plus per-slot block tables; the host's
+  ``launch.paging.PagedKVManager`` owns allocation, refcounts and the
+  radix prefix index. Admission matches the context against the index,
+  copies a borrowed page the suffix will write into (copy-on-write) and
+  prefills only the unshared suffix; finish and eviction register the
+  sequence's pages in the index and drop its references, so a resume
+  re-attaches the surviving pages and re-prefills one token. Token
+  streams are the dense engine's.
 
 Sampling is greedy. Temperature and top-k need a torch threefry that
 reproduces the reference's PRNG streams (ROADMAP A6); until then a
@@ -31,6 +40,9 @@ from typing import Any, Deque, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+
+from repro_torch.core.policy import format_spec
+from .paging import PagedKVManager
 
 __all__ = ["SamplingParams", "Request", "RequestState", "ServeEngine"]
 
@@ -70,7 +82,9 @@ class ServeEngine:
 
     def __init__(self, model, params, *, n_slots: int = 4, max_len: int = 512,
                  eos_id: Optional[int] = None, pad_id: int = 0,
-                 chunk: int = 8, prompt_bucket: int = 1):
+                 chunk: int = 8, prompt_bucket: int = 1,
+                 paged: bool = False, page_size: int = 16,
+                 n_pages: Optional[int] = None):
         if n_slots < 1 or chunk < 1:
             raise ValueError(
                 f"need n_slots >= 1 and chunk >= 1, got {n_slots}/{chunk}")
@@ -81,9 +95,29 @@ class ServeEngine:
         self.pad_id = int(pad_id)
         self.chunk = int(chunk)
         self.prompt_bucket = max(1, int(prompt_bucket))
-        self.cache = model.init_cache(n_slots, max_len)
-        self.cache["pos"] = torch.zeros((n_slots,), dtype=torch.int32,
-                                        device=self.device)
+        self.paged = bool(paged)
+        if self.paged:
+            # default pool: the dense cache's capacity (every slot can hold
+            # max_len tokens) plus per-slot headroom for copy-on-write and
+            # index retention, plus the garbage page
+            self.page_size = int(page_size)
+            self.max_pages = -(-self.max_len // self.page_size)
+            if n_pages is None:
+                n_pages = n_slots * self.max_pages + n_slots + 1
+            self.n_pages = int(n_pages)
+            self.cache = model.init_paged_cache(
+                n_slots, max_len, n_pages=self.n_pages, page_size=self.page_size)
+            # pages are shareable only between consumers of one cache format
+            k = self.cache["kv"]["k"]
+            spec_key = (format_spec(model.kv_spec) if model.kv_spec else
+                        "raw:" + str(k.dtype).replace("torch.", ""))
+            self._pager = PagedKVManager(self.n_pages, self.page_size,
+                                         self.max_pages, spec_key)
+            self._slot_pos = np.zeros(n_slots, np.int64)
+        else:
+            self.cache = model.init_cache(n_slots, max_len)
+            self.cache["pos"] = torch.zeros((n_slots,), dtype=torch.int32,
+                                            device=self.device)
         self._tok = torch.full((n_slots, 1), self.pad_id, dtype=torch.int64,
                                device=self.device)
         self._slot_rid = np.full(n_slots, -1, np.int64)
@@ -141,6 +175,8 @@ class ServeEngine:
         st.context = np.concatenate(
             [np.asarray(st.req.prompt, np.int32).reshape(-1),
              np.asarray(st.out, np.int32)])
+        if self.paged:
+            self._release_slot_pages(rid, st)
         self._slot_rid[st.slot] = -1
         st.slot = -1
         st.n_evictions += 1
@@ -165,7 +201,42 @@ class ServeEngine:
         return min(st.req.max_new,
                    self.max_len - int(np.asarray(st.req.prompt).size))
 
+    def _admit_paged(self, rid: int, slot: int) -> None:
+        """Paged admission: match the prefix index, attach the shared pages,
+        copy a borrowed page the suffix writes into, prefill only the
+        unshared suffix through the pool."""
+        st = self._states[rid]
+        ctx = st.context
+        P = int(ctx.size)
+        Pb = min(-(-P // self.prompt_bucket) * self.prompt_bucket, self.max_len)
+        t0 = time.perf_counter()
+        # bucketed prompts page-align the prefix hit as the reference does
+        # (there to bound compile variants; here to serve the same tokens)
+        plan = self._pager.admit(rid, ctx.tolist(), Pb,
+                                 page_align=self.prompt_bucket > 1)
+        prefix_len = int(plan.prefix_len)
+        kv = self.cache["kv"]
+        for src, dst in plan.copies:
+            for name in ("k", "v"):
+                kv[name][:, dst] = kv[name][:, src]
+        self.cache["pages"][slot] = torch.from_numpy(plan.table).to(self.device)
+        n_suffix = P - prefix_len
+        padded = np.full((1, Pb - prefix_len), self.pad_id, np.int64)
+        padded[0, :n_suffix] = ctx[prefix_len:]
+        self.cache, logits = self.model.prefill_paged(
+            self.params, torch.from_numpy(padded).to(self.device),
+            cache=self.cache, slot=slot, length=n_suffix,
+            prefix_len=prefix_len)
+        # index the prompt's pages so concurrent and later requests with the
+        # same prefix skip its prefill (writes past P touch only offsets
+        # beyond the registered valid run)
+        self._pager.register(rid, ctx.tolist(), P)
+        self._slot_pos[slot] = P
+        self._finish_admit(rid, slot, logits, t0)
+
     def _admit(self, rid: int, slot: int) -> None:
+        if self.paged:
+            return self._admit_paged(rid, slot)
         st = self._states[rid]
         ctx = st.context
         P = int(ctx.size)
@@ -187,6 +258,13 @@ class ServeEngine:
         for name, leaf in small["kv"].items():
             kv[name][:, slot] = leaf[:, 0]
         self.cache["pos"][slot] = small["pos"].reshape(-1)[0]
+        self._finish_admit(rid, slot, logits, t0)
+
+    def _finish_admit(self, rid: int, slot: int, logits: torch.Tensor,
+                      t0: float) -> None:
+        """Shared admission tail: the first token from the prefill logits,
+        slot state, immediate retirement on eos/length."""
+        st = self._states[rid]
         tok0 = torch.argmax(logits, dim=-1)          # (1,)
         self._tok[slot, 0] = tok0[0]
         tok0 = int(tok0[0])                          # synchronises
@@ -203,11 +281,27 @@ class ServeEngine:
         elif len(st.out) >= self._eff_max_new(st):
             self._finish(rid, "length")
 
+    def _release_slot_pages(self, rid: int, st: RequestState) -> None:
+        """Index the slot's pages (full pages + partial tail) for later
+        prefix hits, return the sequence's references, and point the slot's
+        block-table row at the garbage page so the retired slot's zombie
+        decode writes (it rides in the batch until the next admission)
+        cannot touch a live page. Valid tokens = written KV positions = the
+        slot's pos (the last emitted token's KV is never written)."""
+        slot = st.slot
+        tokens = np.concatenate(
+            [np.asarray(st.req.prompt, np.int32).reshape(-1),
+             np.asarray(st.out, np.int32)])
+        self._pager.suspend(rid, tokens.tolist(), int(self._slot_pos[slot]))
+        self.cache["pages"][slot] = 0
+
     def _finish(self, rid: int, reason: str) -> None:
         st = self._states[rid]
         st.finish_reason = reason
         st.finished_at = self.clock
         if st.slot >= 0:
+            if self.paged:
+                self._release_slot_pages(rid, st)
             self._slot_rid[st.slot] = -1
             st.slot = -1
         self._done_box.append(st)
@@ -255,6 +349,17 @@ class ServeEngine:
         rem = int((max_new[live] - n_gen[live]).max())
         steps = min(steps, 1 << max(rem - 1, 0).bit_length())
 
+        if self.paged:
+            # page coverage for every live slot's worst-case advance in this
+            # chunk, allocated on the host before the chunk runs
+            for b, rid in enumerate(self._slot_rid):
+                if rid < 0:
+                    continue
+                row = self._pager.ensure(
+                    rid, min(int(self._slot_pos[b]) + steps, self.max_len))
+                if row is not None:
+                    self.cache["pages"][b] = torch.from_numpy(row).to(self.device)
+
         t0 = time.perf_counter()
         dev = self.device
         toks = self._chunk(torch.from_numpy(~live).to(dev),
@@ -275,6 +380,10 @@ class ServeEngine:
             for s in range(steps):
                 t = int(toks[s, b])
                 st.out.append(t)
+                if self.paged:
+                    # the device's pos advances once per emitted token and
+                    # must be current before _finish releases the pages
+                    self._slot_pos[b] += 1
                 if self.eos_id is not None and t == self.eos_id:
                     self._finish(rid, "eos")
                     break
@@ -306,7 +415,7 @@ class ServeEngine:
     def stats(self) -> Dict[str, Any]:
         gen = sum(len(s.out) for s in self._states.values())
         n_dec = gen - self.n_prefill_sampled
-        return {
+        out = {
             "requests": len(self._states),
             "generated_tokens": gen,
             "prefill_sampled_tokens": self.n_prefill_sampled,
@@ -316,3 +425,6 @@ class ServeEngine:
             "decode_time_s": self.decode_time,
             "decode_tok_per_s": n_dec / self.decode_time if self.decode_time else 0.0,
         }
+        if self.paged:
+            out.update(self._pager.stats())
+        return out

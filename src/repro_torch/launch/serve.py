@@ -1,14 +1,15 @@
 """Serving CLI: continuous-batching quantized serving on the card.
 
-Port of ``repro/launch/serve.py`` (engine path; paged cache, tensor
-parallelism and the legacy one-shot loop are later slices). Weights are
-post-training-quantized per a QuantPolicy as they are drawn, served by the
-continuous-batching engine; ``--use-kernel`` routes every quantized matmul
-through the hand-written PoFx/FxP kernels and, with ``--kv-quant``,
-decode attention through the flash-decode kernel:
+Port of ``repro/launch/serve.py`` (engine path, dense or paged cache;
+tensor parallelism and the legacy one-shot loop are later slices). Weights
+are post-training-quantized per a QuantPolicy as they are drawn, served by
+the continuous-batching engine; ``--use-kernel`` routes every quantized
+matmul through the hand-written PoFx/FxP kernels and, with ``--kv-quant``,
+decode attention through the flash-decode kernel (``--paged``: the paged
+flash-decode kernel over a page pool with prefix sharing):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \\
-        --quant pofx8 --kv-quant fxp8 --use-kernel
+        --quant pofx8 --kv-quant fxp8 --use-kernel [--paged --page-size 16]
 
 ``--smoke`` serves the reduced config; ``--device cpu`` runs on the CPU
 (the kernels' plain versions). ``--gen`` counts tokens generated per
@@ -76,11 +77,24 @@ def main(argv=None) -> ServeRun:
                     help="virtual decode steps between request arrivals")
     ap.add_argument("--prompt-bucket", type=int, default=1,
                     help="round prompt lengths up to this multiple")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV cache: fixed-size token pages + per-slot "
+                         "block tables + radix prefix sharing; token "
+                         "streams identical to the dense engine (dense "
+                         "family)")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page (--paged)")
+    ap.add_argument("--n-pages", type=int, default=0,
+                    help="page pool size (--paged; 0 = dense-equivalent "
+                         "capacity + headroom)")
     args = ap.parse_args(argv)
 
     cfg = ARCHS[args.arch]
     if args.smoke:
         cfg = smoke_cfg(cfg)
+    if args.paged and cfg.family != "dense":
+        ap.error(f"--paged supports the dense family in this port, not "
+                 f"{cfg.family} (moe waits for ROADMAP A9)")
     rcfg = RunConfig(remat="none")
     policy = QuantPolicy.from_string(args.quant)
     kv_spec = resolve_kv_spec(args.kv_quant, policy)
@@ -110,7 +124,9 @@ def main(argv=None) -> ServeRun:
     engine = ServeEngine(
         model, params, n_slots=args.batch, max_len=P + G,
         eos_id=args.eos_id if args.eos_id >= 0 else None,
-        chunk=args.chunk, prompt_bucket=args.prompt_bucket)
+        chunk=args.chunk, prompt_bucket=args.prompt_bucket,
+        paged=args.paged, page_size=args.page_size,
+        n_pages=args.n_pages or None)
     requests = make_requests(cfg.vocab_size, n_req, P, G, args.arrival_gap)
     done = engine.run(requests)
 
@@ -128,6 +144,15 @@ def main(argv=None) -> ServeRun:
           f" tok/s)")
     print(f"total:   {n_gen} generated tokens in {engine.total_time:.3f}s "
           f"({n_gen/engine.total_time:.1f} tok/s end-to-end)")
+    if args.paged:
+        print(f"paging:  page={engine.page_size} tok, "
+              f"{stats['resident_pages']}/{engine.n_pages - 1} pages "
+              f"resident, prefix hits {stats['prefix_hits']}/"
+              f"{stats['prefix_queries']} "
+              f"(rate {stats['prefix_hit_rate']:.2f}, "
+              f"{stats['prefix_hit_tokens']} prefill tokens skipped), "
+              f"{stats['pages_freed']} pages freed on evict/finish, "
+              f"{stats['cow_copies']} CoW copies")
     if any(len(s.out) > G for s in done):
         raise RuntimeError("engine generated more than --gen tokens")
     s0 = done[0]

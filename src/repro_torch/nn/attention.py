@@ -12,8 +12,15 @@ Port of the dense, single-device paths of ``repro/nn/attention.py``:
   heads-major (B, G, S, Dh) layer cache IN PLACE (the reference's vmapped
   ``dynamic_update_slice``), then attended through ``kv_flash_decode`` or
   the dequantize-on-read fallback.
+* paged cache — the layer cache is a page POOL ((n_pages, G, ps, Dh) codes,
+  global (G, 1, Dh) scales) read and written through per-slot block
+  tables. Decode writes the new token through the table in place and
+  attends through ``kv_flash_paged_decode`` or the gather + dequantize
+  fallback; the batch-1 admission prefill attends [shared prefix ;
+  suffix] with ``bias_offset`` = prefix length and writes the suffix's
+  codes through the slot's table row.
 
-Tensor-parallel modes, cross-attention and the paged cache are later slices.
+Tensor-parallel modes and cross-attention are later slices.
 """
 from __future__ import annotations
 
@@ -23,6 +30,7 @@ import torch
 
 from repro_torch.core.quantizers import kv_dequantize, kv_quantize
 from repro_torch.kernels.ops import KernelSet
+from repro_torch.kernels.ref import gather_pages
 from .layers import apply_rotary, matmul_param, rmsnorm, rotary_cos_sin
 
 NEG_INF = -1e30
@@ -107,6 +115,54 @@ def decode_attention(q, k_cache, v_cache, pos) -> torch.Tensor:
     return o.to(q.dtype)
 
 
+def _pool_scale_grouped(scale: torch.Tensor) -> torch.Tensor:
+    """Paged pool scale (G, 1, Dh) -> (1, 1, G, Dh) for grouped K/V."""
+    return scale.transpose(0, 1)[None]
+
+
+def _paged_write(pool: dict, tables: torch.Tensor, positions: torch.Tensor,
+                 k_vals: torch.Tensor, v_vals: torch.Tensor, page_size: int,
+                 kv_spec) -> None:
+    """Write per-token K/V through a block table into the pool, in place.
+
+    pool: {"k"/"v": (n_pages, G, ps, Dh)[, "k_scale"/"v_scale": (G, 1, Dh)]};
+    tables: one (max_pages,) row or (N, max_pages); positions: (N,) token
+    indices aligned with k_vals/v_vals (N, G, Dh). Positions past the
+    table's coverage go to the garbage page (page 0): a retired slot's
+    zombie writes must not clobber a live page.
+    """
+    ps = page_size
+    positions = positions.long()
+    page_idx = positions // ps
+    off = positions % ps
+    row = tables if tables.ndim == 2 else tables[None].expand(
+        positions.shape[0], tables.shape[0])
+    max_pages = row.shape[1]
+    safe = page_idx.clamp(max=max_pages - 1)
+    pt = row.long().gather(1, safe[:, None])[:, 0]
+    pt = torch.where(page_idx < max_pages, pt, torch.zeros_like(pt))
+    for name, vals in (("k", k_vals), ("v", v_vals)):
+        dst = pool[name]
+        if kv_spec is not None and "k_scale" in pool:
+            vals = kv_quantize(vals, kv_spec, pool[f"{name}_scale"][:, 0])
+        dst[pt, :, off, :] = vals.to(dst.dtype)
+
+
+def _paged_gather(pool: dict, tables: torch.Tensor, kv_spec):
+    """Pages -> contiguous heads-major K/V (the fallback read path).
+
+    Returns (k, v) shaped (B, G, max_pages * ps, Dh), dequantized when the
+    pool holds codes: ``kernels.ref.gather_pages`` + dequantize, the paged
+    kernel's plain version.
+    """
+    def one(name):
+        flat = gather_pages(pool[name], tables)
+        if kv_spec is not None and "k_scale" in pool:
+            return kv_dequantize(flat, kv_spec, pool[f"{name}_scale"][None])
+        return flat
+    return one("k"), one("v")
+
+
 def attn_shapes(cfg) -> dict:
     """{name: (in_dim, out_dims)} of the attention weights."""
     d, H, G, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
@@ -118,7 +174,10 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
                  positions: torch.Tensor, causal: bool = True,
                  cache: Optional[dict] = None, cache_pos=None,
                  kernels: Optional[KernelSet] = None, kv_spec=None,
-                 kv_scales: Optional[dict] = None):
+                 kv_scales: Optional[dict] = None,
+                 pages: Optional[torch.Tensor] = None,
+                 page_size: Optional[int] = None,
+                 paged_prefill: Optional[dict] = None):
     """Full attention layer. Returns (y, new_kv).
 
     Decode (``cache`` given, one token): ``cache`` is the layer's
@@ -127,6 +186,13 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
     at ``cache_pos`` (scalar or (B,)) and new_kv is ``cache``. Prefill:
     ``kv_scales`` (the cache's static scales) makes K/V round through the
     cache grid first; new_kv holds grouped (B, S, G, Dh) K/V or codes.
+
+    Paged decode: ``cache`` is the layer's page pool, ``pages`` the
+    (B, max_pages) block tables and ``page_size`` the tokens per page.
+    Paged prefill: ``paged_prefill`` = {pool, row, prefix_len, page_size}
+    (batch 1); the suffix attends to the ``prefix_len`` tokens already
+    resident in the row's pages and writes its own codes through the row.
+    Both update the pool in place and return it as new_kv.
     """
     B, Sq, _ = x.shape
     Dh = cfg.d_head
@@ -143,7 +209,20 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
     if cfg.qk_norm:
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
     k = apply_rotary(k, cos, sin)
-    if cache is not None and Sq == 1:
+    if cache is not None and Sq == 1 and pages is not None:
+        pos_b = torch.as_tensor(cache_pos, device=x.device).reshape(-1).expand(B)
+        _paged_write(cache, pages, pos_b, k[:, 0], v[:, 0], page_size, kv_spec)
+        new_kv = cache
+        quant = kv_spec is not None and "k_scale" in cache
+        if quant and kernels is not None:
+            o = kernels.kv_flash_paged_decode(
+                q[:, 0], cache["k"], cache["k_scale"], cache["v"],
+                cache["v_scale"], pages, pos_b + 1, kv_spec)
+            y = o[:, None].to(q.dtype)
+        else:
+            kf, vf = _paged_gather(cache, pages, kv_spec)
+            y = decode_attention(q, kf, vf, pos_b + 1)
+    elif cache is not None and Sq == 1:
         quant = kv_spec is not None and "k_scale" in cache
         k_upd = k[:, 0]                                   # (B, G, Dh)
         v_upd = v[:, 0]
@@ -169,6 +248,39 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
             y = decode_attention(q, kf, vf, pos_b + 1)
         else:
             y = decode_attention(q, cache["k"], cache["v"], pos_b + 1)
+    elif paged_prefill is not None:
+        if B != 1:
+            raise ValueError(f"paged prefill is batch-1 (admission), got B={B}")
+        pool = paged_prefill["pool"]
+        row = paged_prefill["row"]
+        prefix_len = int(paged_prefill["prefix_len"])
+        ps = int(paged_prefill["page_size"])
+        quant = kv_spec is not None and "k_scale" in pool
+        if quant:
+            ks = _pool_scale_grouped(pool["k_scale"])
+            vs = _pool_scale_grouped(pool["v_scale"])
+            k = kv_dequantize(kv_quantize(k, kv_spec, ks), kv_spec, ks, k.dtype)
+            v = kv_dequantize(kv_quantize(v, kv_spec, vs), kv_spec, vs, v.dtype)
+        k_suf, v_suf = k, v
+        if prefix_len > 0:
+            # the shared prefix, read before the suffix writes (which land
+            # at positions >= prefix_len only)
+            ids = row[:-(-prefix_len // ps)].long()
+
+            def grouped_prefix(name):
+                t = pool[name][ids]                  # (npp, G, ps, Dh)
+                if quant:
+                    t = kv_dequantize(t, kv_spec, pool[f"{name}_scale"], k.dtype)
+                t = t.transpose(1, 2).reshape(-1, G, Dh)
+                return t[None, :prefix_len].to(k.dtype)
+
+            k = torch.cat([grouped_prefix("k"), k], dim=1)
+            v = torch.cat([grouped_prefix("v"), v], dim=1)
+        positions_w = prefix_len + torch.arange(Sq, device=x.device)
+        _paged_write(pool, row, positions_w, k_suf[0], v_suf[0], ps, kv_spec)
+        new_kv = pool
+        y = flash_attention(q, k, v, causal=causal, q_chunk=rcfg.attn_q_chunk,
+                            kv_chunk=rcfg.attn_kv_chunk, bias_offset=prefix_len)
     else:
         if kv_spec is not None and kv_scales is not None:
             ks = kv_scales["k_scale"].transpose(1, 2)        # (B, 1, G, Dh)

@@ -9,7 +9,11 @@ Parameters are nested dicts like the reference's tree, except that
 ``blocks`` is a list with one dict per layer instead of layer-stacked
 leaves. The decode cache keeps the reference layout: {"pos": scalar or
 (B,) int32, "kv": {"k", "v": (L, B, G, S, Dh)[, "k_scale", "v_scale":
-(L, B, G, 1, Dh)]}}; decode writes it in place.
+(L, B, G, 1, Dh)]}}; decode writes it in place. The paged cache
+(``init_paged_cache``, ``prefill_paged``) replaces the batch and sequence
+axes by one pool of pages: {"pos": (B,), "pages": (B, max_pages) int32
+block tables, "kv": {"k", "v": (L, n_pages, G, ps, Dh)[, "k_scale",
+"v_scale": (L, G, 1, Dh)]}}.
 
 Everything runs on ``device`` ("cuda" unless the caller asks otherwise);
 asking for CUDA without a card raises.
@@ -193,8 +197,107 @@ class LM:
         return {"pos": torch.zeros((), dtype=torch.int32, device=self.device),
                 "kv": self._kv_cache(batch, max_len, spec)}
 
+    # -- paged cache ----------------------------------------------------------
+
+    def _paged_pool(self, n_pages: int, page_size: int,
+                    spec: Optional[QuantSpec]) -> Dict[str, torch.Tensor]:
+        """Every layer's page pool: (L, n_pages, G, ps, Dh) pages (heads-major
+        within a page, so a gather gives the dense cache's layout) and,
+        quantized, ONE static per-channel scale leaf per layer, (L, G, 1, Dh)
+        ones, global across pages: pages are shareable between requests only
+        because every page quantizes under the same grid (paging.py)."""
+        cfg, dev = self.cfg, self.device
+        L, G, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.d_head
+        shape = (L, n_pages, G, page_size, Dh)
+        if spec is not None:
+            cdt = kv_code_dtype(spec)
+            sshape = (L, G, 1, Dh)
+            return {"k": torch.zeros(shape, dtype=cdt, device=dev),
+                    "k_scale": torch.ones(sshape, dtype=torch.float32, device=dev),
+                    "v": torch.zeros(shape, dtype=cdt, device=dev),
+                    "v_scale": torch.ones(sshape, dtype=torch.float32, device=dev)}
+        kdt = (torch.bfloat16 if self.rcfg.kv_cache_dtype == "int8"
+               else _dt(self.rcfg.kv_cache_dtype))
+        return {"k": torch.zeros(shape, dtype=kdt, device=dev),
+                "v": torch.zeros(shape, dtype=kdt, device=dev)}
+
+    def _require_pageable(self) -> None:
+        # the reference pages dense and moe; moe is not ported yet
+        if self.cfg.family != "dense":
+            raise NotImplementedError(
+                f"the paged {self.cfg.family!r} cache is not ported yet "
+                "(moe: ROADMAP A9)")
+
+    def init_paged_cache(self, batch: int, max_len: int, *, n_pages: int,
+                         page_size: int) -> Dict[str, Any]:
+        """Paged decode cache: page pools + per-slot block tables.
+
+        ``pages`` is the (batch, ceil(max_len / page_size)) block table of
+        physical page ids (garbage page 0 when unallocated) that the host's
+        ``launch.paging.PagedKVManager`` maintains; ``pos`` is the dense
+        engine's per-slot length vector.
+        """
+        self._require_pageable()
+        ps = int(page_size)
+        if ps < 1:
+            raise ValueError(f"page_size must be >= 1, got {page_size}")
+        max_pages = -(-int(max_len) // ps)
+        dev = self.device
+        return {"pos": torch.zeros((batch,), dtype=torch.int32, device=dev),
+                "pages": torch.zeros((batch, max_pages), dtype=torch.int32,
+                                     device=dev),
+                "kv": self._paged_pool(int(n_pages), ps, self.kv_spec)}
+
+    @staticmethod
+    def _paged_page_size(cache) -> int:
+        return int(cache["kv"]["k"].shape[-2])
+
+    @torch.no_grad()
+    def prefill_paged(self, params, tokens: torch.Tensor, *, cache, slot: int,
+                      length, prefix_len: int = 0):
+        """Admission prefill through the page pool (batch 1, one slot).
+
+        ``tokens`` (1, S) is the context *suffix* (the part not already
+        resident in shared pages), right-padded when S exceeds the true
+        ``length``; ``prefix_len`` counts the shared resident tokens. The
+        suffix attends to [prefix ; suffix] with the kv-chunk boundaries a
+        dense prefill of the whole context would use, so the logits match
+        the dense engine's, and writes its codes through slot's block-table
+        row in place. Sets ``pos[slot]`` to ``prefix_len + length``.
+        Returns (cache, last-token logits).
+        """
+        self._require_pageable()
+        cfg, rcfg = self.cfg, self.rcfg
+        self._check_cache_layout(cache)
+        tokens = tokens.to(self.device)
+        B, Sq = tokens.shape
+        prefix_len = int(prefix_len)
+        positions = (prefix_len + torch.arange(Sq, device=self.device))[None, :]
+        positions = positions.expand(B, Sq)
+        x = T.embed_tokens(params["embed"], tokens, self.act_dtype)
+        row = cache["pages"][int(slot)]
+        ps = self._paged_page_size(cache)
+        for i, lp in enumerate(params["blocks"]):
+            pp = {"pool": self.layer_cache(cache, i), "row": row,
+                  "prefix_len": prefix_len, "page_size": ps}
+            x, _ = T.dense_block_forward(lp, x, cfg, rcfg, positions=positions,
+                                         kernels=self.kernels,
+                                         kv_spec=self.kv_spec,
+                                         paged_prefill=pp)
+        length = int(length)
+        logits = self._logits(params, x[:, length - 1])
+        cache["pos"][int(slot)] = prefix_len + length
+        return cache, logits
+
     def _check_cache_layout(self, cache) -> None:
         kv = cache["kv"]
+        if "pages" in cache:
+            self._require_pageable()
+            for name in ("k_scale", "v_scale"):
+                if name in kv and kv[name].ndim != 4:
+                    raise ValueError(
+                        f"paged cache {name} must be global per layer "
+                        f"(L, G, 1, Dh); got {tuple(kv[name].shape)}")
         quant = "k_scale" in kv
         if (self.kv_spec is not None) != quant:
             raise ValueError(
@@ -263,8 +366,9 @@ class LM:
 
         ``cache["pos"]`` is a scalar or (B,) per-slot lengths; rotary
         positions, the KV write and the attention mask follow it per slot.
-        The layer caches are updated in place; the returned dict carries
-        ``pos + 1``.
+        A paged cache (``"pages"`` in it) is read and written through its
+        block tables. The layer caches are updated in place; the returned
+        dict carries ``pos + 1``.
         """
         cfg, rcfg = self.cfg, self.rcfg
         self._check_cache_layout(cache)
@@ -272,11 +376,17 @@ class LM:
         pos = cache["pos"]
         positions = pos.reshape(-1, 1).expand(B, 1)
         x = T.embed_tokens(params["embed"], tokens, self.act_dtype)
+        paged = {}
+        if "pages" in cache:
+            # the blocks read and write the page pool through the per-slot
+            # block tables instead of per-slot rows
+            paged = {"pages": cache["pages"],
+                     "page_size": self._paged_page_size(cache)}
         for i, lp in enumerate(params["blocks"]):
             x, _ = T.dense_block_forward(lp, x, cfg, rcfg, positions=positions,
                                          cache=self.layer_cache(cache, i),
                                          cache_pos=pos, kernels=self.kernels,
-                                         kv_spec=self.kv_spec)
+                                         kv_spec=self.kv_spec, **paged)
         return dict(cache, pos=pos + 1), self._logits(params, x[:, 0])
 
 

@@ -20,11 +20,13 @@ from .layers import Param, mlp_forward, rmsnorm
 def dense_block_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
                         positions, cache=None, cache_pos=None,
                         kernels: Optional[KernelSet] = None, kv_spec=None,
-                        kv_scales=None):
+                        kv_scales=None, pages=None, page_size=None,
+                        paged_prefill=None):
     h, new_kv = attn_forward(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg,
                              rcfg, positions=positions, cache=cache,
                              cache_pos=cache_pos, kernels=kernels,
-                             kv_spec=kv_spec, kv_scales=kv_scales)
+                             kv_spec=kv_spec, kv_scales=kv_scales, pages=pages,
+                             page_size=page_size, paged_prefill=paged_prefill)
     x = x + h
     x = x + mlp_forward(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.act,
                         kernels=kernels)

@@ -15,6 +15,9 @@ from repro_torch.core.quantizers import kv_quantize
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.fxp_matmul import fxp_matmul, fxp_matmul_ref
 from repro_torch.kernels.kv_flash_decode import kv_flash_decode, kv_flash_decode_ref
+from repro_torch.kernels.kv_flash_paged_decode import (kv_flash_paged_decode,
+                                                       kv_flash_paged_decode_ref)
+from repro_torch.kernels.ref import gather_pages
 from repro_torch.kernels.pofx_matmul import pofx_matmul, pofx_matmul_ref
 
 pytestmark = pytest.mark.requires_cuda
@@ -79,10 +82,52 @@ def test_kv_flash_decode_matches_plain(cuda, spec_s, Dh, S):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
 
 
+@pytest.mark.parametrize("spec_s", ["fxp8", "pofx8es2"])
+@pytest.mark.parametrize("ps", [4, 16, 48])
+def test_kv_flash_paged_decode_matches_plain_and_dense_kernel(cuda, spec_s, ps):
+    """Scrambled tables (no slot's pages contiguous), garbage-page tails,
+    pos 0 (every position masked: the plain version averages all
+    max_pages * ps rows, garbage included) and a full slot."""
+    spec = parse_spec(spec_s)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    B, G, R, Dh, max_pages = 4, 4, 8, 128, -(-200 // ps)
+    S = max_pages * ps
+    n_pages = B * max_pages + 2
+    ks = torch.exp2(torch.randint(-1, 2, (G, 1, Dh), generator=g, device=cuda).float())
+    vs = torch.exp2(torch.randint(-1, 2, (G, 1, Dh), generator=g, device=cuda).float())
+    kc = kv_quantize(torch.randn(n_pages, G, ps, Dh, generator=g, device=cuda), spec, ks)
+    vc = kv_quantize(torch.randn(n_pages, G, ps, Dh, generator=g, device=cuda), spec, vs)
+    q = torch.randn(B, G, R, Dh, generator=g, device=cuda)
+    pos = torch.tensor([0, S // 3, S - 1, S], dtype=torch.int32, device=cuda)
+    tables = torch.zeros(B, max_pages, dtype=torch.int32, device=cuda)
+    order = torch.randperm(max_pages, generator=g, device=cuda)
+    for b in range(B):     # slot b owns pages b+1, b+1+B, ...: never adjacent
+        n = -(-max(int(pos[b]), 1) // ps)
+        tables[b, :n] = (1 + b + B * order[:n]).to(torch.int32)
+    before = LAUNCHES["kv_flash_paged_decode"]
+    got = kv_flash_paged_decode(q, kc, ks, vc, vs, tables, pos, spec)
+    assert LAUNCHES["kv_flash_paged_decode"] == before + 1
+    want = kv_flash_paged_decode_ref(q, kc, ks, vc, vs, tables, pos, spec)
+    # online vs one-pass f32 softmax: a few ulps of the largest |v|
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    # the dense kernel on the gathered cache walks the same tiles in the
+    # same order: bit for bit
+    dense = kv_flash_decode(q, gather_pages(kc, tables), ks[None].expand(B, G, 1, Dh),
+                            gather_pages(vc, tables), vs[None].expand(B, G, 1, Dh),
+                            pos, spec)
+    assert torch.equal(got, dense)
+
+
 def test_wrappers_raise_on_mixed_devices(cuda):
     with pytest.raises(ValueError, match="CUDA"):
         pofx_matmul(torch.zeros(2, 8, device=cuda),
                     torch.zeros(8, 4, dtype=torch.uint8), torch.ones(4), 8, 2)
+    pool = torch.zeros(3, 2, 4, 32, dtype=torch.int8, device=cuda)
+    one = torch.ones(2, 1, 32, device=cuda)
+    with pytest.raises(ValueError, match="CUDA"):
+        kv_flash_paged_decode(torch.zeros(1, 2, 2, 32, device=cuda), pool, one, pool,
+                              one, torch.zeros(1, 2, dtype=torch.int32), 3,
+                              parse_spec("fxp8"))
     with pytest.raises(ValueError, match="uint8"):
         pofx_matmul(torch.zeros(2, 8, device=cuda),
                     torch.zeros(8, 4, dtype=torch.int8, device=cuda),
