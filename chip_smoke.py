@@ -7,9 +7,12 @@ Phases, one line each, any failure exits non-zero without the final line:
 
 1. device and build: the card's name and power limit (nvidia-smi), the
    nvcc build of every kernel in src/repro_torch/csrc for sm_90a;
-2. each kernel against its plain PyTorch version on the card at yi-9b
-   shapes, with its time, the plain version's, a library yardstick's and
-   the least time the card could take (bound);
+2. the kernel benchmark (``python -m repro_torch.bench.kernels``, the
+   entry point that runs pofx_decode): each kernel against its plain
+   PyTorch version on the card, pofx_decode exact on every code of every
+   pofx spec and on ragged shapes, at the reference bench's shapes and at
+   yi-9b shapes, with its time, the plain version's, a library
+   yardstick's and the least time the card could take (bound);
 3. the main path: the serving CLI (``repro_torch.launch.serve.main``) with
    ``--arch yi-9b --quant pofx8 --kv-quant fxp8 --use-kernel`` and its
    defaults, i.e. the ServeEngine serving yi-9b at full width and depth
@@ -17,7 +20,9 @@ Phases, one line each, any failure exits non-zero without the final line:
    tokens, greedy), with the kernels' launch counts and the first-token
    logits against the plain path;
 4. token identity at yi-9b width, 4 layers, f32 activations: kernels vs
-   their plain versions on the card;
+   their plain versions on the card, greedy and sampled (temperature 0.8,
+   top-k 40), and a sampled request evicted and resumed continues its
+   uninterrupted stream;
 5. the mixed policy attn/*=pofx8es2,mlp/*=fxp8f7,*=bf16 with an fxp8 KV
    cache at yi-9b width, 2 layers, f32 activations: fxp_matmul launches;
    its streams against the all-plain path's are reported, and the ways in
@@ -36,7 +41,12 @@ Phases, one line each, any failure exits non-zero without the final line:
    ending inside a page, so copy-on-write runs), one identical prompt, and
    one request evicted and resumed (its pages re-attached); prefix hits,
    copies and frees as the requests imply, and streams identical to the
-   dense engine and to the all-plain paged engine.
+   dense engine and to the all-plain paged engine;
+8. sampled serving: the serving CLI with MAIN_ARGV + ``--temperature 0.8
+   --top-k 40`` (yi-9b, 48 layers, bf16), dense twice (the same seed gives
+   the same streams) and with ``--paged --page-size 16`` (the dense
+   streams); launch counts, tok/s beside phase 3's, and the time the draw
+   adds to a decode step.
 
 TF32 is off for matmuls and convolutions, so every f32 product (the plain
 versions included) is a true f32 product. Details go to
@@ -55,247 +65,22 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
 
-# NVIDIA H100 SXM data sheet, dense: HBM3 bytes/s and peak rates by type
-HBM_BPS = 3.35e12
-PEAK = {"bf16": 989e12, "int8": 1979e12, "f32": 67e12}
-
-SHAPES_POFX = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096), (4096, 64000)]
-
-
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def nvidia_smi() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return res.stdout.strip().splitlines()[0]
-
-
-def bound_ms(nbytes: float, ops: float, kind: str):
-    t_bytes, t_ops = nbytes / HBM_BPS, ops / PEAK[kind]
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
-class Timer:
-    """Median device time of single launches, L2 flushed before each (the
-    serving path streams far more than the 50 MB L2 between two calls)."""
-
-    def __init__(self, torch):
-        self.torch = torch
-        self.flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
-
-    def ms(self, fn, iters: int = 15) -> float:
-        torch = self.torch
-        for _ in range(2):
-            fn()
-        times = []
-        for _ in range(iters):
-            self.flush.zero_()
-            s = torch.cuda.Event(enable_timing=True)
-            e = torch.cuda.Event(enable_timing=True)
-            s.record()
-            fn()
-            e.record()
-            e.synchronize()
-            times.append(s.elapsed_time(e))
-        times.sort()
-        return times[len(times) // 2]
-
-
-def phase_kernels(torch, timer, rows):
-    """Each CUDA kernel against its plain version at yi-9b shapes."""
-    from repro_torch.core.pofx import pofx_norm_lut
-    from repro_torch.core.policy import parse_spec
-    from repro_torch.core.quantizers import kv_dequantize, kv_quantize
-    from repro_torch.kernels.fxp_matmul import fxp_matmul, fxp_matmul_ref
-    from repro_torch.kernels.kv_flash_decode import kv_flash_decode, kv_flash_decode_ref
-    from repro_torch.kernels.pofx_matmul import pofx_matmul, pofx_matmul_ref
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(0)
-
-    # exhaustive decode: identity rows select every code's value exactly
-    for N in (6, 7, 8):
-        for ES in (1, 2, 3):
-            L = 1 << (N - 1)
-            codes = torch.arange(L, device=dev, dtype=torch.uint8)[None].expand(L, L).contiguous()
-            got = pofx_matmul(torch.eye(L, device=dev), codes, torch.ones(L, device=dev), N, ES, 8)
-            want = torch.as_tensor(pofx_norm_lut(N, ES, 8), device=dev).float() / 128
-            if not torch.equal(got, want[None].expand(L, L)):
-                raise AssertionError(f"pofx_matmul decode differs at N={N} ES={ES}")
-    log("  pofx_matmul decode: all codes of pofx(N=6..8, ES=1..3) exact")
-
-    for m in (4, 64):
-        for k, n in SHAPES_POFX:
-            x = torch.randn(m, k, generator=g, device=dev).to(torch.bfloat16)
-            codes = torch.randint(0, 128, (k, n), generator=g, device=dev).to(torch.uint8)
-            scale = torch.exp2(torch.randint(-4, 0, (n,), generator=g, device=dev).float())
-            got = pofx_matmul(x, codes, scale, 8, 2, 8)
-            want = pofx_matmul_ref(x, codes, scale, 8, 2, 8)
-            err = (got - want).abs().max().item()
-            # f32 sums of k products in another order than the plain
-            # version's; allow 1e-4 of the largest output
-            tol = 1e-4 * want.abs().max().item()
-            if not err <= tol:
-                raise AssertionError(f"pofx_matmul m={m} k={k} n={n}: err {err} > {tol}")
-            w = (torch.as_tensor(pofx_norm_lut(8, 2, 8), device=dev)[codes.long()].float()
-                 / 128 * scale).to(torch.bfloat16)
-            b, kind = bound_ms(m * k * 2 + k * n + n * 4 + m * n * 4, 2 * m * k * n, "bf16")
-            row = {"name": "pofx_matmul", "shape": f"m={m} k={k} n={n} x=bf16",
-                   "max_abs_err": err, "tol": tol,
-                   "ms": timer.ms(lambda: pofx_matmul(x, codes, scale, 8, 2, 8)),
-                   "plain_ms": timer.ms(lambda: pofx_matmul_ref(x, codes, scale, 8, 2, 8)),
-                   "library_ms": timer.ms(lambda: torch.matmul(x, w)),
-                   "library": "torch.matmul bf16 on decoded weights",
-                   "bound_ms": b, "bound_by": kind}
-            rows.append(row)
-            log(f"  {row}")
-            del x, codes, scale, w, got, want
-
-    for m in (4, 64):
-        for k, n in ((4096, 11008), (11008, 4096)):
-            a = torch.randint(-127, 128, (m, k), generator=g, device=dev).to(torch.int8)
-            bm = torch.randint(-128, 128, (k, n), generator=g, device=dev).to(torch.int8)
-            got = fxp_matmul(a, bm)
-            want = fxp_matmul_ref(a, bm)
-            if not torch.equal(got, want):
-                raise AssertionError(f"fxp_matmul m={m} k={k} n={n} not exact")
-            b, kind = bound_ms(m * k + k * n + m * n * 4, 2 * m * k * n, "int8")
-            lib = None
-            if m > 16:   # torch._int_mm needs m > 16
-                lib = timer.ms(lambda: torch._int_mm(a, bm))
-            row = {"name": "fxp_matmul", "shape": f"m={m} k={k} n={n}",
-                   "max_abs_err": 0.0, "tol": 0.0,
-                   "ms": timer.ms(lambda: fxp_matmul(a, bm)),
-                   "plain_ms": timer.ms(lambda: fxp_matmul_ref(a, bm)),
-                   "library_ms": lib, "library": "torch._int_mm" if lib else None,
-                   "bound_ms": b, "bound_by": kind}
-            rows.append(row)
-            log(f"  {row}")
-
-    B, G, R, Dh = 4, 4, 8, 128
-    for spec_s in ("fxp8", "pofx8es2"):
-        spec = parse_spec(spec_s)
-        for S, pos_list in ((96, [65, 80, 90, 96]), (1000, [1, 333, 999, 1000])):
-            q = torch.randn(B, G, R, Dh, generator=g, device=dev)
-            ks = torch.exp2(torch.randint(0, 2, (B, G, 1, Dh), generator=g, device=dev).float())
-            vs = torch.exp2(torch.randint(0, 2, (B, G, 1, Dh), generator=g, device=dev).float())
-            kc = kv_quantize(torch.randn(B, G, S, Dh, generator=g, device=dev), spec, ks)
-            vc = kv_quantize(torch.randn(B, G, S, Dh, generator=g, device=dev), spec, vs)
-            pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
-            args = (q, kc, ks, vc, vs, pos, spec)
-            got = kv_flash_decode(*args)
-            want = kv_flash_decode_ref(*args)
-            err = (got - want).abs().max().item()
-            # f32 online softmax vs a one-pass softmax: a few ulps of |v|
-            tol = 1e-5 + 1e-4 * want.abs().max().item()
-            if not err <= tol:
-                raise AssertionError(f"kv_flash_decode {spec_s} S={S}: err {err} > {tol}")
-            kf = kv_dequantize(kc, spec, ks)
-            vf = kv_dequantize(vc, spec, vs)
-            mask = (torch.arange(S, device=dev)[None, :] < pos[:, None].long())[:, None, None, :]
-            sdpa = torch.nn.functional.scaled_dot_product_attention
-            valid = sum(min(p, S) for p in pos_list)
-            nbytes = 2 * G * valid * Dh + 2 * B * G * R * Dh * 4 + 2 * B * G * Dh * 4 + B * 4
-            b, kind = bound_ms(nbytes, 4 * G * R * valid * Dh, "f32")
-            row = {"name": "kv_flash_decode", "shape": f"{spec_s} B={B} G={G} R={R} S={S} Dh={Dh} pos={pos_list}",
-                   "max_abs_err": err, "tol": tol,
-                   "ms": timer.ms(lambda: kv_flash_decode(*args)),
-                   "plain_ms": timer.ms(lambda: kv_flash_decode_ref(*args)),
-                   "library_ms": timer.ms(lambda: sdpa(q, kf, vf, attn_mask=mask)),
-                   "library": "scaled_dot_product_attention on dequantized K/V",
-                   "bound_ms": b, "bound_by": kind}
-            rows.append(row)
-            log(f"  {row}")
-    paged_rows(torch, timer, rows, g)
-
-
-PAGED_SHAPES = ((96, [65, 80, 90, 96]), (1000, [1, 333, 999, 1000]))
-
-
-def paged_rows(torch, timer, rows, g):
-    """kv_flash_paged_decode against its plain version and against
-    kv_flash_decode on the gathered cache, ps = 16, tables scrambled so
-    that no slot's pages are contiguous in the pool, garbage page 0 past
-    each slot's pages."""
-    from repro_torch.core.policy import parse_spec
-    from repro_torch.core.quantizers import kv_dequantize, kv_quantize
-    from repro_torch.kernels.kv_flash_decode import kv_flash_decode
-    from repro_torch.kernels.kv_flash_paged_decode import (kv_flash_paged_decode,
-                                                           kv_flash_paged_decode_ref)
-    from repro_torch.kernels.ref import gather_pages
-    dev = torch.device("cuda")
-    B, G, R, Dh, ps = 4, 4, 8, 128, 16
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    for spec_s in ("fxp8", "pofx8es2"):
-        spec = parse_spec(spec_s)
-        for S, pos_list in PAGED_SHAPES:
-            mp = -(-S // ps)
-            n_pages = B * mp + 1
-            q = torch.randn(B, G, R, Dh, generator=g, device=dev)
-            ks = torch.exp2(torch.randint(0, 2, (G, 1, Dh), generator=g, device=dev).float())
-            vs = torch.exp2(torch.randint(0, 2, (G, 1, Dh), generator=g, device=dev).float())
-            kc = kv_quantize(torch.randn(n_pages, G, ps, Dh, generator=g, device=dev), spec, ks)
-            vc = kv_quantize(torch.randn(n_pages, G, ps, Dh, generator=g, device=dev), spec, vs)
-            tables = torch.zeros(B, mp, dtype=torch.int32, device=dev)
-            used = [-(-p // ps) for p in pos_list]
-            for b in range(B):   # slot b owns pages 1+b+B*j in a random order
-                order = torch.randperm(mp, generator=g, device=dev)[:used[b]]
-                tables[b, :used[b]] = (1 + b + B * order).to(torch.int32)
-            pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
-            args = (q, kc, ks, vc, vs, tables, pos, spec)
-            got = kv_flash_paged_decode(*args)
-            want = kv_flash_paged_decode_ref(*args)
-            err = (got - want).abs().max().item()
-            tol = 1e-5 + 1e-4 * want.abs().max().item()
-            if not err <= tol:
-                raise AssertionError(f"kv_flash_paged_decode {spec_s} S={S}: err {err} > {tol}")
-            kg, vg = gather_pages(kc, tables), gather_pages(vc, tables)
-            ksb, vsb = ks[None].expand(B, G, 1, Dh), vs[None].expand(B, G, 1, Dh)
-            dense = kv_flash_decode(q, kg, ksb, vg, vsb, pos, spec)
-            dense_err = (got - dense).abs().max().item()
-
-            def gather_dequant():
-                return (kv_dequantize(gather_pages(kc, tables), spec, ks[None]),
-                        kv_dequantize(gather_pages(vc, tables), spec, vs[None]))
-            kf, vf = gather_dequant()
-            Sg = mp * ps
-            mask = (torch.arange(Sg, device=dev)[None, :] < pos[:, None].long())[:, None, None, :]
-            valid = sum(min(p, Sg) for p in pos_list)
-            nbytes = (2 * G * valid * Dh + 4 * sum(used) + 2 * B * G * R * Dh * 4
-                      + 2 * G * Dh * 4 + B * 4)
-            b_ms, kind = bound_ms(nbytes, 4 * G * R * valid * Dh, "f32")
-            row = {"name": "kv_flash_paged_decode",
-                   "shape": f"{spec_s} B={B} G={G} R={R} ps={ps} pages={mp} S={Sg} Dh={Dh} "
-                            f"pos={pos_list}",
-                   "max_abs_err": err, "tol": tol, "max_abs_diff_dense_kernel": dense_err,
-                   "ms": timer.ms(lambda: kv_flash_paged_decode(*args)),
-                   "plain_ms": timer.ms(lambda: kv_flash_paged_decode_ref(*args)),
-                   "dense_kernel_ms": timer.ms(lambda: kv_flash_decode(q, kg, ksb, vg, vsb, pos, spec)),
-                   "library_ms": timer.ms(lambda: sdpa(q, kf, vf, attn_mask=mask)),
-                   "library": "scaled_dot_product_attention on K/V gathered and dequantized "
-                              "(gather not timed)",
-                   "gather_dequant_ms": timer.ms(gather_dequant),
-                   "bound_ms": b_ms, "bound_by": kind}
-            rows.append(row)
-            log(f"  {row}")
-            if dense_err != 0.0:
-                raise AssertionError(f"kv_flash_paged_decode {spec_s} S={S} differs from "
-                                     f"kv_flash_decode on the gathered cache by {dense_err}")
-
-
 def serve(torch, model, params, *, n_req=8, prompt_len=64, gen=32, slots=4, chunk=8,
-          watch=None):
+          watch=None, sampling=None):
     """The engine over ``model`` serving the CLI's default workload (the
-    requests ``serve.main`` makes); ``watch(engine)`` sees the engine
-    before it runs."""
-    from repro_torch.launch.engine import ServeEngine
+    requests ``serve.main`` makes, greedy unless ``sampling`` is given);
+    ``watch(engine)`` sees the engine before it runs."""
+    from repro_torch.launch.engine import SamplingParams, ServeEngine
     from repro_torch.launch.serve import make_requests
     eng = ServeEngine(model, params, n_slots=slots, max_len=prompt_len + gen, chunk=chunk)
     if watch is not None:
         watch(eng)
-    reqs = make_requests(model.cfg.vocab_size, n_req, prompt_len, gen)
+    reqs = make_requests(model.cfg.vocab_size, n_req, prompt_len, gen,
+                         sampling=sampling or SamplingParams())
     done = eng.run(reqs)
     torch.cuda.synchronize()
     return eng, done, reqs
@@ -310,30 +95,46 @@ def first_logits(torch, model, params, prompt):
 MAIN_ARGV = ["--arch", "yi-9b", "--quant", "pofx8", "--kv-quant", "fxp8", "--use-kernel"]
 
 
-def phase_main_path(torch, result):
-    """``python -m repro_torch.launch.serve`` with MAIN_ARGV and the CLI's
-    defaults (4 slots, 8 requests, 64-token prompts, 32 new tokens), in
-    this process so that the launch counts can be read."""
+def serve_cli_run(torch, argv, what="main path"):
+    """``python -m repro_torch.launch.serve`` with ``argv`` and the CLI's
+    defaults, in this process so that the launch counts can be read (every
+    count set to 0 just before, read just after). Returns (the ServeRun,
+    the counts, a summary of the run)."""
     from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.kernels.ops import PLAIN
     from repro_torch.launch import serve as serve_cli
     torch.cuda.reset_peak_memory_stats()
-    log(f"  repro_torch.launch.serve {' '.join(MAIN_ARGV)}")
+    log(f"  repro_torch.launch.serve {' '.join(argv)}")
     reset_launches()
-    run = serve_cli.main(MAIN_ARGV)
+    run = serve_cli.main(argv)
     torch.cuda.synchronize()
     counts = dict(LAUNCHES)
+    eng, done = run.engine, run.done
+    st = eng.stats()
+    n_prompt = sum(len(s.context) for s in done)
+    summary = {"argv": argv, "arch": "yi-9b", "n_layers": run.model.cfg.n_layers,
+               "requests": len(done), "prompt_len": 64, "gen": 32, "slots": eng.n_slots,
+               "prefill_tok_s": n_prompt / eng.prefill_time,
+               "decode_tok_s": st["decode_tokens"] / eng.decode_time,
+               "prefill_s": eng.prefill_time, "decode_s": eng.decode_time,
+               "decode_steps": st["decode_steps"], "launches": counts,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"  served {len(done)} requests: prefill {n_prompt} tokens in {eng.prefill_time:.3f}s "
+        f"({summary['prefill_tok_s']:.1f} tok/s), decode {st['decode_tokens']} tokens in "
+        f"{eng.decode_time:.3f}s over {st['decode_steps']} steps "
+        f"({summary['decode_tok_s']:.1f} tok/s), peak {summary['peak_gib']:.2f} GiB "
+        f"(init included)")
+    log(f"  launches on the {what}: {counts}")
+    return run, counts, summary
+
+
+def phase_main_path(torch, result):
+    """``python -m repro_torch.launch.serve`` with MAIN_ARGV and the CLI's
+    defaults (4 slots, 8 requests, 64-token prompts, 32 new tokens)."""
+    from repro_torch.kernels.ops import PLAIN
+    run, counts, summary = serve_cli_run(torch, MAIN_ARGV)
     model, params, eng, done = run.model, run.params, run.engine, run.done
     cfg = model.cfg
     st = eng.stats()
-    n_prompt = sum(len(s.context) for s in done)
-    prefill_tps = n_prompt / eng.prefill_time
-    decode_tps = st["decode_tokens"] / eng.decode_time
-    log(f"  served {len(done)} requests: prefill {n_prompt} tokens in {eng.prefill_time:.3f}s "
-        f"({prefill_tps:.1f} tok/s), decode {st['decode_tokens']} tokens in "
-        f"{eng.decode_time:.3f}s over {st['decode_steps']} steps ({decode_tps:.1f} tok/s), "
-        f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (init included)")
-    log(f"  launches on the main path: {counts}")
     per_fwd = 7 * cfg.n_layers + 1
     want_pofx = per_fwd * (st["prefill_sampled_tokens"] + st["decode_steps"])
     want_kv = cfg.n_layers * st["decode_steps"]
@@ -357,14 +158,7 @@ def phase_main_path(torch, result):
         f"(|logits| <= {lp.abs().max().item():.4g}, bf16 activations), "
         f"argmax {int(lk.argmax())} vs {int(lp.argmax())}")
     result["decode_profile"] = profile_decode(torch, model, params)
-    result["main_path"] = {
-        "argv": MAIN_ARGV, "arch": "yi-9b", "n_layers": cfg.n_layers,
-        "requests": len(done), "prompt_len": 64, "gen": 32, "slots": eng.n_slots,
-        "prefill_tok_s": prefill_tps, "decode_tok_s": decode_tps,
-        "prefill_s": eng.prefill_time, "decode_s": eng.decode_time,
-        "decode_steps": st["decode_steps"], "launches": counts,
-        "first_logit_max_abs_diff": diff,
-        "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    result["main_path"] = dict(summary, first_logit_max_abs_diff=diff)
     result["main_streams"] = [s.out for s in done]
     del run, model, params, eng
     torch.cuda.empty_cache()
@@ -384,13 +178,18 @@ def compare(done_k, done_p, what):
     return same
 
 
-def profile_decode(torch, model, params, steps: int = 4, paged: bool = False):
+def profile_decode(torch, model, params, steps: int = 4, paged: bool = False,
+                   sample: bool = False):
     """Device time by kernel over ``steps`` decode steps at 4 slots and a
     64-token context (torch.profiler, CUDA activity), against the host
     wall time of the same steps: where a decode step's time goes. ``paged``
-    profiles the paged cache (16-token pages, 6 per slot)."""
+    profiles the paged cache (16-token pages, 6 per slot); ``sample`` adds
+    the engine's draw to each step (slot keys folded with the positions,
+    temperature 0.8, top-k 40), its token fed back as the engine does."""
     try:
         from torch.profiler import ProfilerActivity, profile
+        from repro_torch.core import prng
+        from repro_torch.launch.engine import sample_tokens
         if paged:
             cache = model.init_paged_cache(4, 96, n_pages=25, page_size=16)
             cache["pages"] = torch.arange(1, 25, dtype=torch.int32, device="cuda").reshape(4, 6)
@@ -398,17 +197,29 @@ def profile_decode(torch, model, params, steps: int = 4, paged: bool = False):
             cache = model.init_cache(4, 96)
         cache["pos"] = torch.full((4,), 64, dtype=torch.int32, device="cuda")
         tok = torch.zeros((4, 1), dtype=torch.long, device="cuda")
-        cache, _ = model.decode_step(params, cache, tok)
+        keys = prng.fold_in(prng.PRNGKey(0, "cuda").expand(4, 2),
+                            torch.arange(4, device="cuda"))
+        temps = torch.full((4,), 0.8, device="cuda")
+        topks = torch.full((4,), 40, dtype=torch.int64, device="cuda")
+
+        def step(cache, tok):
+            pos = cache["pos"]
+            cache, logits = model.decode_step(params, cache, tok)
+            if sample:
+                tok = sample_tokens(logits, prng.fold_in(keys, pos), temps, topks)[:, None]
+            return cache, tok
+
+        cache, tok = step(cache, tok)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(steps):
-            cache, _ = model.decode_step(params, cache, tok)
+            cache, tok = step(cache, tok)
         torch.cuda.synchronize()
         bare_ms = (time.perf_counter() - t0) * 1e3 / steps
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
-                cache, _ = model.decode_step(params, cache, tok)
+                cache, tok = step(cache, tok)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / steps
         by_name, host, syncs = {}, {}, {}
@@ -451,23 +262,52 @@ def small_model(n_layers, policy_s, kv_s):
     return model, model.init(1, policy=QuantPolicy.from_string(policy_s))
 
 
+SAMPLING = {"temperature": 0.8, "top_k": 40}
+
+
 def identity(torch, result):
-    """Phase 4: greedy streams with the kernels equal those with every
-    kernel's plain version, at 4 layers."""
+    """Phase 4: greedy and sampled streams with the kernels equal those with
+    every kernel's plain version, at 4 layers; a sampled request evicted
+    after its first chunk and resumed continues its uninterrupted stream."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.ops import PLAIN
+    from repro_torch.launch.engine import SamplingParams, ServeEngine
+    from repro_torch.launch.serve import make_requests
     model, params = small_model(4, "pofx8", "fxp8")
+    plain = dataclasses.replace(model, kernel_set=PLAIN)
     reset_launches()
     _, done_k, _ = serve(torch, model, params)
     counts = dict(LAUNCHES)
-    _, done_p, _ = serve(torch, dataclasses.replace(model, kernel_set=PLAIN), params)
+    _, done_p, _ = serve(torch, plain, params)
     same, n = compare(done_k, done_p, "plain"), len(done_k)
     log(f"  identity_4l: {n} streams x {len(done_k[0].out)} tokens, {same}/{n} identical "
         f"to the plain path; launches {counts}")
+    sp = SamplingParams(**SAMPLING)
+    _, sk, _ = serve(torch, model, params, sampling=sp)
+    _, sp_plain, _ = serve(torch, plain, params, sampling=sp)
+    same_s = compare(sk, sp_plain, "plain (sampled)")
+    eng = ServeEngine(model, params, n_slots=4, max_len=96, chunk=8)
+    resumed, ctx = drive_paging(eng, make_requests(model.cfg.vocab_size, 8, 64, 32,
+                                                   sampling=sp), evict_rid=0)
+    torch.cuda.synchronize()
+    same_r = sum(resumed[s.req.rid] == s.out for s in sk)
+    greedy_tokens = sum(a == b for s, g in zip(sk, done_k) for a, b in zip(s.out, g.out))
+    log(f"  sampled (temperature 0.8, top-k 40): {same_s}/{n} streams identical to the "
+        f"plain path; with rid 0 evicted after its first chunk (context {ctx}) and "
+        f"resumed, {same_r}/{n} identical to the uninterrupted run; "
+        f"{greedy_tokens}/{n * 32} tokens equal to the greedy run's")
     result["identity_4l"] = {"n_layers": 4, "policy": "pofx8", "kv": "fxp8",
-                             "identical_streams": same, "streams": n, "launches": counts}
+                             "identical_streams": same, "streams": n, "launches": counts,
+                             "sampling": SAMPLING, "sampled_identical_streams": same_s,
+                             "sampled_resume_identical_streams": same_r,
+                             "sampled_tokens_equal_to_greedy": greedy_tokens}
     if same != n:
         raise AssertionError("identity_4l: kernel streams differ from the plain path")
+    if same_s != n:
+        raise AssertionError("identity_4l: sampled kernel streams differ from the plain path")
+    if eng._states[0].n_evictions != 1 or same_r != n:
+        raise AssertionError("identity_4l: the evicted sampled request did not resume "
+                             "its uninterrupted stream")
 
 
 MIXED = "attn/*=pofx8es2,mlp/*=fxp8f7,*=bf16"
@@ -649,39 +489,22 @@ PAGED_ARGV = MAIN_ARGV + ["--paged", "--page-size", "16"]
 
 def phase_paged_main(torch, result):
     """Phase 6: ``python -m repro_torch.launch.serve`` with PAGED_ARGV and
-    the CLI's defaults, in this process so that the launch counts can be
-    read; its streams against phase 3's dense streams."""
-    from repro_torch.kernels import LAUNCHES, reset_launches
-    from repro_torch.launch import serve as serve_cli
+    the CLI's defaults; its streams against phase 3's dense streams."""
     dense = result.get("main_streams")
     if dense is None:
         raise AssertionError("phase 6 compares with phase 3's streams: run phase 3 too")
-    torch.cuda.reset_peak_memory_stats()
-    log(f"  repro_torch.launch.serve {' '.join(PAGED_ARGV)}")
-    reset_launches()
-    run = serve_cli.main(PAGED_ARGV)
-    torch.cuda.synchronize()
-    counts = dict(LAUNCHES)
+    run, counts, summary = serve_cli_run(torch, PAGED_ARGV, "paged main path")
     model, eng, done = run.model, run.engine, run.done
     cfg = model.cfg
     st = eng.stats()
-    n_prompt = sum(len(s.context) for s in done)
-    prefill_tps = n_prompt / eng.prefill_time
-    decode_tps = st["decode_tokens"] / eng.decode_time
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"  served {len(done)} requests: prefill {n_prompt} tokens in {eng.prefill_time:.3f}s "
-        f"({prefill_tps:.1f} tok/s), decode {st['decode_tokens']} tokens in "
-        f"{eng.decode_time:.3f}s over {st['decode_steps']} steps ({decode_tps:.1f} tok/s), "
-        f"peak {peak:.2f} GiB (init included)")
     log(f"  pages: {st['resident_pages']}/{eng.n_pages - 1} resident at the end, "
         f"{st['pages_reclaimed']} reclaimed, {st['pages_freed']} freed, prefix hits "
         f"{st['prefix_hits']}/{st['prefix_queries']}, {st['cow_copies']} CoW copies")
-    log(f"  launches on the paged main path: {counts}")
     eng._pager.check()
     per_fwd = 7 * cfg.n_layers + 1
     want = {"pofx_matmul": per_fwd * (st["prefill_sampled_tokens"] + st["decode_steps"]),
             "kv_flash_paged_decode": cfg.n_layers * st["decode_steps"],
-            "kv_flash_decode": 0, "fxp_matmul": 0}
+            "kv_flash_decode": 0, "fxp_matmul": 0, "pofx_decode": 0}
     if counts["kv_flash_paged_decode"] <= 0 or counts != want:
         raise AssertionError(f"launch counts {counts} != expected {want}")
     if cfg.n_layers != 48 or cfg.d_model != 4096 or len(done) != 8 or not eng.paged:
@@ -691,16 +514,11 @@ def phase_paged_main(torch, result):
     same = sum(a == b for a, b in zip(streams, dense))
     log(f"  streams: {same}/{len(dense)} identical to phase 3's dense streams")
     result["paged_decode_profile"] = profile_decode(torch, model, run.params, paged=True)
-    result["paged_main_path"] = {
-        "argv": PAGED_ARGV, "arch": "yi-9b", "n_layers": cfg.n_layers,
-        "requests": len(done), "slots": eng.n_slots, "page_size": eng.page_size,
-        "n_pages": eng.n_pages, "prefill_tok_s": prefill_tps, "decode_tok_s": decode_tps,
-        "prefill_s": eng.prefill_time, "decode_s": eng.decode_time,
-        "decode_steps": st["decode_steps"], "launches": counts, "peak_gib": peak,
-        "identical_to_dense": same,
-        "paging": {k: st[k] for k in ("resident_pages", "free_pages", "prefix_queries",
-                                      "prefix_hits", "prefix_hit_tokens", "pages_freed",
-                                      "pages_reclaimed", "cow_copies", "index_holdings")}}
+    result["paged_main_path"] = dict(
+        summary, page_size=eng.page_size, n_pages=eng.n_pages, identical_to_dense=same,
+        paging={k: st[k] for k in ("resident_pages", "free_pages", "prefix_queries",
+                                   "prefix_hits", "prefix_hit_tokens", "pages_freed",
+                                   "pages_reclaimed", "cow_copies", "index_holdings")})
     if same != len(dense):
         raise AssertionError("paged streams differ from the dense main path's")
     del run, model, eng
@@ -799,10 +617,95 @@ def phase_paging(torch, result):
         raise AssertionError("paged streams differ from the dense or the all-plain engine")
 
 
+SAMPLED_ARGV = MAIN_ARGV + ["--temperature", "0.8", "--top-k", "40"]
+
+
+def phase_sampled(torch, result):
+    """Phase 8: the serving CLI with SAMPLED_ARGV (yi-9b, 48 layers, bf16),
+    dense, dense again with the same seed (the same streams), and with
+    ``--paged --page-size 16`` (the dense streams); the kernels' launch
+    counts as on the greedy paths; tok/s and the decode-step profile beside
+    phase 3's; the draw alone timed on the card."""
+    from repro_torch.bench.common import Timer
+    from repro_torch.core import prng
+    from repro_torch.launch.engine import SamplingParams, sample_tokens
+    greedy = result.get("main_path")
+    if greedy is None:
+        raise AssertionError("phase 8 compares with phase 3: run phase 3 too")
+    runs, streams = {}, {}
+    for name, argv in (("dense", SAMPLED_ARGV), ("repeat", SAMPLED_ARGV),
+                       ("paged", SAMPLED_ARGV + ["--paged", "--page-size", "16"])):
+        run, counts, summary = serve_cli_run(torch, argv, f"sampled path ({name})")
+        model, eng, done = run.model, run.engine, run.done
+        cfg = model.cfg
+        st = eng.stats()
+        per_fwd = 7 * cfg.n_layers + 1
+        attn = "kv_flash_paged_decode" if eng.paged else "kv_flash_decode"
+        want = {"pofx_matmul": per_fwd * (st["prefill_sampled_tokens"] + st["decode_steps"]),
+                "kv_flash_decode": 0, "kv_flash_paged_decode": 0, "fxp_matmul": 0,
+                "pofx_decode": 0}
+        want[attn] = cfg.n_layers * st["decode_steps"]
+        if counts != want:
+            raise AssertionError(f"sampled {name}: launch counts {counts} != expected {want}")
+        if cfg.n_layers != 48 or cfg.d_model != 4096 or len(done) != 8:
+            raise AssertionError(f"sampled {name} ran {cfg.n_layers} layers, "
+                                 f"d={cfg.d_model}, {len(done)} requests")
+        for s in done:
+            if (s.req.sampling != SamplingParams(**SAMPLING) or len(s.out) != 32
+                    or not all(0 <= t < cfg.vocab_size for t in s.out)):
+                raise AssertionError(f"sampled {name} rid {s.req.rid}: {s.req.sampling}, "
+                                     f"output {s.out}")
+        if eng.paged:
+            eng._pager.check()
+        streams[name] = [s.out for s in done]
+        runs[name] = summary
+        if name == "dense":
+            result["sampled_decode_profile"] = profile_decode(torch, model, run.params,
+                                                              sample=True)
+        del run, model, eng, done
+        torch.cuda.empty_cache()
+    same_repeat = sum(a == b for a, b in zip(streams["dense"], streams["repeat"]))
+    same_paged = sum(a == b for a, b in zip(streams["dense"], streams["paged"]))
+    as_greedy = sum(a == b for s, g in zip(streams["dense"], result["main_streams"])
+                    for a, b in zip(s, g))
+    # the draw alone: fold_in + sample_tokens on (4, 64000) bf16 logits
+    dev = torch.device("cuda")
+    logits = torch.randn(4, 64000, device=dev).to(torch.bfloat16)
+    keys = prng.fold_in(prng.PRNGKey(0, dev).expand(4, 2), torch.arange(4, device=dev))
+    pos = torch.full((4,), 70, dtype=torch.int32, device=dev)
+    temps = torch.full((4,), SAMPLING["temperature"], device=dev)
+    topks = torch.full((4,), SAMPLING["top_k"], dtype=torch.int64, device=dev)
+    timer = Timer(dev)
+    draw_ms = timer.ms(lambda: sample_tokens(logits, prng.fold_in(keys, pos), temps, topks))
+    argmax_ms = timer.ms(lambda: torch.argmax(logits, dim=-1))
+    prof, base = result.get("sampled_decode_profile"), result.get("decode_profile")
+    added = None
+    if prof and base:
+        added = {"bare_wall_ms": prof["bare_wall_ms"] - base["bare_wall_ms"],
+                 "wall_ms": prof["wall_ms"] - base["wall_ms"],
+                 "device_busy_ms": prof["device_busy_ms"] - base["device_busy_ms"]}
+    for name, r in runs.items():
+        log(f"  sampled {name}: decode {r['decode_tok_s']:.1f} tok/s, prefill "
+            f"{r['prefill_tok_s']:.1f} tok/s (phase 3 greedy, same call: "
+            f"{greedy['decode_tok_s']:.1f}, {greedy['prefill_tok_s']:.1f})")
+    log(f"  streams: repeat {same_repeat}/8 and paged {same_paged}/8 identical to the dense "
+        f"sampled streams; {as_greedy}/256 tokens equal to phase 3's greedy streams")
+    log(f"  the draw alone (fold_in + sample_tokens, 4 x 64000 bf16, top-k 40): "
+        f"{draw_ms:.4f} ms on the card (argmax {argmax_ms:.4f} ms); added to a decode "
+        f"step against phase 3's profile: {added}")
+    result["sampled"] = {"argv": SAMPLED_ARGV, "runs": runs,
+                         "identical_repeat": same_repeat, "identical_paged": same_paged,
+                         "tokens_equal_to_greedy": as_greedy, "draw_ms": draw_ms,
+                         "argmax_ms": argmax_ms, "added_per_decode_step": added}
+    if same_repeat != 8 or same_paged != 8:
+        raise AssertionError("sampled streams differ between runs with the same seed "
+                             "or between the dense and paged paths")
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="drive the port on one card")
-    ap.add_argument("--phases", default="2,3,4,5,6,7",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8",
                     help="comma-separated phases after the build (default: all)")
     want = {int(p) for p in ap.parse_args(argv).phases.split(",")}
     import torch
@@ -813,7 +716,9 @@ def main(argv) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     try:
         import repro_torch  # noqa: F401
-        from repro_torch.kernels import build
+        from repro_torch.bench import kernels as bench_kernels
+        from repro_torch.bench.common import nvidia_smi
+        from repro_torch.kernels import LAUNCHES, build, reset_launches
     except ImportError as e:
         print(f"chip_smoke: cannot import the port from {ROOT / 'src'}: {e}", file=sys.stderr)
         return 2
@@ -833,9 +738,18 @@ def main(argv) -> int:
     result = {"card": card, "build_s": info["seconds"]}
     failed = []
     rows = []
+
+    def phase_bench():
+        """The kernel benchmark's entry point on the card; the counts are
+        set to 0 just before and read just after."""
+        reset_launches()
+        rows.extend(bench_kernels.main(["--device", "cuda", "--out", str(OUT / "bench")]))
+        result["bench_counts"] = dict(LAUNCHES)
+        log(f"  launches in the kernel benchmark: {result['bench_counts']}")
+
     phases = [
-        ("phase 2: kernels vs plain versions at yi-9b shapes",
-         lambda: phase_kernels(torch, Timer(torch), rows)),
+        ("phase 2: kernel benchmark (repro_torch.bench.kernels) on the card",
+         phase_bench),
         ("phase 3: main path, yi-9b full width and depth",
          lambda: result.__setitem__("main_counts", phase_main_path(torch, result))),
         ("phase 4: token identity, 4 layers, f32",
@@ -846,6 +760,8 @@ def main(argv) -> int:
          lambda: result.__setitem__("paged_counts", phase_paged_main(torch, result))),
         ("phase 7: paging machinery, 4 layers, f32",
          lambda: phase_paging(torch, result)),
+        ("phase 8: sampled serving, yi-9b full width and depth",
+         lambda: phase_sampled(torch, result)),
     ]
     for label, fn in phases:
         if int(label.split()[1].rstrip(":")) not in want:
@@ -869,7 +785,7 @@ def main(argv) -> int:
     if failed:
         log(f"FAILED: {failed}")
         return 1
-    if want != {2, 3, 4, 5, 6, 7}:
+    if want != {2, 3, 4, 5, 6, 7, 8}:
         log(f"ran phases {sorted(want)} only: no result line")
         return 1
     main_counts = result["main_counts"]
@@ -879,15 +795,21 @@ def main(argv) -> int:
             "fxp_matmul": ("m=4 k=4096 n=11008", mixed["fxp_matmul"]),
             "kv_flash_paged_decode": (
                 "fxp8 B=4 G=4 R=8 ps=16 pages=6 S=96 Dh=128 pos=[65, 80, 90, 96]",
-                result["paged_counts"]["kv_flash_paged_decode"])}
+                result["paged_counts"]["kv_flash_paged_decode"]),
+            "pofx_decode": ("4096x11008 (8,2)", result["bench_counts"]["pofx_decode"])}
     src = {"pofx_matmul": ("src/repro_torch/csrc/pofx_matmul.cu", "src/repro/kernels/pofx_matmul.py:89"),
            "kv_flash_decode": ("src/repro_torch/csrc/kv_flash_decode.cu",
                                "src/repro/kernels/kv_flash_decode.py:139"),
            "fxp_matmul": ("src/repro_torch/csrc/fxp_matmul.cu", "src/repro/kernels/fxp_matmul.py:51"),
            "kv_flash_paged_decode": ("src/repro_torch/csrc/kv_flash_paged_decode.cu",
-                                     "src/repro/kernels/kv_flash_paged_decode.py:142")}
+                                     "src/repro/kernels/kv_flash_paged_decode.py:142"),
+           "pofx_decode": ("src/repro_torch/csrc/pofx_decode.cu",
+                           "src/repro/kernels/pofx_decode.py:45")}
     kernels = []
     for name, (shape, launches) in pick.items():
+        if launches <= 0:
+            log(f"FAILED: {name} was not launched on the path that runs it")
+            return 1
         row = next(r for r in rows if r["name"] == name and r["shape"] == shape)
         kernels.append({"name": name, "route": "cuda", "source": src[name][0],
                         "replaces": src[name][1], "launches": launches,

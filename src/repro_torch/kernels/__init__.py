@@ -1,5 +1,8 @@
 """repro_torch.kernels — hand-written Hopper kernels for the PoFx hot path.
 
+pofx_decode:     Algorithm 1 on every code (posit codes -> FxP int8),
+                 csrc/pofx_decode.cu (the device function is
+                 csrc/pofx_common.cuh)
 pofx_matmul:     fused PoFx decode + matmul (Move&Store), csrc/pofx_matmul.cu
 kv_flash_decode: flash-decode over a byte-wide quantized KV cache,
                  csrc/kv_flash_decode.cu
@@ -16,7 +19,8 @@ per kernel, so a run can show that its path went through them.
 from typing import Dict
 
 LAUNCHES: Dict[str, int] = {"pofx_matmul": 0, "kv_flash_decode": 0,
-                            "fxp_matmul": 0, "kv_flash_paged_decode": 0}
+                            "fxp_matmul": 0, "kv_flash_paged_decode": 0,
+                            "pofx_decode": 0}
 
 
 def reset_launches() -> None:

@@ -24,7 +24,7 @@ __all__ = ["CSRC", "build_dir", "build_all", "library", "check"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 KERNELS = ("pofx_matmul", "kv_flash_decode", "fxp_matmul",
-           "kv_flash_paged_decode")
+           "kv_flash_paged_decode", "pofx_decode")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -107,6 +107,9 @@ _SIGNATURES = {
     "kv_flash_paged_decode": {
         "kv_flash_paged_decode": [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
         + [ctypes.c_float, ctypes.c_void_p]},
+    "pofx_decode": {
+        "pofx_decode": [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 4
+        + [ctypes.c_int] * 3 + [ctypes.c_void_p]},
 }
 
 

@@ -24,10 +24,11 @@ from .fxp_matmul import fxp_matmul, fxp_matmul_ref
 from .kv_flash_decode import kv_flash_decode, kv_flash_decode_ref
 from .kv_flash_paged_decode import (kv_flash_paged_decode,
                                     kv_flash_paged_decode_ref)
+from .pofx_decode import pofx_decode
 from .pofx_matmul import pofx_matmul, pofx_matmul_ref
 
 __all__ = ["KernelSet", "KERNELS", "PLAIN", "quant_matmul",
-           "out_channel_scale"]
+           "out_channel_scale", "pofx_decode", "pofx_matmul", "fxp_matmul"]
 
 
 @dataclasses.dataclass(frozen=True)

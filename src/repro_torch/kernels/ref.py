@@ -11,7 +11,7 @@ import torch
 from repro_torch.core.pofx import pofx_normalized
 from repro_torch.core.quantizers import QuantSpec, _codes_to_values, kv_dequantize
 
-__all__ = ["decode_norm_to_fxp", "pofx_matmul_ref", "fxp_matmul_ref",
+__all__ = ["decode_norm_to_fxp", "pofx_decode_ref", "pofx_matmul_ref", "fxp_matmul_ref",
            "kv_flash_decode_ref", "gather_pages", "kv_flash_paged_decode_ref"]
 
 
@@ -20,6 +20,12 @@ def decode_norm_to_fxp(codes: torch.Tensor, N: int, ES: int,
     """Normalized posit codes -> FxP(M, M-1) int32 by bit-level Algorithm 1."""
     out, _ = pofx_normalized(codes, N, ES, M)
     return out
+
+
+def pofx_decode_ref(codes: torch.Tensor, N: int, ES: int,
+                    M: int = 8) -> torch.Tensor:
+    """Plain version of the decode kernel: codes -> int8 FxP codes."""
+    return decode_norm_to_fxp(codes.to(torch.int32), N, ES, M).to(torch.int8)
 
 
 def pofx_matmul_ref(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,

@@ -14,9 +14,17 @@ Port of ``repro/launch/engine.py`` (dense cache, single device):
   a slot that hits EOS or its token budget freezes (pos stops, pad tokens
   are emitted) until the host retires it between chunks. The cache is
   updated in place (the reference donates it).
+* **Sampling.** Greedy (temperature 0), temperature and top-k compose per
+  slot (``sample_tokens``). Each request's key is the engine key folded
+  with its rid, and every draw folds that key with the absolute position
+  of the token's input (``core.prng``, the reference's threefry), so a
+  request draws the reference's stream whatever the batch around it, and
+  dense, paged and resumed admissions draw alike. The draw runs on the
+  logits' device; a chunk whose live slots are all greedy takes the plain
+  ``argmax``.
 * **Eviction.** ``evict`` returns a running request to the head of the
   queue with its generated prefix folded into the context; re-admission
-  prefills prompt+prefix and continues the identical greedy stream.
+  prefills prompt+prefix and continues the identical stream.
 * **Paged mode** (``paged=True``). The per-slot dense cache becomes one
   pool of fixed-size token pages plus per-slot block tables; the host's
   ``launch.paging.PagedKVManager`` owns allocation, refcounts and the
@@ -26,10 +34,6 @@ Port of ``repro/launch/engine.py`` (dense cache, single device):
   sequence's pages in the index and drop its references, so a resume
   re-attaches the surviving pages and re-prefills one token. Token
   streams are the dense engine's.
-
-Sampling is greedy. Temperature and top-k need a torch threefry that
-reproduces the reference's PRNG streams (ROADMAP A6); until then a
-request with ``temperature > 0`` raises.
 """
 from __future__ import annotations
 
@@ -41,15 +45,21 @@ from typing import Any, Deque, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.core import prng
 from repro_torch.core.policy import format_spec
 from .paging import PagedKVManager
 
-__all__ = ["SamplingParams", "Request", "RequestState", "ServeEngine"]
+__all__ = ["SamplingParams", "Request", "RequestState", "ServeEngine",
+           "sample_tokens"]
+
+NEG_INF = -1e30
 
 
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
-    temperature: float = 0.0     # 0 = greedy (argmax); > 0 is not ported yet
+    """Per-request sampling knobs; all compose per slot in the chunk."""
+    temperature: float = 0.0     # 0 = greedy (argmax)
+    top_k: int = 0               # 0 = no truncation
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,12 +87,39 @@ class RequestState:
         return self.finish_reason is not None
 
 
+def sample_tokens(logits: torch.Tensor, keys: torch.Tensor,
+                  temps: torch.Tensor, topks: torch.Tensor,
+                  use_topk: bool = True) -> torch.Tensor:
+    """Per-slot greedy / temperature / top-k sampling.
+
+    logits (B, V); keys (B, 2) ``core.prng`` keys; temps (B,) f32 (0 =
+    greedy); topks (B,) int (0 = the full distribution). Greedy slots
+    ignore their key. ``use_topk=False`` promises every topk is 0 and skips
+    the sort. Logits below a slot's k-th largest are filtered to NEG_INF
+    (ties with the k-th are kept), the rest divided by the temperature in
+    f32, and the draw is the gumbel-max ``prng.categorical``.
+    """
+    V = logits.shape[-1]
+    greedy = torch.argmax(logits, dim=-1)
+    if use_topk:
+        k = topks.clamp(1, V).to(torch.int64)
+        sorted_lg = torch.sort(logits, dim=-1).values      # ascending
+        kth = torch.gather(sorted_lg, -1, (V - k)[:, None])
+        filt = torch.where((topks[:, None] > 0) & (logits < kth), NEG_INF,
+                           logits)
+    else:
+        filt = logits
+    scaled = filt / temps.clamp_min(1e-6)[:, None]
+    sampled = prng.categorical(keys, scaled)
+    return torch.where(temps > 0, sampled, greedy)
+
+
 class ServeEngine:
     """Slot-based continuous batching over one ``LM`` + its parameters."""
 
     def __init__(self, model, params, *, n_slots: int = 4, max_len: int = 512,
                  eos_id: Optional[int] = None, pad_id: int = 0,
-                 chunk: int = 8, prompt_bucket: int = 1,
+                 chunk: int = 8, prompt_bucket: int = 1, seed: int = 0,
                  paged: bool = False, page_size: int = 16,
                  n_pages: Optional[int] = None):
         if n_slots < 1 or chunk < 1:
@@ -120,6 +157,12 @@ class ServeEngine:
                                             device=self.device)
         self._tok = torch.full((n_slots, 1), self.pad_id, dtype=torch.int64,
                                device=self.device)
+        self._base_key = prng.PRNGKey(seed, self.device)
+        # placeholder slot keys, replaced at admission (a fold stream apart
+        # from the per-request keys, which fold non-negative rids)
+        filler = prng.fold_in(self._base_key, 0xFFFFFFFF)
+        self._keys = prng.fold_in(filler.expand(n_slots, 2),
+                                  torch.arange(n_slots, device=self.device))
         self._slot_rid = np.full(n_slots, -1, np.int64)
         self._states: Dict[int, RequestState] = {}
         self._pending: Deque[int] = deque()
@@ -148,12 +191,6 @@ class ServeEngine:
     def submit(self, req: Request) -> None:
         if req.rid in self._states:
             raise ValueError(f"duplicate request id {req.rid}")
-        if req.sampling.temperature > 0:
-            raise ValueError(
-                f"request {req.rid}: temperature > 0 needs the torch "
-                "threefry sampler that reproduces the reference's streams "
-                "(ROADMAP A6), which is not ported yet; serve greedy "
-                "(temperature 0)")
         prompt = np.asarray(req.prompt, np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError(f"request {req.rid}: empty prompt")
@@ -232,7 +269,7 @@ class ServeEngine:
         # beyond the registered valid run)
         self._pager.register(rid, ctx.tolist(), P)
         self._slot_pos[slot] = P
-        self._finish_admit(rid, slot, logits, t0)
+        self._finish_admit(rid, slot, P, logits, t0)
 
     def _admit(self, rid: int, slot: int) -> None:
         if self.paged:
@@ -258,15 +295,27 @@ class ServeEngine:
         for name, leaf in small["kv"].items():
             kv[name][:, slot] = leaf[:, 0]
         self.cache["pos"][slot] = small["pos"].reshape(-1)[0]
-        self._finish_admit(rid, slot, logits, t0)
+        self._finish_admit(rid, slot, P, logits, t0)
 
-    def _finish_admit(self, rid: int, slot: int, logits: torch.Tensor,
-                      t0: float) -> None:
-        """Shared admission tail: the first token from the prefill logits,
+    def _finish_admit(self, rid: int, slot: int, P: int,
+                      logits: torch.Tensor, t0: float) -> None:
+        """Shared admission tail: the first token from the prefill logits
+        (a sampled one draws with the request key folded with the absolute
+        position P-1, so dense, paged and resumed admissions draw alike),
         slot state, immediate retirement on eos/length."""
         st = self._states[rid]
-        tok0 = torch.argmax(logits, dim=-1)          # (1,)
+        key = prng.fold_in(self._base_key, rid)
+        sp = st.req.sampling
+        if sp.temperature > 0:
+            dev = logits.device
+            tok0 = sample_tokens(
+                logits, prng.fold_in(key, P - 1)[None],
+                torch.tensor([sp.temperature], dtype=torch.float32, device=dev),
+                torch.tensor([sp.top_k], dtype=torch.int64, device=dev))
+        else:
+            tok0 = torch.argmax(logits, dim=-1)      # (1,)
         self._tok[slot, 0] = tok0[0]
+        self._keys[slot] = key
         tok0 = int(tok0[0])                          # synchronises
         self.prefill_time += time.perf_counter() - t0
 
@@ -309,15 +358,23 @@ class ServeEngine:
     # -- device chunk ----------------------------------------------------------
 
     @torch.no_grad()
-    def _chunk(self, done, n_gen, max_new, *, steps: int, eos: int) -> torch.Tensor:
-        """``steps`` greedy decode iterations with per-slot stopping; the
-        emitted-token semantics mirror the host loop in ``step``."""
+    def _chunk(self, done, n_gen, max_new, temps, topks, *, steps: int,
+               eos: int, greedy_only: bool, topk_any: bool) -> torch.Tensor:
+        """``steps`` decode iterations with per-slot stopping; the
+        emitted-token semantics mirror the host loop in ``step``.
+        ``greedy_only`` (every live slot at temperature 0, decided on the
+        host per chunk) takes the argmax without drawing; otherwise each
+        step folds the slot keys with the slots' positions and samples."""
         toks = []
         cache, tok = self.cache, self._tok
         for _ in range(steps):
             pos = cache["pos"]
             cache, logits = self.model.decode_step(self.params, cache, tok)
-            nxt = torch.argmax(logits, dim=-1)
+            if greedy_only:
+                nxt = torch.argmax(logits, dim=-1)
+            else:
+                nxt = sample_tokens(logits, prng.fold_in(self._keys, pos),
+                                    temps, topks, use_topk=topk_any)
             stop = (nxt == eos) | (n_gen + 1 >= max_new)
             nxt = torch.where(done, torch.full_like(nxt, self.pad_id), nxt)
             n_gen = torch.where(done, n_gen, n_gen + 1)
@@ -338,12 +395,16 @@ class ServeEngine:
         if not live.any():
             return []
         n_gen = np.zeros(B, np.int64)
+        temps = np.zeros(B, np.float32)
+        topks = np.zeros(B, np.int64)
         max_new = np.full(B, np.iinfo(np.int32).max, np.int64)
         for b, rid in enumerate(self._slot_rid):
             if rid < 0:
                 continue
             st = self._states[rid]
             n_gen[b] = len(st.out)
+            temps[b] = st.req.sampling.temperature
+            topks[b] = st.req.sampling.top_k
             max_new[b] = self._eff_max_new(st)
         eos = self.eos_id if self.eos_id is not None else -1
         rem = int((max_new[live] - n_gen[live]).max())
@@ -365,7 +426,11 @@ class ServeEngine:
         toks = self._chunk(torch.from_numpy(~live).to(dev),
                            torch.from_numpy(n_gen).to(dev),
                            torch.from_numpy(max_new).to(dev),
-                           steps=steps, eos=int(eos))
+                           torch.from_numpy(temps).to(dev),
+                           torch.from_numpy(topks).to(dev),
+                           steps=steps, eos=int(eos),
+                           greedy_only=bool((temps == 0).all()),
+                           topk_any=bool((topks > 0).any()))
         toks = toks.cpu().numpy()                    # synchronises
         self.decode_time += time.perf_counter() - t0
         self.decode_steps += steps

@@ -12,7 +12,8 @@ flash-decode kernel over a page pool with prefix sharing):
         --quant pofx8 --kv-quant fxp8 --use-kernel [--paged --page-size 16]
 
 ``--smoke`` serves the reduced config; ``--device cpu`` runs on the CPU
-(the kernels' plain versions). ``--gen`` counts tokens generated per
+(the kernels' plain versions). ``--temperature``/``--top-k`` sample every
+request (greedy by default) and draw the reference's streams. ``--gen`` counts tokens generated per
 request: the first from the prefill logits, ``gen-1`` from decode steps.
 ``main`` returns what it served (a ``ServeRun``), so a driver script can
 read the engine's stats and reuse the model.
@@ -29,7 +30,8 @@ from repro_torch.configs import ARCHS, RunConfig, smoke as smoke_cfg
 from repro_torch.core.policy import (QuantPolicy, add_kv_quant_arg,
                                      add_policy_arg, format_spec,
                                      resolve_kv_spec, storage_report)
-from repro_torch.launch.engine import Request, RequestState, ServeEngine
+from repro_torch.launch.engine import (Request, RequestState, SamplingParams,
+                                      ServeEngine)
 from repro_torch.nn.models import build_model, kv_decode_bytes_per_token
 
 
@@ -43,12 +45,14 @@ class ServeRun:
 
 
 def make_requests(vocab: int, n: int, prompt_len: int, gen: int,
-                  arrival_gap: float = 0.0, seed: int = 1) -> List[Request]:
+                  arrival_gap: float = 0.0, seed: int = 1,
+                  sampling: SamplingParams = SamplingParams()) -> List[Request]:
     """``n`` requests of seeded random prompts, one every ``arrival_gap``
-    decode steps."""
+    decode steps, all with ``sampling``."""
     rng = np.random.default_rng(seed)
     return [Request(rid=i, prompt=rng.integers(0, vocab, prompt_len),
-                    max_new=gen, arrival=i * arrival_gap) for i in range(n)]
+                    max_new=gen, sampling=sampling, arrival=i * arrival_gap)
+            for i in range(n)]
 
 
 def main(argv=None) -> ServeRun:
@@ -69,6 +73,9 @@ def main(argv=None) -> ServeRun:
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen", type=int, default=32,
                     help="tokens generated per request")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="0 = greedy")
+    ap.add_argument("--top-k", type=int, default=0, help="0 = off")
     ap.add_argument("--eos-id", type=int, default=-1,
                     help="stop token id (<0 = none)")
     ap.add_argument("--chunk", type=int, default=8,
@@ -124,10 +131,12 @@ def main(argv=None) -> ServeRun:
     engine = ServeEngine(
         model, params, n_slots=args.batch, max_len=P + G,
         eos_id=args.eos_id if args.eos_id >= 0 else None,
-        chunk=args.chunk, prompt_bucket=args.prompt_bucket,
+        chunk=args.chunk, prompt_bucket=args.prompt_bucket, seed=0,
         paged=args.paged, page_size=args.page_size,
         n_pages=args.n_pages or None)
-    requests = make_requests(cfg.vocab_size, n_req, P, G, args.arrival_gap)
+    sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k)
+    requests = make_requests(cfg.vocab_size, n_req, P, G, args.arrival_gap,
+                             sampling=sampling)
     done = engine.run(requests)
 
     stats = engine.stats()

@@ -17,8 +17,11 @@ from repro_torch.kernels.fxp_matmul import fxp_matmul, fxp_matmul_ref
 from repro_torch.kernels.kv_flash_decode import kv_flash_decode, kv_flash_decode_ref
 from repro_torch.kernels.kv_flash_paged_decode import (kv_flash_paged_decode,
                                                        kv_flash_paged_decode_ref)
+from repro_torch.core import prng
 from repro_torch.kernels.ref import gather_pages
+from repro_torch.kernels.pofx_decode import pofx_decode, pofx_decode_ref
 from repro_torch.kernels.pofx_matmul import pofx_matmul, pofx_matmul_ref
+from repro_torch.launch.engine import sample_tokens
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -132,3 +135,76 @@ def test_wrappers_raise_on_mixed_devices(cuda):
         pofx_matmul(torch.zeros(2, 8, device=cuda),
                     torch.zeros(8, 4, dtype=torch.int8, device=cuda),
                     torch.ones(4, device=cuda), 8, 2)
+
+
+@pytest.mark.parametrize("N", [6, 7, 8])
+@pytest.mark.parametrize("ES", [1, 2, 3])
+def test_pofx_decode_every_code_exact(cuda, N, ES):
+    """An (L, L) tile of arange(L), and every byte (high bits ignored)."""
+    L = 1 << (N - 1)
+    tile = torch.arange(L, device=cuda, dtype=torch.uint8)[None].expand(L, L).contiguous()
+    before = LAUNCHES["pofx_decode"]
+    got = pofx_decode(tile, N, ES)
+    assert LAUNCHES["pofx_decode"] == before + 1
+    assert got.dtype == torch.int8 and torch.equal(got, pofx_decode_ref(tile, N, ES))
+    lut = torch.as_tensor(pofx_norm_lut(N, ES, 8), device=cuda).to(torch.int8)
+    assert torch.equal(got[0], lut)
+    every = torch.arange(256, device=cuda, dtype=torch.uint8).reshape(16, 16)
+    assert torch.equal(pofx_decode(every, N, ES), pofx_decode_ref(every, N, ES))
+
+
+@pytest.mark.parametrize("shape", [(257, 130), (1, 17), (33, 1), (3, 4099), (4096, 512)])
+def test_pofx_decode_ragged_shapes_exact(cuda, shape):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    codes = torch.randint(0, 256, shape, generator=g, device=cuda, dtype=torch.uint8)
+    for N, ES, M in ((8, 2, 8), (6, 1, 8), (9, 2, 8), (7, 3, 6)):
+        assert torch.equal(pofx_decode(codes, N, ES, M), pofx_decode_ref(codes, N, ES, M))
+
+
+def test_pofx_decode_strided_views_exact(cuda):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    base = torch.randint(0, 256, (257, 160), generator=g, device=cuda, dtype=torch.uint8)
+    for view in (base[:, :130], base[:, 1:131], base[3:, 5:], base.t()):
+        got = pofx_decode(view, 7, 1)
+        assert got.is_contiguous() and torch.equal(got, pofx_decode_ref(view, 7, 1))
+
+
+def test_pofx_decode_raises_on_non_uint8_codes(cuda):
+    with pytest.raises(ValueError, match="uint8"):
+        pofx_decode(torch.zeros(4, 4, dtype=torch.int32, device=cuda), 8, 2)
+    with pytest.raises(ValueError, match="byte-wide"):
+        pofx_decode(torch.zeros(4, 4, dtype=torch.uint8, device=cuda), 10, 2)
+    with pytest.raises(ValueError, match="int8"):
+        pofx_decode(torch.zeros(4, 4, dtype=torch.uint8, device=cuda), 8, 2, 9)
+
+
+def test_prng_bits_on_the_card_equal_the_cpu_bits(cuda):
+    """Integer hashing and the uniform's bit tricks are exact on both."""
+    for seed in (0, 7):
+        k_cpu = prng.fold_in(prng.PRNGKey(seed).expand(4, 2), torch.arange(4))
+        k_gpu = k_cpu.to(cuda)
+        assert torch.equal(prng.random_bits(k_gpu, (64000,)).cpu(),
+                           prng.random_bits(k_cpu, (64000,)))
+        assert torch.equal(prng.uniform(k_gpu, (64000,)).cpu(), prng.uniform(k_cpu, (64000,)))
+        assert torch.equal(prng.fold_in(k_gpu, torch.arange(4, device=cuda) + 70).cpu(),
+                           prng.fold_in(k_cpu, torch.arange(4) + 70))
+
+
+def test_sample_tokens_on_the_card_equal_the_cpu_draw(cuda):
+    """The same keys draw the same tokens on the card and on the CPU; the
+    two logs may differ by an ulp, so a token may differ only where the
+    two winners' scores are within 1e-5 (a near-tie)."""
+    g = torch.Generator().manual_seed(6)
+    B, V = 8, 64000
+    logits = torch.randn(B, V, generator=g) * 3
+    keys = prng.fold_in(prng.PRNGKey(3).expand(B, 2), torch.arange(B))
+    temps = torch.tensor([0.0, 0.8, 0.8, 1.0, 0.5, 0.8, 1e-9, 2.0])
+    topks = torch.tensor([0, 40, 0, 5, 1, 40, 0, 1000])
+    for dt in (torch.float32, torch.bfloat16):
+        lg = logits.to(dt)
+        want = sample_tokens(lg, keys, temps, topks)
+        got = sample_tokens(lg.to(cuda), keys.to(cuda), temps.to(cuda), topks.to(cuda)).cpu()
+        for b in torch.nonzero(got != want).flatten().tolist():
+            sc = prng.gumbel(keys[b], (V,)) + lg[b].float() / max(float(temps[b]), 1e-6)
+            gap = (sc[got[b]] - sc[want[b]]).abs().item()
+            assert gap < 1e-5, f"row {b}: {int(got[b])} vs {int(want[b])}, gap {gap}"

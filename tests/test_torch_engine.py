@@ -16,7 +16,7 @@ import pytest
 from differential import assert_token_identical
 from repro.core.policy import parse_spec
 from repro.launch.engine import Request as JRequest, ServeEngine as JEngine
-from repro_torch.launch.engine import (Request, SamplingParams, ServeEngine)
+from repro_torch.launch.engine import Request, ServeEngine
 from torch_bridge import pair
 
 VOCAB = 512
@@ -75,14 +75,6 @@ def test_engine_stats_and_run():
     assert st["generated_tokens"] == 24 and st["prefill_sampled_tokens"] == 4
     assert st["decode_tokens"] == 20
     assert all(s.finish_reason == "length" and s.slot == -1 for s in done)
-
-
-def test_temperature_raises_naming_roadmap_item():
-    _, _, tm, tp = pair()
-    eng = ServeEngine(tm, tp, n_slots=1, max_len=16)
-    with pytest.raises(ValueError, match="A6"):
-        eng.submit(Request(rid=0, prompt=np.arange(4), max_new=2,
-                           sampling=SamplingParams(temperature=0.7)))
 
 
 def test_submit_validation():
