@@ -33,24 +33,37 @@ def bound_ms(nbytes: float, ops: float, kind: str) -> Tuple[float, str]:
 class Timer:
     """Median time of single calls. On the card: CUDA events around each
     launch, L2 flushed before each (the serving path streams far more than
-    the 50 MB L2 between two calls), 15 launches after 2 warm-up calls. On
-    the CPU: the host clock over 3 calls, a CPU time and nothing else."""
+    the 50 MB L2 between two calls), 15 launches after 2 warm-up calls. After
+    the flush the card sleeps for ``HOLD_CYCLES`` clock cycles before the
+    first event, so that the host has queued the call by the time the events
+    start: the time is the card's, not the wrapper's Python. The flush
+    writes, so up to the L2's 50 MB of dirty lines are written back while the
+    timed call runs; ``clean=True`` reads a 96 MB buffer after it, so that
+    the call finds the L2 cold but clean, as the serving path leaves it
+    (weights are only read). On the CPU: the host clock over 3 calls, a CPU
+    time and nothing else."""
+
+    HOLD_CYCLES = 200_000    # ~0.1 ms at the H100's clocks
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
-        self.flush = (torch.empty(256 << 20, dtype=torch.uint8, device=self.device)
-                      if self.device.type == "cuda" else None)
+        card = self.device.type == "cuda"
+        self.flush = torch.empty(256 << 20, dtype=torch.uint8, device=self.device) if card else None
+        self.sweep = torch.zeros(96 << 20, dtype=torch.uint8, device=self.device) if card else None
 
-    def ms(self, fn, iters: int = 15) -> float:
+    def ms(self, fn, iters: int = 15, clean: bool = False) -> float:
         if self.flush is None:
             return self._host_ms(fn, min(iters, 3))
         for _ in range(2):
             fn()
         times = []
         for _ in range(iters):
-            self.flush.zero_()
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
+            self.flush.zero_()
+            if clean:
+                self.sweep.max()
+            torch.cuda._sleep(self.HOLD_CYCLES)
             s.record()
             fn()
             e.record()

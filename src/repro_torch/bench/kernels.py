@@ -9,13 +9,16 @@ Each row holds a kernel's time, its plain version's, a library call's (one
 PyTorch call that computes the same function, where there is one), the
 least time the card could take for the same work (``bound_ms``, by bytes or
 operations) and the largest difference from the plain version beside its
-tolerance (``ok`` is that check). The rows:
+tolerance (``ok`` is that check). pofx_matmul rows add the kernel's and the
+library's times after a flush that leaves the L2 clean (``*_clean_l2``, see
+``common.Timer``). The rows:
 
 (a) the reference bench's sweep: pofx_decode at 128x256, 257x130 and
     512x512 for (N, ES) = (8, 2) and (6, 1), exact; pofx_matmul at
     64x128x96 and 130x257x66; fxp_matmul at 96x160x64, exact;
 (b) the kernels at yi-9b serving shapes: pofx_matmul at m = 4 (decode) and
-    m = 64 (prefill) and fxp_matmul at the weight shapes; kv_flash_decode
+    m = 64 (prefill), and at m = 1 on the unembed (a prefill's last
+    position), and fxp_matmul at the weight shapes; kv_flash_decode
     and kv_flash_paged_decode at 4 slots, S = 96 and ~1000;
 (c) pofx_decode at the five yi-9b weight shapes, (N, ES) = (8, 2).
 
@@ -92,7 +95,7 @@ class KernelBench:
             row["bound_ms"], row["bound_by"] = bound_ms(nbytes, ops, kind)
         for key, val in extra.items():
             if callable(val):
-                val = self.timer.ms(val) if self.card else None
+                val = self.timer.ms(val, clean=key.endswith("clean_l2")) if self.card else None
             row[key] = val
         self.rows.append(row)
         log(f"  {row}")
@@ -175,7 +178,9 @@ class KernelBench:
                         library=lambda: torch.matmul(x, w),
                         library_name=f"torch.matmul {kind} on decoded weights",
                         nbytes=m * k * xb + k * n + n * 4 + m * n * 4, ops=2 * m * k * n,
-                        kind=kind)
+                        kind=kind,
+                        ms_clean_l2=lambda: pofx_matmul(x, codes, scale, 8, 2, 8),
+                        library_ms_clean_l2=lambda: torch.matmul(x, w))
 
     def fxp_matmul_row(self, m: int, k: int, n: int, shape: str) -> Dict:
         a = self.randint(-127, 128, (m, k), torch.int8)
@@ -296,6 +301,8 @@ def run(device="cuda", *, smoke: bool = False, timer: Optional[Timer] = None) ->
     for m in (4, 64):
         for k, n in SHAPES_POFX:
             bench.pofx_matmul_row(m, k, n, torch.bfloat16, f"m={m} k={k} n={n} x=bf16")
+    k, n = SHAPES_POFX[-1]      # the prefill's unembed: its last position only
+    bench.pofx_matmul_row(1, k, n, torch.bfloat16, f"m=1 k={k} n={n} x=bf16")
     for m in (4, 64):
         for k, n in FXP_SHAPES:
             bench.fxp_matmul_row(m, k, n, f"m={m} k={k} n={n}")

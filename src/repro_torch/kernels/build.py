@@ -96,7 +96,7 @@ def build_all() -> Dict[str, object]:
 
 _SIGNATURES = {
     "pofx_matmul": {
-        name: [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        name: [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         for name in ("pofx_matmul_f32", "pofx_matmul_bf16")},
     "kv_flash_decode": {
         "kv_flash_decode": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5

@@ -52,7 +52,7 @@ def test_full_rows_on_cpu_at_reduced_shapes(monkeypatch, capsys):
     rows = kernels.run("cpu")
     names = [r["name"] for r in rows]
     assert names.count("pofx_decode") == 6 + 2 and names.count("kv_flash_decode") == 4
-    assert names.count("kv_flash_paged_decode") == 4 and names.count("pofx_matmul") == 2 + 4
+    assert names.count("kv_flash_paged_decode") == 4 and names.count("pofx_matmul") == 2 + 4 + 1
     assert names.count("fxp_matmul") == 1 + 2
     assert all(r["ok"] for r in rows)
     assert all(r["max_abs_diff_dense_kernel"] == 0.0 for r in rows

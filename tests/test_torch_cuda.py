@@ -50,6 +50,80 @@ def test_pofx_matmul_matches_plain(cuda, m, k, n):
     assert LAUNCHES["pofx_matmul"] == before + 2
 
 
+def _pofx_inputs(dev, m, k, n, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, k, generator=g, device=dev)
+    codes = torch.randint(0, 128, (k, n), generator=g, device=dev).to(torch.uint8)
+    scale = torch.exp2(torch.randint(-3, 2, (n,), generator=g, device=dev).float())
+    return x, codes, scale
+
+
+def _assert_pofx_close(got, want):
+    # f32 sums of k products in another order: 1e-4 of the largest output
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("k,n", [(4096, 512), (4096, 11008)])
+@pytest.mark.parametrize("m", [1, 4, 8, 16, 17, 64, 65, 130])
+def test_pofx_matmul_serving_shapes_match_plain(cuda, m, k, n):
+    """Every m-tile width of the bf16 path (8, 16, 32, 64, and more than one
+    tile), the f32 path, with k split into slices: one count per call."""
+    x, codes, scale = _pofx_inputs(cuda, m, k, n, seed=m)
+    for xt in (x.to(torch.bfloat16), x):
+        before = LAUNCHES["pofx_matmul"]
+        got = pofx_matmul(xt, codes, scale, 8, 2)
+        assert LAUNCHES["pofx_matmul"] == before + 1
+        _assert_pofx_close(got, pofx_matmul_ref(xt, codes, scale, 8, 2))
+
+
+@pytest.mark.parametrize("k,n", [(1000, 777), (33, 5), (257, 66)])
+@pytest.mark.parametrize("m", [1, 4, 70])
+def test_pofx_matmul_ragged_shapes_match_plain(cuda, m, k, n):
+    """n not a multiple of 16 and k not of 8: the byte-wise load paths."""
+    x, codes, scale = _pofx_inputs(cuda, m, k, n, seed=k + n)
+    for xt in (x.to(torch.bfloat16), x):
+        _assert_pofx_close(pofx_matmul(xt, codes, scale, 8, 2),
+                           pofx_matmul_ref(xt, codes, scale, 8, 2))
+
+
+def test_pofx_matmul_misaligned_bases_match_plain(cuda):
+    """Contiguous x and codes whose first element is not 16-byte aligned,
+    at a shape whose strides are: the kernel's byte-wise paths."""
+    m, k, n = 4, 4096, 512
+    x, codes, scale = _pofx_inputs(cuda, m, k, n, seed=9)
+    cbuf = torch.empty(k * n + 1, dtype=torch.uint8, device=cuda)
+    cbuf[1:] = codes.flatten()
+    codes_off = cbuf[1:].view(k, n)
+    assert codes_off.data_ptr() % 16 != 0
+    for xt in (x.to(torch.bfloat16), x):
+        xbuf = torch.empty(m * k + 1, dtype=xt.dtype, device=cuda)
+        xbuf[1:] = xt.flatten()
+        x_off = xbuf[1:].view(m, k)
+        assert x_off.is_contiguous() and x_off.data_ptr() % 16 != 0
+        want = pofx_matmul_ref(xt, codes, scale, 8, 2)
+        for a, c in ((x_off, codes), (xt, codes_off), (x_off, codes_off)):
+            _assert_pofx_close(pofx_matmul(a, c, scale, 8, 2), want)
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 4096, 11008), (64, 4096, 512), (4, 11008, 4096)])
+def test_pofx_matmul_two_launches_bit_identical(cuda, m, k, n):
+    x, codes, scale = _pofx_inputs(cuda, m, k, n, seed=10)
+    for xt in (x.to(torch.bfloat16), x):
+        first = pofx_matmul(xt, codes, scale, 8, 2)
+        assert torch.equal(pofx_matmul(xt, codes, scale, 8, 2), first)
+
+
+@pytest.mark.parametrize("k,n", [(4096, 512), (4096, 11008), (11008, 4096)])
+def test_pofx_matmul_f32_rows_do_not_depend_on_m(cuda, k, n):
+    """A row computed in a 4-row decode batch equals the same row inside a
+    70-row prefill bit for bit (evict -> resume relies on it)."""
+    x, codes, scale = _pofx_inputs(cuda, 70, k, n, seed=11)
+    whole = pofx_matmul(x, codes, scale, 8, 2)
+    for lo in (0, 33, 66):
+        assert torch.equal(pofx_matmul(x[lo:lo + 4], codes, scale, 8, 2), whole[lo:lo + 4])
+    assert torch.equal(pofx_matmul(x[5:6], codes, scale, 8, 2), whole[5:6])
+
+
 @pytest.mark.parametrize("N,ES", [(8, 2), (7, 1), (6, 3)])
 def test_pofx_matmul_decodes_every_code_exactly(cuda, N, ES):
     L = 1 << (N - 1)

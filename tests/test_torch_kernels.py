@@ -25,7 +25,8 @@ from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.fxp_matmul import fxp_matmul
 from repro_torch.kernels.kv_flash_decode import kv_flash_decode
 from repro_torch.kernels.ops import KERNELS, PLAIN, out_channel_scale, quant_matmul
-from repro_torch.kernels.pofx_matmul import pofx_matmul
+from repro_torch.kernels.pofx_matmul import (BK, BN, F32_PLAN, MAX_SLICES, SMS, TARGET_BLOCKS,
+                                             bf16_tile, call_plan, plan, pofx_matmul)
 from torch_bridge import tspec
 
 # f32 sums of up to a few hundred terms taken in another order: a few ulps
@@ -132,6 +133,86 @@ def test_kv_flash_decode_scalar_pos_and_scale_guards():
     with pytest.raises(ValueError, match="shape mismatch"):
         kv_flash_decode(args[0], args[1], args[2], args[3][:, :, :5], args[4],
                         torch.tensor(9), tspec(FXP8))
+
+
+# yi-9b's weight shapes (q/o, k/v, gate/up, down, unembed) and ragged ones
+PLAN_SHAPES = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096), (4096, 64000),
+               (1000, 777), (33, 5), (257, 66), (1, 1), (0, 8), (64, 128), (65, 129)]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("m", [1, 4, 17, 64])
+@pytest.mark.parametrize("k,n", PLAN_SHAPES)
+def test_pofx_matmul_plan_slices_cover_k_exactly(k, n, m, bf16):
+    p = call_plan(m, k, n, bf16)
+    assert p.slice_len > 0 and p.slice_len % BK == 0 and 1 <= p.slices <= MAX_SLICES
+    # every row of k in exactly one slice, none empty (k = 0: one empty slice)
+    assert (p.slices - 1) * p.slice_len < max(k, 1) <= p.slices * p.slice_len
+
+
+@pytest.mark.parametrize("k,n", PLAN_SHAPES[:5])
+def test_pofx_matmul_plan_fills_the_card_at_decode(k, n):
+    """At decode (m <= 8) the column blocks times the slices come to ~2 a SM
+    (TARGET_BLOCKS), unless the slices run out first (at most MAX_SLICES,
+    two BK tiles each or more: 4096x512 stops at 4 x 32 blocks)."""
+    p = call_plan(4, k, n, True)
+    n_blocks, tiles = -(-n // BN), -(-k // BK)
+    blocks = n_blocks * p.slices
+    assert blocks <= max(TARGET_BLOCKS, n_blocks)
+    assert blocks >= min(TARGET_BLOCKS - 8, n_blocks * min(MAX_SLICES, tiles // 2))
+    assert p.slice_len >= 2 * BK or p.slices == 1
+
+
+@pytest.mark.parametrize("k,n", PLAN_SHAPES)
+def test_pofx_matmul_f32_plan_does_not_depend_on_m(k, n):
+    """f32 rows must not depend on m (evict -> resume re-prefills them)."""
+    plans = {call_plan(m, k, n, False) for m in (1, 4, 8, 17, 64, 70, 130, 1000)}
+    assert plans == {plan(k, n, **F32_PLAN)}
+
+
+@pytest.mark.parametrize("m", [1, 8, 9, 16, 17, 32, 33, 64, 65])
+def test_pofx_matmul_bf16_tile_holds_m(m):
+    """The bf16 block holds 8..64 rows of x, more warpgroups as m grows."""
+    nt, wg, per_sm = bf16_tile(m)
+    assert nt in (8, 16, 32, 64) and (nt >= m or nt == 64) and (nt // 2 < m or nt == 8)
+    assert wg in (1, 2) and per_sm * SMS <= TARGET_BLOCKS
+
+
+@pytest.mark.parametrize("m", [1, 4, 64, 130])
+@pytest.mark.parametrize("k,n", [(4096, 512), (1000, 777), (64, 128)])
+def test_pofx_matmul_plan_workspace_holds_every_partial(m, k, n):
+    """The kernel writes slice s's partial of (row, col) at (s * m + row) *
+    n + col: the last index is the workspace's last element."""
+    for bf16 in (False, True):
+        p = call_plan(m, k, n, bf16)
+        last = ((p.slices - 1) * m + m - 1) * n + n - 1
+        assert p.workspace(m, n) == (last + 1 if p.slices > 1 else 0)
+
+
+@pytest.mark.parametrize("k,n", [(1000, 777), (257, 66), (4096, 40)])
+def test_pofx_matmul_split_sums_match_reference_kernel(k, n):
+    """The kernel's f32 arithmetic, emulated: each slice of the plan summed
+    on its own, the partials added in slice order, then the scale; against
+    the reference's Pallas kernel (interpret mode)."""
+    rng = np.random.default_rng(k + n)
+    m = 3
+    x = rng.normal(0, 1, (m, k)).astype(np.float32)
+    codes = _codes(rng, k, n, 8)
+    scale = np.exp2(rng.integers(-3, 2, n)).astype(np.float32)
+    want = np.asarray(j_pofx_matmul(jnp.asarray(x), jnp.asarray(codes),
+                                    jnp.asarray(scale), 8, 2, 8))
+    p = call_plan(m, k, n, False)
+    ones = torch.ones(n)
+    parts = [pofx_matmul(torch.from_numpy(x[:, s * p.slice_len:(s + 1) * p.slice_len]),
+                         torch.from_numpy(codes[s * p.slice_len:(s + 1) * p.slice_len]),
+                         ones, 8, 2, 8) for s in range(p.slices)]
+    assert p.slices > 1
+    total = parts[0]
+    for part in parts[1:]:
+        total = total + part
+    # f32 sums of up to 4096 terms in another order: 1e-4 absolute at |out| ~ 30
+    np.testing.assert_allclose((total * torch.from_numpy(scale)).numpy(), want,
+                               rtol=RTOL, atol=1e-4)
 
 
 def test_cpu_wrappers_launch_nothing():
