@@ -234,16 +234,19 @@ def profile_decode(torch, model, params, steps: int = 4, paged: bool = False,
                                                         "aten::_local_scalar_dense")):
                 syncs[evt.key] = evt.count / steps
         busy = sum(by_name.values())
+        # the flash-decode kernels (csrc/kv_flash_common.cuh's decode_kernel)
+        attn = sum(ms for name, ms in by_name.items() if "kv_flash" in name)
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         top_host = sorted(host.items(), key=lambda kv: -kv[1])[:6]
         log(f"  decode step profile: wall {wall_ms:.2f} ms ({bare_ms:.2f} ms without the "
-            f"profiler), device busy {busy:.2f} ms ({100 * (1 - busy / wall_ms):.1f}% idle); "
-            f"host waits per step {syncs}")
+            f"profiler), device busy {busy:.2f} ms ({100 * (1 - busy / wall_ms):.1f}% idle), "
+            f"attention {attn:.3f} ms; host waits per step {syncs}")
         for name, ms in top:
             log(f"    {ms:8.3f} ms/step  {name[:90]}")
         for name, ms in top_host:
             log(f"    {ms:8.3f} ms/step host  {name[:84]}")
         return {"wall_ms": wall_ms, "bare_wall_ms": bare_ms, "device_busy_ms": busy,
+                "attention_ms": attn,
                 "host_waits_per_step": syncs, "top": [[n, ms] for n, ms in top],
                 "top_host": [[n, ms] for n, ms in top_host]}
     except Exception:  # the profile is an aside: record why it is missing

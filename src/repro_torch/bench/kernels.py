@@ -19,7 +19,8 @@ library's times after a flush that leaves the L2 clean (``*_clean_l2``, see
 (b) the kernels at yi-9b serving shapes: pofx_matmul at m = 4 (decode) and
     m = 64 (prefill), and at m = 1 on the unembed (a prefill's last
     position), and fxp_matmul at the weight shapes; kv_flash_decode
-    and kv_flash_paged_decode at 4 slots, S = 96 and ~1000;
+    and kv_flash_paged_decode at 4 slots, S = 96, ~1000 and 4096 (with
+    the split's chunk and count);
 (c) pofx_decode at the five yi-9b weight shapes, (N, ES) = (8, 2).
 
 Before the rows run exhaustive checks: pofx_decode, and pofx_matmul's
@@ -45,6 +46,7 @@ from repro_torch.core.policy import parse_spec
 from repro_torch.core.quantizers import kv_dequantize, kv_quantize
 from repro_torch.kernels.fxp_matmul import fxp_matmul, fxp_matmul_ref
 from repro_torch.kernels.kv_flash_decode import kv_flash_decode, kv_flash_decode_ref
+from repro_torch.kernels.kv_flash_decode import plan as kv_plan
 from repro_torch.kernels.kv_flash_paged_decode import (kv_flash_paged_decode,
                                                        kv_flash_paged_decode_ref)
 from repro_torch.kernels.pofx_decode import pofx_decode, pofx_decode_ref
@@ -58,7 +60,8 @@ __all__ = ["SHAPES_POFX", "POFX_SPECS", "run", "main"]
 SHAPES_POFX = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096), (4096, 64000)]
 FXP_SHAPES = [(4096, 11008), (11008, 4096)]   # the mlp projections
 POFX_SPECS = [(N, ES) for N in (6, 7, 8) for ES in (1, 2, 3)]
-KV_SHAPES = ((96, [65, 80, 90, 96]), (1000, [1, 333, 999, 1000]))
+KV_SHAPES = ((96, [65, 80, 90, 96]), (1000, [1, 333, 999, 1000]),
+             (4096, [1, 1365, 4095, 4096]))   # the last: yi-9b's 4096-token context
 
 
 def log(msg: str) -> None:
@@ -223,7 +226,8 @@ class KernelBench:
                         plain=lambda: kv_flash_decode_ref(*args),
                         library=lambda: sdpa(q, kf, vf, attn_mask=mask),
                         library_name="scaled_dot_product_attention on dequantized K/V",
-                        nbytes=nbytes, ops=4 * G * R * valid * Dh, kind="f32")
+                        nbytes=nbytes, ops=4 * G * R * valid * Dh, kind="f32",
+                        **kv_plan(B, G, S)._asdict())
 
     def kv_flash_paged_decode_row(self, spec_s: str, S: int, pos_list) -> Dict:
         """ps = 16, tables scrambled so that no slot's pages are contiguous
@@ -276,6 +280,7 @@ class KernelBench:
             library_name="scaled_dot_product_attention on K/V gathered and dequantized "
                          "(gather not timed)",
             nbytes=nbytes, ops=4 * G * R * valid * Dh, kind="f32",
+            **kv_plan(B, G, Sg)._asdict(),
             max_abs_diff_dense_kernel=dense_err,
             dense_kernel_ms=lambda: kv_flash_decode(q, kg, ksb, vg, vsb, pos, spec),
             gather_dequant_ms=gather_dequant)

@@ -4,28 +4,30 @@
 // src/repro/kernels/kv_flash_decode.py::kv_flash_decode (pallas_call at
 // :139, body _kernel :59, _dequant_tile :48).
 //
-//   q (B, G, R, Dh) f32; k/v codes (B, G, S, Dh) int8 (fxp) or uint8
-//   (pofx); k/v scales (B, G, 1, Dh) f32; pos (B,) int32 valid lengths
-//   -> out (B, G, R, Dh) f32.
+//   q (B, G, R, Dh) f32 or bf16; k/v codes (B, G, S, Dh) int8 (fxp) or uint8
+//   (pofx); k/v scales (B, G, 1, Dh) f32; pos (B,) int32 valid lengths (stride 0:
+//   one for all) -> out (B, G, R, Dh) f32.
 //
-// Codes dequantize in registers on their way into shared memory through a
-// 256-entry float table indexed by the code byte: fxp entries are
-// int8(c) * 2^-F, pofx entries pofx_norm_lut[c & (2^(N-1)-1)] * 2^-(M-1),
-// both exact in f32, then times the per-channel scale -- the same two
-// roundings as the plain version, so the dequantized K/V agree bit for bit.
+// Design for the H100 (the body is kv_flash_common.cuh, shared with
+// kv_flash_paged_decode.cu): split-S flash-decoding. The grid is (B * G,
+// n_splits), n_splits chunks of L positions planned on the host from
+// (B, G, S) only (kernels/kv_flash_decode.py::plan: ~2 blocks a SM at 4
+// slots and G = 4); each block streams its chunk's code bytes with 16-byte
+// cp.async into a ring of byte tiles, dequantizes them in registers (fxp as
+// int8(c), the 2^-F folded into the scales; pofx through a 256-entry table
+// of pofx_norm_lut[c & (2^(N-1)-1)] * 2^-(M-1)), reduces each score over
+// the warp with shuffles and keeps the online-softmax m, l and acc in f32;
+// the last block of (b, g) combines the chunks' partials in split order.
+// The per-channel scales are folded into q once and into the output once
+// (the header of kv_flash_common.cuh lists the roundings that moved).
 // Scores are masked with idx < pos[b] to -1e30 as in the reference; the
-// online softmax keeps m, l and acc in f32 and writes acc / max(l, 1e-30).
+// output is acc / max(l, 1e-30).
 //
 // Bound: the code bytes, 2 * S_valid * Dh per (b, g) per layer per step;
-// the arithmetic is a few flops per byte. One block per (b, g) walks S in
-// 32-position tiles (one position per lane) with one warp per query row r;
-// tiles past pos[b] are skipped, which changes nothing (their weights are
-// exactly 0). The last partial tile is masked, never padded. At B = 4 slots
-// and G = 4 groups this is 16 blocks on 132 SMs: split-S (flash-decoding)
-// with a combine pass is the natural later design.
+// the arithmetic is a few flops per byte. Chunks past pos[b] write a neutral
+// partial and read nothing.
 //
-// The body is kv_flash_common.cuh, shared with kv_flash_paged_decode.cu;
-// this file supplies where a slot's rows live: contiguous, row b*G*S +
+// This file supplies where a slot's rows live: contiguous, row b*G*S +
 // g*S + t, and one scale row per (b, g).
 #include "kv_flash_common.cuh"
 
@@ -41,9 +43,15 @@ struct DenseCache {
 
 extern "C" int kv_flash_decode(const void* q, const void* kc, const void* ks,
                                const void* vc, const void* vs, const void* pos,
-                               const void* table, void* out, int B, int G,
-                               int R, int S, int Dh, float qk_scale,
+                               const void* table, void* out, void* ws,
+                               void* counters, int B, int G, int R, int S,
+                               int Dh, int L, int n_splits, int pos_stride,
+                               int q_bf16, float qk_scale, float step,
                                void* stream) {
-  return kv_flash::dispatch(q, kc, ks, vc, vs, pos, table, out, B, G, R, S,
-                            Dh, qk_scale, DenseCache{S}, stream);
+  const kv_flash::Params P{q, (const uint8_t*)kc, (const float*)ks,
+                           (const uint8_t*)vc, (const float*)vs,
+                           (const int*)pos, (const float*)table, (float*)out,
+                           (float*)ws, (int*)counters, G, R, S, L, n_splits,
+                           pos_stride, q_bf16, qk_scale, step};
+  return kv_flash::dispatch(P, B, Dh, DenseCache{S}, stream);
 }

@@ -2,14 +2,14 @@
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/kv_flash_paged_decode.py::
 kv_flash_paged_decode`` (``pallas_call`` at :142). The CUDA kernel
-(``csrc/kv_flash_paged_decode.cu``) is ``kv_flash_decode``'s body
-(``csrc/kv_flash_common.cuh``) with each position's code row resolved
-through the slot's block table: one block per (b, g), one warp per query
-row, 32-position tiles over the logical positions [0, max_pages * ps).
-Garbage page 0 and tails at or past ``pos`` are read and masked, not
-trimmed. On the same logical cache its output equals ``kv_flash_decode``'s
-bit for bit (same summation order), so paged and dense serving give the
-same tokens.
+(``csrc/kv_flash_paged_decode.cu``) is ``kv_flash_decode``'s split-S body
+(``csrc/kv_flash_common.cuh``) with each code row resolved through the
+slot's block table over the logical positions [0, max_pages * ps), split
+by the same ``plan``. Garbage page 0 and tails at or past ``pos`` are read
+and masked, not trimmed. The plan gives a dense cache of ``max_len`` and a
+paged one of ``ceil(max_len / ps) * ps`` the same chunk when ps divides 256,
+and then, on the same logical cache, the output equals ``kv_flash_decode``'s
+bit for bit, so paged and dense serving give the same tokens.
 
 Bound on the card: the code bytes of the valid positions, 2 * S_valid * Dh
 per (b, g) per layer and step, plus the block table.
@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.core.quantizers import QuantSpec
 from . import LAUNCHES, require_cuda
-from .kv_flash_decode import _byte_table
+from .kv_flash_decode import _aligned, _launch_args, _q_pos
 from .ref import kv_flash_paged_decode_ref
 
 __all__ = ["kv_flash_paged_decode", "kv_flash_paged_decode_ref"]
@@ -68,20 +68,19 @@ def kv_flash_paged_decode(q: torch.Tensor, k_pool: torch.Tensor,
                          f"and R <= 32, got Dh={Dh}, R={R}")
     from .build import check, library
     max_pages = tables.shape[1]
-    qf = q.to(torch.float32).contiguous()
-    kc = k_pool.contiguous()
-    vc = v_pool.contiguous()
+    qk, pos_b, pos_stride = _q_pos(q, pos, B)
+    kc, vc = _aligned(k_pool), _aligned(v_pool)
     ks = k_scale.to(torch.float32).contiguous()
     vs = v_scale.to(torch.float32).contiguous()
     tb = tables.to(torch.int32).contiguous()
-    pos_b = pos.reshape(-1).to(torch.int32).expand(B).contiguous()
-    table = _byte_table(spec, str(q.device))
-    out = torch.empty((B, G, R, Dh), dtype=torch.float32, device=q.device)
+    table, out, ws, counters, p, step, stream = _launch_args(
+        q, spec, B, G, R, Dh, max_pages * ps)
     check(library("kv_flash_paged_decode").kv_flash_paged_decode(
-        qf.data_ptr(), kc.data_ptr(), ks.data_ptr(), vc.data_ptr(),
+        qk.data_ptr(), kc.data_ptr(), ks.data_ptr(), vc.data_ptr(),
         vs.data_ptr(), tb.data_ptr(), pos_b.data_ptr(), table.data_ptr(),
-        out.data_ptr(), B, G, R, ps, max_pages, Dh, Dh ** -0.5,
-        torch.cuda.current_stream(q.device).cuda_stream),
+        out.data_ptr(), ws.data_ptr(), counters.data_ptr(), B, G, R, ps,
+        max_pages, Dh, p.chunk, p.splits, pos_stride,
+        int(qk.dtype == torch.bfloat16), Dh ** -0.5, step, stream),
         "kv_flash_paged_decode")
     LAUNCHES["kv_flash_paged_decode"] += 1
     return out

@@ -15,6 +15,7 @@ from repro_torch.core.quantizers import kv_quantize
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.fxp_matmul import fxp_matmul, fxp_matmul_ref
 from repro_torch.kernels.kv_flash_decode import kv_flash_decode, kv_flash_decode_ref
+from repro_torch.kernels.kv_flash_decode import plan as kv_plan
 from repro_torch.kernels.kv_flash_paged_decode import (kv_flash_paged_decode,
                                                        kv_flash_paged_decode_ref)
 from repro_torch.core import prng
@@ -193,6 +194,115 @@ def test_kv_flash_paged_decode_matches_plain_and_dense_kernel(cuda, spec_s, ps):
                             gather_pages(vc, tables), vs[None].expand(B, G, 1, Dh),
                             pos, spec)
     assert torch.equal(got, dense)
+
+
+def _kv_dense(dev, spec, B, G, R, S, Dh, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(B, G, R, Dh, generator=g, device=dev)
+    ks = torch.exp2(torch.randint(-1, 2, (B, G, 1, Dh), generator=g, device=dev).float())
+    vs = torch.exp2(torch.randint(-1, 2, (B, G, 1, Dh), generator=g, device=dev).float())
+    kc = kv_quantize(torch.randn(B, G, S, Dh, generator=g, device=dev), spec, ks)
+    vc = kv_quantize(torch.randn(B, G, S, Dh, generator=g, device=dev), spec, vs)
+    return q, kc, ks, vc, vs
+
+
+@pytest.mark.parametrize("spec_s", ["fxp8", "pofx8es2"])
+@pytest.mark.parametrize("S", [96, 1000, 4096])
+def test_kv_flash_decode_pos_around_every_chunk_boundary(cuda, spec_s, S):
+    """pos one below, at and one above every chunk boundary of the plan
+    (four slots a call), and S = 4096, Yi-9B's context."""
+    spec = parse_spec(spec_s)
+    B, G, R, Dh = 4, 4, 8, 128
+    q, kc, ks, vc, vs = _kv_dense(cuda, spec, B, G, R, S, Dh, seed=S)
+    L = kv_plan(B, G, S).chunk
+    cands = sorted({p for c in range(0, S + L, L) for p in (c - 1, c, c + 1) if 0 <= p <= S})
+    cands += [S] * (-len(cands) % B)
+    for i in range(0, len(cands), B):
+        pos = torch.tensor(cands[i:i + B], dtype=torch.int32, device=cuda)
+        got = kv_flash_decode(q, kc, ks, vc, vs, pos, spec)
+        want = kv_flash_decode_ref(q, kc, ks, vc, vs, pos, spec)
+        # chunked online vs one-pass f32 softmax: a few ulps of the largest |v|
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("R,Dh", [(1, 128), (5, 64), (12, 128), (32, 32), (16, 256)])
+def test_kv_flash_decode_query_row_groups_match_plain(cuda, R, Dh):
+    """R beyond one block's 8 rows (more blocks, the last one partly
+    filled) and below it, dense and paged."""
+    spec = parse_spec("pofx8es2")
+    B, G, S = 3, 2, 300
+    q, kc, ks, vc, vs = _kv_dense(cuda, spec, B, G, R, S, Dh, seed=R)
+    pos = torch.tensor([0, 150, 300], dtype=torch.int32, device=cuda)
+    want = kv_flash_decode_ref(q, kc, ks, vc, vs, pos, spec)
+    torch.testing.assert_close(kv_flash_decode(q, kc, ks, vc, vs, pos, spec), want,
+                               rtol=1e-4, atol=1e-5)
+    # the same rows as one-row pages: slot b's position t on page 1 + t * B + b
+    pool_k = torch.zeros(1 + S * B, G, 1, Dh, dtype=kc.dtype, device=cuda)
+    pool_v = torch.zeros_like(pool_k)
+    tables = (1 + torch.arange(S, device=cuda)[None] * B
+              + torch.arange(B, device=cuda)[:, None]).to(torch.int32)
+    pool_k[tables.flatten().long(), :, 0] = kc.permute(0, 2, 1, 3).reshape(B * S, G, Dh)
+    pool_v[tables.flatten().long(), :, 0] = vc.permute(0, 2, 1, 3).reshape(B * S, G, Dh)
+    ksg = ks[:1].expand(B, G, 1, Dh)
+    vsg = vs[:1].expand(B, G, 1, Dh)
+    dense = kv_flash_decode(q, kc, ksg, vc, vsg, pos, spec)
+    paged = kv_flash_paged_decode(q, pool_k, ks[0], pool_v, vs[0], tables, pos, spec)
+    assert torch.equal(dense, paged)
+
+
+@pytest.mark.parametrize("S", [96, 1000, 4096])
+def test_kv_flash_decode_two_launches_bit_identical_one_count_each(cuda, S):
+    spec = parse_spec("fxp8")
+    q, kc, ks, vc, vs = _kv_dense(cuda, spec, 4, 4, 8, S, 128, seed=7)
+    pos = torch.tensor([1, S // 3, S - 1, S], dtype=torch.int32, device=cuda)
+    before = LAUNCHES["kv_flash_decode"]
+    first = kv_flash_decode(q, kc, ks, vc, vs, pos, spec)
+    assert LAUNCHES["kv_flash_decode"] == before + 1
+    assert torch.equal(kv_flash_decode(q, kc, ks, vc, vs, pos, spec), first)
+    assert LAUNCHES["kv_flash_decode"] == before + 2
+
+
+def test_kv_flash_decode_bf16_q_scalar_and_int64_pos(cuda):
+    """q in bf16 and pos as one scalar or int64 go to the kernel as they
+    are; the result is the plain version's on the same values."""
+    spec = parse_spec("pofx8es2")
+    q, kc, ks, vc, vs = _kv_dense(cuda, spec, 4, 4, 8, 1000, 128, seed=8)
+    qb = q.to(torch.bfloat16)
+    for pos in (torch.tensor(777, device=cuda), torch.tensor([5, 64, 65, 1000], device=cuda)):
+        got = kv_flash_decode(qb, kc, ks, vc, vs, pos, spec)
+        want = kv_flash_decode_ref(qb, kc, ks, vc, vs, pos, spec)
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("spec_s", ["fxp8", "pofx8es2"])
+@pytest.mark.parametrize("ps", [4, 16])
+@pytest.mark.parametrize("max_len", [100, 1000, 4096])
+def test_kv_flash_dense_at_max_len_equals_paged_at_whole_pages(cuda, spec_s, ps, max_len):
+    """The dense cache of max_len against a paged one of ceil(max_len/ps)
+    * ps holding the same rows (junk past max_len): bit for bit."""
+    spec = parse_spec(spec_s)
+    B, G, R, Dh = 4, 4, 8, 128
+    q, kc, ks, vc, vs = _kv_dense(cuda, spec, B, G, R, max_len, Dh, seed=ps + max_len)
+    mp = -(-max_len // ps)
+    ksg, vsg = ks[0], vs[0]                    # one scale grid, as the pool has
+    ksd, vsd = ksg[None].expand(B, G, 1, Dh), vsg[None].expand(B, G, 1, Dh)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    kpool = torch.randint(0, 128, (B * mp + 1, G, ps, Dh), generator=g, device=cuda)
+    vpool = torch.randint(0, 128, (B * mp + 1, G, ps, Dh), generator=g, device=cuda)
+    kpool, vpool = kpool.to(kc.dtype), vpool.to(vc.dtype)
+    tables = torch.zeros(B, mp, dtype=torch.int32, device=cuda)
+    for b in range(B):
+        order = torch.randperm(mp, generator=g, device=cuda)
+        tables[b] = (1 + b + B * order).to(torch.int32)
+        for j in range(mp):
+            t0, t1 = j * ps, min((j + 1) * ps, max_len)
+            kpool[tables[b, j], :, :t1 - t0] = kc[b, :, t0:t1]
+            vpool[tables[b, j], :, :t1 - t0] = vc[b, :, t0:t1]
+    pos = torch.tensor([1, max_len // 3, max_len - 1, max_len], dtype=torch.int32,
+                       device=cuda)
+    dense = kv_flash_decode(q, kc, ksd, vc, vsd, pos, spec)
+    paged = kv_flash_paged_decode(q, kpool, ksg, vpool, vsg, tables, pos, spec)
+    assert torch.equal(dense, paged)
 
 
 def test_wrappers_raise_on_mixed_devices(cuda):
