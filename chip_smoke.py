@@ -10,7 +10,8 @@ Phases, one line each, any failure exits non-zero without the final line:
 2. the kernel benchmark (``python -m repro_torch.bench.kernels``, the
    entry point that runs pofx_decode): each kernel against its plain
    PyTorch version on the card, pofx_decode exact on every code of every
-   pofx spec and on ragged shapes, at the reference bench's shapes and at
+   pofx spec, on every byte at every (N, ES, M) it accepts and on ragged
+   shapes, fxp_matmul exact, at the reference bench's shapes and at
    yi-9b shapes, with its time, the plain version's, a library
    yardstick's and the least time the card could take (bound);
 3. the main path: the serving CLI (``repro_torch.launch.serve.main``) with
@@ -463,7 +464,8 @@ def phase_mixed(torch, result):
              "prefill_first_fxp_max_step": first_max,
              "max_abs_dlogit_forced": loud, "max_abs_dlogit_replay": base,
              "plain_top2_gap_median": gaps[len(gaps) // 2], "plain_top2_gap_min": gaps[0],
-             "rows": len(gaps), "would_part": events}
+             "rows": len(gaps), "would_part": events,
+             "free_streams": [s.out for s in done_k], "plain_streams": streams(plain)}
     result["mixed_2l"] = entry
     log(f"  mixed_2l: {n} streams x {len(done_k[0].out)} tokens; free run {same}/{n} "
         f"identical to the all-plain path; launches {counts}")

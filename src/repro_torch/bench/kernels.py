@@ -9,28 +9,34 @@ Each row holds a kernel's time, its plain version's, a library call's (one
 PyTorch call that computes the same function, where there is one), the
 least time the card could take for the same work (``bound_ms``, by bytes or
 operations) and the largest difference from the plain version beside its
-tolerance (``ok`` is that check). pofx_matmul rows add the kernel's and the
-library's times after a flush that leaves the L2 clean (``*_clean_l2``, see
-``common.Timer``). The rows:
+tolerance (``ok`` is that check). pofx_matmul and fxp_matmul rows add the
+kernel's and the library's times after a flush that leaves the L2 clean
+(``*_clean_l2``, see ``common.Timer``); fxp_matmul rows also carry the
+split's ``slice_len`` and ``slices``. pofx_decode rows time ``copy_`` of the
+codes into a buffer (``copy_ms``): the same bytes read and written by one
+PyTorch kernel, a yardstick of the memory rate the card reaches at that
+size. The rows:
 
 (a) the reference bench's sweep: pofx_decode at 128x256, 257x130 and
     512x512 for (N, ES) = (8, 2) and (6, 1), exact; pofx_matmul at
     64x128x96 and 130x257x66; fxp_matmul at 96x160x64, exact;
 (b) the kernels at yi-9b serving shapes: pofx_matmul at m = 4 (decode) and
     m = 64 (prefill), and at m = 1 on the unembed (a prefill's last
-    position), and fxp_matmul at the weight shapes; kv_flash_decode
-    and kv_flash_paged_decode at 4 slots, S = 96, ~1000 and 4096 (with
-    the split's chunk and count);
-(c) pofx_decode at the five yi-9b weight shapes, (N, ES) = (8, 2).
+    position), and fxp_matmul at the mlp shapes, m = 4 and 64;
+    kv_flash_decode and kv_flash_paged_decode at 4 slots, S = 96, ~1000
+    and 4096 (with the split's chunk and count);
+(c) pofx_decode at the five yi-9b weight shapes, (N, ES) = (8, 2), and at
+    the mlp shape with (9, 2).
 
 Before the rows run exhaustive checks: pofx_decode, and pofx_matmul's
-decode, on every code of every pofx spec (N = 6..8, ES = 1..3), and
-pofx_decode on ragged and strided shapes. ``--smoke`` runs the checks and
-the reference bench's smoke subset of (a). The default device is the card,
-where every wrapper launches its kernel (there is no fallback). With
-``--device cpu`` the wrappers compute their plain versions, so the plain
-versions alone are timed, on the host clock (``plain_cpu_ms``), and the
-kernel, plain, library and bound columns stay empty. The rows go to
+decode, on every code of every pofx spec (N = 6..8, ES = 1..3), pofx_decode
+on every byte at every (N, ES, M) it accepts, and on ragged and strided
+shapes. ``--smoke`` runs the checks and the reference bench's smoke subset
+of (a). The default device is the card, where every wrapper launches its
+kernel (there is no fallback). With ``--device cpu`` the wrappers compute
+their plain versions, so the plain versions alone are timed, on the host
+clock (``plain_cpu_ms``), and the kernel, plain, library and bound columns
+stay empty. The rows go to
 ``<out>/kernels.csv`` (``--out``, else ``$REPRO_BENCH_OUT``, else
 ``chiprun_out/bench/``).
 """
@@ -45,6 +51,7 @@ from repro_torch.core.pofx import pofx_norm_lut
 from repro_torch.core.policy import parse_spec
 from repro_torch.core.quantizers import kv_dequantize, kv_quantize
 from repro_torch.kernels.fxp_matmul import fxp_matmul, fxp_matmul_ref
+from repro_torch.kernels.fxp_matmul import plan as fxp_plan
 from repro_torch.kernels.kv_flash_decode import kv_flash_decode, kv_flash_decode_ref
 from repro_torch.kernels.kv_flash_decode import plan as kv_plan
 from repro_torch.kernels.kv_flash_paged_decode import (kv_flash_paged_decode,
@@ -60,6 +67,8 @@ __all__ = ["SHAPES_POFX", "POFX_SPECS", "run", "main"]
 SHAPES_POFX = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096), (4096, 64000)]
 FXP_SHAPES = [(4096, 11008), (11008, 4096)]   # the mlp projections
 POFX_SPECS = [(N, ES) for N in (6, 7, 8) for ES in (1, 2, 3)]
+# every (N, ES, M) pofx_decode accepts
+DECODE_PARAMS = [(N, ES, M) for N in range(3, 10) for ES in range(5) for M in range(1, 9)]
 KV_SHAPES = ((96, [65, 80, 90, 96]), (1000, [1, 333, 999, 1000]),
              (4096, [1, 1365, 4095, 4096]))   # the last: yi-9b's 4096-token context
 
@@ -114,7 +123,8 @@ class KernelBench:
 
     def check_decode(self) -> Dict[str, int]:
         """pofx_decode and pofx_matmul's decode on every code of every pofx
-        spec, and pofx_decode on ragged and strided shapes: exact."""
+        spec, pofx_decode on every byte at every (N, ES, M) its wrapper
+        accepts, and on ragged and strided shapes: exact."""
         dev, n_specs = self.dev, 0
         for N, ES in POFX_SPECS:
             L = 1 << (N - 1)
@@ -126,6 +136,12 @@ class KernelBench:
             if not torch.equal(got, (lut.float() / 128)[None].expand(L, L)):
                 raise AssertionError(f"pofx_matmul decode differs at N={N} ES={ES}")
             n_specs += 1
+        every = torch.arange(256, device=dev, dtype=torch.uint8).reshape(16, 16)
+        n_params = 0
+        for N, ES, M in DECODE_PARAMS:
+            if not torch.equal(pofx_decode(every, N, ES, M), pofx_decode_ref(every, N, ES, M)):
+                raise AssertionError(f"pofx_decode differs at N={N} ES={ES} M={M}")
+            n_params += 1
         shapes = [(257, 130), (1, 17), (33, 1), (3, 4099), (129, 4096)]
         for r, c in shapes:
             codes = self.randint(0, 256, (r, c), torch.uint8)
@@ -138,9 +154,10 @@ class KernelBench:
             if not torch.equal(pofx_decode(v, 7, 1), pofx_decode_ref(v, 7, 1)):
                 raise AssertionError(f"pofx_decode differs on {what}")
         log(f"  pofx_decode and pofx_matmul decode: all codes of pofx(N=6..8, ES=1..3) exact; "
-            f"pofx_decode exact at {', '.join(f'{r}x{c}' for r, c in shapes)} and on "
-            f"{', '.join(views)} views")
-        return {"specs": n_specs, "ragged_shapes": len(shapes), "views": len(views)}
+            f"pofx_decode exact on every byte at all {n_params} accepted (N, ES, M), at "
+            f"{', '.join(f'{r}x{c}' for r, c in shapes)} and on {', '.join(views)} views")
+        return {"specs": n_specs, "decode_params": n_params, "ragged_shapes": len(shapes),
+                "views": len(views)}
 
     # -- rows -----------------------------------------------------------------
 
@@ -155,11 +172,13 @@ class KernelBench:
         err = float((got.int() - want.int()).abs().max())
         if not torch.equal(library(), want):
             raise AssertionError(f"table lookup differs from pofx_decode_ref at {r}x{c}")
+        buf = torch.empty_like(codes)
         return self.add("pofx_decode", f"{r}x{c} ({N},{ES})", err=err, tol=0.0,
                         kernel=lambda: pofx_decode(codes, N, ES, M),
                         plain=lambda: pofx_decode_ref(codes, N, ES, M),
                         library=library, library_name="lut_i8[codes.long()]",
-                        nbytes=2 * r * c, kind="int8")
+                        nbytes=2 * r * c, kind="int8",
+                        copy_ms=lambda: buf.copy_(codes))
 
     def pofx_matmul_row(self, m: int, k: int, n: int, x_dtype, shape: str) -> Dict:
         x = self.randn(m, k).to(x_dtype)
@@ -186,18 +205,32 @@ class KernelBench:
                         library_ms_clean_l2=lambda: torch.matmul(x, w))
 
     def fxp_matmul_row(self, m: int, k: int, n: int, shape: str) -> Dict:
+        """Exact against the plain version. The library is ``torch._int_mm``
+        where it takes the shape (k and n multiples of 8); it needs more than
+        16 rows, so below that it runs on ``a`` padded with zero rows to 32
+        (padded outside the timer) and its first m rows are checked."""
         a = self.randint(-127, 128, (m, k), torch.int8)
         b = self.randint(-128, 128, (k, n), torch.int8)
         got = fxp_matmul(a, b)
         want = fxp_matmul_ref(a, b)
         err = float((got.double() - want.double()).abs().max())
-        lib = None
-        if m > 16 and k % 8 == 0 and n % 8 == 0:    # what torch._int_mm takes
-            lib = lambda: torch._int_mm(a, b)        # noqa: E731
+        lib = name = None
+        if k % 8 == 0 and n % 8 == 0:    # what torch._int_mm takes
+            a_lib = a
+            if m <= 16:
+                a_lib = torch.zeros((32, k), dtype=torch.int8, device=self.dev)
+                a_lib[:m] = a
+            lib = lambda: torch._int_mm(a_lib, b)      # noqa: E731
+            name = "torch._int_mm" + ("" if a_lib is a else " (a padded to 32 rows)")
+            if not torch.equal(lib()[:m], want):
+                raise AssertionError(f"torch._int_mm differs from fxp_matmul_ref at {shape}")
         return self.add("fxp_matmul", shape, err=err, tol=0.0,
                         kernel=lambda: fxp_matmul(a, b), plain=lambda: fxp_matmul_ref(a, b),
-                        library=lib, library_name="torch._int_mm" if lib else None,
-                        nbytes=m * k + k * n + m * n * 4, ops=2 * m * k * n, kind="int8")
+                        library=lib, library_name=name,
+                        nbytes=m * k + k * n + m * n * 4, ops=2 * m * k * n, kind="int8",
+                        **fxp_plan(m, k, n)._asdict(),
+                        ms_clean_l2=lambda: fxp_matmul(a, b),
+                        library_ms_clean_l2=lib)
 
     def kv_flash_decode_row(self, spec_s: str, S: int, pos_list) -> Dict:
         spec = parse_spec(spec_s)
@@ -317,9 +350,11 @@ def run(device="cuda", *, smoke: bool = False, timer: Optional[Timer] = None) ->
     for spec_s in ("fxp8", "pofx8es2"):
         for S, pos_list in KV_SHAPES:
             bench.kv_flash_paged_decode_row(spec_s, S, pos_list)
-    # (c) pofx_decode at the yi-9b weight shapes
+    # (c) pofx_decode at the yi-9b weight shapes; at the mlp shape also with
+    # N = 9, whose 256-byte table has two words a bank (N = 8: one)
     for k, n in SHAPES_POFX:
         bench.pofx_decode_row(k, n, 8, 2)
+    bench.pofx_decode_row(*FXP_SHAPES[0], 9, 2)
     return bench.rows
 
 

@@ -102,7 +102,7 @@ _SIGNATURES = {
         "kv_flash_decode": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
         + [ctypes.c_float] * 2 + [ctypes.c_void_p]},
     "fxp_matmul": {
-        "fxp_matmul": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+        "fxp_matmul": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
         + [ctypes.c_void_p]},
     "kv_flash_paged_decode": {
         "kv_flash_paged_decode": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 10

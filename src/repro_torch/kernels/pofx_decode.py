@@ -2,10 +2,11 @@
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/pofx_decode.py::
 pofx_decode`` (``pallas_call`` at :45). The CUDA kernel is
-``csrc/pofx_decode.cu``: an elementwise map that runs the paper's
-Algorithm 1 bit by bit on every code (``csrc/pofx_common.cuh``, the
-device function a register-decoding matmul can share), 16 codes per thread
-through one 16-byte load and one 16-byte store.
+``csrc/pofx_decode.cu``: each block first builds the 2^(N-1)-entry decode
+table in shared memory by running the paper's Algorithm 1 bit by bit once
+per entry (``csrc/pofx_common.cuh``), then a persistent grid walks the array
+in 16-byte spans, one byte extract and one shared lookup a code, 16 codes per
+16-byte load and store.
 
 Bound on the card: bytes, r*c in and r*c out. The kernel reads each code
 once and writes each output once; ragged shapes are masked in the kernel

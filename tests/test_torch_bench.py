@@ -51,9 +51,14 @@ def test_full_rows_on_cpu_at_reduced_shapes(monkeypatch, capsys):
     monkeypatch.setattr(kernels, "FXP_SHAPES", [(64, 96)])
     rows = kernels.run("cpu")
     names = [r["name"] for r in rows]
-    assert names.count("pofx_decode") == 6 + 2 and names.count("kv_flash_decode") == 4
+    # pofx_decode: 6 sweep rows, one (8, 2) row per weight shape, one (9, 2) row
+    assert names.count("pofx_decode") == 6 + 2 + 1 and names.count("kv_flash_decode") == 4
     assert names.count("kv_flash_paged_decode") == 4 and names.count("pofx_matmul") == 2 + 4 + 1
     assert names.count("fxp_matmul") == 1 + 2
+    for r in rows:
+        if r["name"] == "fxp_matmul":
+            assert r["slices"] >= 1 and r["slice_len"] % 64 == 0
+            assert "ms_clean_l2" in r and "library_ms_clean_l2" in r
     assert all(r["ok"] for r in rows)
     assert all(r["max_abs_diff_dense_kernel"] == 0.0 for r in rows
                if r["name"] == "kv_flash_paged_decode")

@@ -134,12 +134,67 @@ def test_pofx_matmul_decodes_every_code_exactly(cuda, N, ES):
     assert torch.equal(got, lut[None].expand(L, L))
 
 
-@pytest.mark.parametrize("m,k,n", [(4, 4096, 11008), (64, 11008, 4096), (3, 37, 70)])
+def _fxp_inputs(dev, m, k, n, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randint(-128, 128, (m, k), generator=g, device=dev).to(torch.int8)
+    b = torch.randint(-128, 128, (k, n), generator=g, device=dev).to(torch.int8)
+    return a, b
+
+
+# every wgmma width (N = 8, 16, 32, 64, and more than one 64-row tile) at the
+# serving shapes, k split into slices; then k not a multiple of 16 (a's byte
+# path, a k tail), n not a multiple of 16 (b's byte path), and both
+FXP_CASES = ([(m, k, n) for m in (1, 4, 8, 16, 17, 64, 65, 130)
+              for k, n in ((4096, 11008), (11008, 4096))] + [(3, 37, 70)]
+             + [(m, k, n) for m in (1, 4, 20, 70)
+                for k, n in ((1000, 777), (33, 5), (257, 66), (4100, 4096), (4096, 4104),
+                             (70, 16))])
+
+
+@pytest.mark.parametrize("m,k,n", FXP_CASES)
 def test_fxp_matmul_exact(cuda, m, k, n):
-    g = torch.Generator(device=cuda).manual_seed(1)
-    a = torch.randint(-128, 128, (m, k), generator=g, device=cuda).to(torch.int8)
-    b = torch.randint(-128, 128, (k, n), generator=g, device=cuda).to(torch.int8)
-    assert torch.equal(fxp_matmul(a, b), fxp_matmul_ref(a, b))
+    a, b = _fxp_inputs(cuda, m, k, n, seed=m + k + n)
+    before = LAUNCHES["fxp_matmul"]
+    got = fxp_matmul(a, b)
+    assert LAUNCHES["fxp_matmul"] == before + 1
+    assert got.dtype == torch.int32 and torch.equal(got, fxp_matmul_ref(a, b))
+
+
+def test_fxp_matmul_misaligned_views_exact(cuda):
+    """Contiguous operands whose first byte is not 16-byte aligned, and
+    strided views (copied by the wrapper)."""
+    m, k, n = 4, 4096, 11008
+    a, b = _fxp_inputs(cuda, m, k, n, seed=9)
+    want = fxp_matmul_ref(a, b)
+    bbuf = torch.empty(k * n + 1, dtype=torch.int8, device=cuda)
+    bbuf[1:] = b.flatten()
+    b_off = bbuf[1:].view(k, n)
+    abuf = torch.empty(m * k + 3, dtype=torch.int8, device=cuda)
+    abuf[3:] = a.flatten()
+    a_off = abuf[3:].view(m, k)
+    assert b_off.data_ptr() % 16 != 0 and a_off.data_ptr() % 16 != 0
+    for x, y in ((a_off, b), (a, b_off), (a_off, b_off)):
+        assert torch.equal(fxp_matmul(x, y), want)
+    wide = torch.zeros((k, n + 5), dtype=torch.int8, device=cuda)
+    wide[:, 2:n + 2] = b
+    assert torch.equal(fxp_matmul(a, wide[:, 2:n + 2]), want)
+    assert torch.equal(fxp_matmul(a.t().contiguous().t(), b.t().contiguous().t()), want)
+
+
+@pytest.mark.parametrize("m,k,n", [(4, 4096, 11008), (64, 11008, 4096), (130, 4096, 512)])
+def test_fxp_matmul_two_launches_bit_identical(cuda, m, k, n):
+    a, b = _fxp_inputs(cuda, m, k, n, seed=10)
+    first = fxp_matmul(a, b)
+    assert torch.equal(fxp_matmul(a, b), first)
+
+
+def test_fxp_matmul_accumulator_headroom_exact_on_the_card(cuda):
+    """All-extreme operands at the largest k the int32 sum holds (128^2 k <
+    2^31): every split's partials and their sum stay exact."""
+    for m, k in ((4, 131000), (64, 16384)):
+        a = torch.full((m, k), -128, dtype=torch.int8, device=cuda)
+        b = torch.full((k, 48), -128, dtype=torch.int8, device=cuda)
+        assert (fxp_matmul(a, b) == 128 * 128 * k).all()
 
 
 @pytest.mark.parametrize("spec_s", ["fxp8", "pofx8es2", "pofx6es1"])
@@ -321,20 +376,36 @@ def test_wrappers_raise_on_mixed_devices(cuda):
                     torch.ones(4, device=cuda), 8, 2)
 
 
-@pytest.mark.parametrize("N", [6, 7, 8])
-@pytest.mark.parametrize("ES", [1, 2, 3])
+@pytest.mark.parametrize("N", range(3, 10))
+@pytest.mark.parametrize("ES", range(5))
 def test_pofx_decode_every_code_exact(cuda, N, ES):
-    """An (L, L) tile of arange(L), and every byte (high bits ignored)."""
+    """At every (N, ES, M) the wrapper accepts: an (L, L) tile of arange(L)
+    (its rows the decode table), and every byte (high bits ignored)."""
     L = 1 << (N - 1)
     tile = torch.arange(L, device=cuda, dtype=torch.uint8)[None].expand(L, L).contiguous()
-    before = LAUNCHES["pofx_decode"]
-    got = pofx_decode(tile, N, ES)
-    assert LAUNCHES["pofx_decode"] == before + 1
-    assert got.dtype == torch.int8 and torch.equal(got, pofx_decode_ref(tile, N, ES))
-    lut = torch.as_tensor(pofx_norm_lut(N, ES, 8), device=cuda).to(torch.int8)
-    assert torch.equal(got[0], lut)
     every = torch.arange(256, device=cuda, dtype=torch.uint8).reshape(16, 16)
-    assert torch.equal(pofx_decode(every, N, ES), pofx_decode_ref(every, N, ES))
+    for M in range(1, 9):
+        before = LAUNCHES["pofx_decode"]
+        got = pofx_decode(tile, N, ES, M)
+        assert LAUNCHES["pofx_decode"] == before + 1
+        assert got.dtype == torch.int8 and torch.equal(got, pofx_decode_ref(tile, N, ES, M))
+        lut = torch.as_tensor(pofx_norm_lut(N, ES, M), device=cuda).to(torch.int8)
+        assert torch.equal(got[0], lut)
+        assert torch.equal(pofx_decode(every, N, ES, M), pofx_decode_ref(every, N, ES, M))
+
+
+def test_pofx_decode_grid_stride_walks_several_times(cuda):
+    """A persistent grid of a few blocks a SM walks 8192 x 11008 codes in
+    several strides, flat and as a strided view (rows walked apart)."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    codes = torch.randint(0, 256, (8192, 11008), generator=g, device=cuda, dtype=torch.uint8)
+    spans = codes.numel() // 16
+    assert spans > 8 * 4 * torch.cuda.get_device_properties(cuda).multi_processor_count * 256
+    for N, ES in ((8, 2), (9, 1)):
+        lut = torch.as_tensor(pofx_norm_lut(N, ES, 8), device=cuda).to(torch.int8)
+        want = lut[(codes & ((1 << (N - 1)) - 1)).long()]
+        assert torch.equal(pofx_decode(codes, N, ES), want)
+        assert torch.equal(pofx_decode(codes[:, 3:11003], N, ES), want[:, 3:11003])
 
 
 @pytest.mark.parametrize("shape", [(257, 130), (1, 17), (33, 1), (3, 4099), (4096, 512)])
