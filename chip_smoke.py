@@ -47,7 +47,17 @@ Phases, one line each, any failure exits non-zero without the final line:
    --top-k 40`` (yi-9b, 48 layers, bf16), dense twice (the same seed gives
    the same streams) and with ``--paged --page-size 16`` (the dense
    streams); launch counts, tok/s beside phase 3's, and the time the draw
-   adds to a decode step.
+   adds to a decode step;
+9. MoE serving: the serving CLI with ``--arch moonshot-v1-16b-a3b --quant
+   pofx8 --kv-quant fxp8 --use-kernel`` and its defaults (48 layers,
+   d_model 2048, 64 experts top-6 + 2 shared, greedy), with launch counts
+   (7 pofx_matmul a layer: q/k/v/o and the shared experts' gate/up/down,
+   plus the unembed; one kv_flash_decode a layer and decode step), the
+   first-token logits against the plain path and a decode-step profile
+   that splits out the MoE FFN; then, on the same weights, the paged
+   engine (the dense streams, kv_flash_paged_decode a layer and step),
+   kernels against plain versions at f32 and 2 layers (identical streams)
+   and a sampled run against its repeat (identical streams).
 
 TF32 is off for matmuls and convolutions, so every f32 product (the plain
 versions included) is a true f32 product. Details go to
@@ -57,7 +67,6 @@ from __future__ import annotations
 
 import dataclasses
 import json
-import subprocess
 import sys
 import time
 import traceback
@@ -112,7 +121,7 @@ def serve_cli_run(torch, argv, what="main path"):
     eng, done = run.engine, run.done
     st = eng.stats()
     n_prompt = sum(len(s.context) for s in done)
-    summary = {"argv": argv, "arch": "yi-9b", "n_layers": run.model.cfg.n_layers,
+    summary = {"argv": argv, "arch": run.model.cfg.name, "n_layers": run.model.cfg.n_layers,
                "requests": len(done), "prompt_len": 64, "gen": 32, "slots": eng.n_slots,
                "prefill_tok_s": n_prompt / eng.prefill_time,
                "decode_tok_s": st["decode_tokens"] / eng.decode_time,
@@ -180,14 +189,19 @@ def compare(done_k, done_p, what):
 
 
 def profile_decode(torch, model, params, steps: int = 4, paged: bool = False,
-                   sample: bool = False):
+                   sample: bool = False, regions=None):
     """Device time by kernel over ``steps`` decode steps at 4 slots and a
     64-token context (torch.profiler, CUDA activity), against the host
     wall time of the same steps: where a decode step's time goes. ``paged``
     profiles the paged cache (16-token pages, 6 per slot); ``sample`` adds
     the engine's draw to each step (slot keys folded with the positions,
-    temperature 0.8, top-k 40), its token fed back as the engine does."""
+    temperature 0.8, top-k 40), its token fed back as the engine does.
+    ``regions`` {label: (module, function name)} wraps those functions in
+    ``record_function`` ranges while profiling and reports the device time
+    of the kernels launched inside each, a step."""
+    restore = []
     try:
+        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         from repro_torch.core import prng
         from repro_torch.launch.engine import sample_tokens
@@ -217,6 +231,9 @@ def profile_decode(torch, model, params, steps: int = 4, paged: bool = False,
             cache, tok = step(cache, tok)
         torch.cuda.synchronize()
         bare_ms = (time.perf_counter() - t0) * 1e3 / steps
+        for label, (module, name) in (regions or {}).items():
+            restore.append((module, name, getattr(module, name)))
+            setattr(module, name, annotated(torch, label, getattr(module, name)))
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(steps):
@@ -225,8 +242,11 @@ def profile_decode(torch, model, params, steps: int = 4, paged: bool = False,
             wall_ms = (time.perf_counter() - t0) * 1e3 / steps
         by_name, host, syncs = {}, {}, {}
         for evt in prof.key_averages():
+            # work on the card: kernels, copies and sets (an aten op's own
+            # device time is its kernels', and a region's is its span)
             dev_us = getattr(evt, "self_device_time_total", 0) or 0
-            if dev_us > 0:
+            if evt.device_type == DeviceType.CUDA and evt.key not in (regions or {}) \
+                    and dev_us > 0:
                 by_name[evt.key] = dev_us / 1e3 / steps
             host[evt.key] = evt.self_cpu_time_total / 1e3 / steps
             # host calls that wait for the card (the last one, after the
@@ -237,22 +257,44 @@ def profile_decode(torch, model, params, steps: int = 4, paged: bool = False,
         busy = sum(by_name.values())
         # the flash-decode kernels (csrc/kv_flash_common.cuh's decode_kernel)
         attn = sum(ms for name, ms in by_name.items() if "kv_flash" in name)
+        pofx = sum(ms for name, ms in by_name.items() if "pofx_matmul" in name)
+        # kernels launched by PyTorch ops inside each region: the host-side
+        # range's own and its children's (the device-side range of the same
+        # name is its span; the ctypes launches of the port's kernels are
+        # counted by name above, not in a region)
+        region_ms = {label: sum(e.device_time_total for e in prof.events()
+                                if e.name == label and e.device_type == DeviceType.CPU)
+                     / 1e3 / steps
+                     for label in regions or {}}
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         top_host = sorted(host.items(), key=lambda kv: -kv[1])[:6]
         log(f"  decode step profile: wall {wall_ms:.2f} ms ({bare_ms:.2f} ms without the "
             f"profiler), device busy {busy:.2f} ms ({100 * (1 - busy / wall_ms):.1f}% idle), "
-            f"attention {attn:.3f} ms; host waits per step {syncs}")
+            f"attention {attn:.3f} ms, pofx_matmul {pofx:.3f} ms; host waits per step {syncs}")
+        if region_ms:
+            log(f"  device ms a step inside {', '.join(f'{k} {v:.3f}' for k, v in region_ms.items())}")
         for name, ms in top:
             log(f"    {ms:8.3f} ms/step  {name[:90]}")
         for name, ms in top_host:
             log(f"    {ms:8.3f} ms/step host  {name[:84]}")
         return {"wall_ms": wall_ms, "bare_wall_ms": bare_ms, "device_busy_ms": busy,
-                "attention_ms": attn,
+                "attention_ms": attn, "pofx_matmul_ms": pofx, "region_ms": region_ms,
                 "host_waits_per_step": syncs, "top": [[n, ms] for n, ms in top],
                 "top_host": [[n, ms] for n, ms in top_host]}
     except Exception:  # the profile is an aside: record why it is missing
         log(f"  decode step profile: not measured\n{traceback.format_exc()}")
         return None
+    finally:
+        for module, name, fn in restore:
+            setattr(module, name, fn)
+
+
+def annotated(torch, label, fn):
+    """``fn`` inside a ``torch.profiler.record_function(label)`` range."""
+    def call(*args, **kw):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kw)
+    return call
 
 
 def small_model(n_layers, policy_s, kv_s):
@@ -707,10 +749,134 @@ def phase_sampled(torch, result):
                              "or between the dense and paged paths")
 
 
+MOE_ARGV = ["--arch", "moonshot-v1-16b-a3b", "--quant", "pofx8", "--kv-quant", "fxp8",
+            "--use-kernel"]
+# phase 9's depths: the CLI and the paged engine serve all 48 layers; the
+# f32 kernels-vs-plain check takes the first 2, the sampled repeat the first 12
+MOE_IDENTITY_LAYERS, MOE_SAMPLED_LAYERS = 2, 12
+
+
+def truncated(model, params, n_layers, **rcfg):
+    """The model on its first ``n_layers`` layers' weights (embed, unembed
+    and ln_f as they are), run config fields replaced by ``rcfg``."""
+    cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
+    sub = dataclasses.replace(model, cfg=cfg, rcfg=dataclasses.replace(model.rcfg, **rcfg))
+    return sub, dict(params, blocks=params["blocks"][:n_layers])
+
+
+def phase_moe(torch, result):
+    """Phase 9: MoE serving of moonshot-v1-16b-a3b at full width. The CLI
+    at 48 layers with its defaults (launch counts, 32 in-vocab tokens a
+    request, first-token logits against the plain path, a decode-step
+    profile with the MoE FFN split out); then, on the same weights, the
+    paged engine (page size 16: the dense streams), kernels against plain
+    versions at f32 on the first 2 layers (identical greedy streams) and a
+    sampled run and its repeat on the first 12 (identical streams)."""
+    import repro_torch.nn.moe as moe_mod
+    import repro_torch.nn.transformer as T
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.ops import PLAIN
+    from repro_torch.launch.engine import SamplingParams, ServeEngine
+    from repro_torch.launch.serve import make_requests
+    run, counts, summary = serve_cli_run(torch, MOE_ARGV, "MoE path")
+    model, params, eng, done = run.model, run.params, run.engine, run.done
+    cfg = model.cfg
+    st = eng.stats()
+    per_fwd = 7 * cfg.n_layers + 1
+    want = {"pofx_matmul": per_fwd * (st["prefill_sampled_tokens"] + st["decode_steps"]),
+            "kv_flash_decode": cfg.n_layers * st["decode_steps"],
+            "kv_flash_paged_decode": 0, "fxp_matmul": 0, "pofx_decode": 0}
+    if counts != want or counts["kv_flash_decode"] <= 0:
+        raise AssertionError(f"MoE launch counts {counts} != expected {want}")
+    if (cfg.name != "moonshot-v1-16b-a3b" or cfg.n_layers != 48 or cfg.d_model != 2048
+            or len(done) != 8):
+        raise AssertionError(f"MoE path ran {cfg.name}, {cfg.n_layers} layers, "
+                             f"d={cfg.d_model}, {len(done)} requests")
+    for s in done:
+        if len(s.out) != 32 or not all(0 <= t < cfg.vocab_size for t in s.out):
+            raise AssertionError(f"MoE rid {s.req.rid}: bad output {s.out}")
+    prompt = run.requests[0].prompt
+    lk = first_logits(torch, model, params, prompt)
+    lp = first_logits(torch, dataclasses.replace(model, kernel_set=PLAIN), params, prompt)
+    if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+        raise AssertionError("non-finite MoE first-token logits")
+    diff = (lk - lp).abs().max().item()
+    log(f"  first-token logits, kernels vs plain path: max |diff| {diff:.4g} "
+        f"(|logits| <= {lp.abs().max().item():.4g}, bf16 activations), "
+        f"argmax {int(lk.argmax())} vs {int(lp.argmax())}")
+    # the MoE FFN (router, dispatch, expert products, combine, shared
+    # experts) and, inside it, the shared experts' MLP (pofx_matmul)
+    prof = profile_decode(torch, model, params, regions={
+        "moe_ffn": (T, "moe_forward"), "moe_shared": (moe_mod, "mlp_forward")})
+    if prof:
+        prof["expert_path_ms"] = prof["region_ms"]["moe_ffn"] - prof["region_ms"]["moe_shared"]
+        log(f"  expert path (MoE FFN less its shared experts): "
+            f"{prof['expert_path_ms']:.3f} ms a step")
+    streams = [s.out for s in done]
+    entry = dict(summary, first_logit_max_abs_diff=diff, decode_profile=prof)
+
+    # 2. the paged engine on the same model and weights
+    reset_launches()
+    peng = ServeEngine(model, params, n_slots=4, max_len=96, chunk=8, paged=True,
+                       page_size=16)
+    pdone = peng.run(make_requests(cfg.vocab_size, 8, 64, 32))
+    torch.cuda.synchronize()
+    pcounts, pst = dict(LAUNCHES), peng.stats()
+    peng._pager.check()
+    pwant = {"pofx_matmul": per_fwd * (pst["prefill_sampled_tokens"] + pst["decode_steps"]),
+             "kv_flash_paged_decode": cfg.n_layers * pst["decode_steps"],
+             "kv_flash_decode": 0, "fxp_matmul": 0, "pofx_decode": 0}
+    same_paged = sum(a.out == b for a, b in zip(pdone, streams))
+    log(f"  paged (page 16): {same_paged}/8 streams identical to the dense CLI run's; "
+        f"launches {pcounts}; decode {pst['decode_tok_per_s']:.2f} tok/s; prefix hits "
+        f"{pst['prefix_hits']}/{pst['prefix_queries']}")
+    entry["paged"] = {"identical_to_dense": same_paged, "launches": pcounts,
+                      "decode_tok_s": pst["decode_tok_per_s"], "decode_s": peng.decode_time,
+                      "prefill_s": peng.prefill_time, "decode_steps": pst["decode_steps"]}
+    del peng
+    if pcounts != pwant:
+        raise AssertionError(f"MoE paged launch counts {pcounts} != expected {pwant}")
+    if same_paged != 8:
+        raise AssertionError("MoE paged streams differ from the dense ones")
+
+    # 3. kernels vs plain versions at f32, the first layers
+    small, sparams = truncated(model, params, MOE_IDENTITY_LAYERS,
+                               activation_dtype="f32")
+    reset_launches()
+    _, done_k, _ = serve(torch, small, sparams)
+    kcounts = dict(LAUNCHES)
+    _, done_p, _ = serve(torch, dataclasses.replace(small, kernel_set=PLAIN), sparams)
+    same = compare(done_k, done_p, "plain")
+    log(f"  identity ({MOE_IDENTITY_LAYERS} layers, f32): {same}/8 streams identical to "
+        f"the plain path; launches {kcounts}")
+    entry["identity"] = {"n_layers": MOE_IDENTITY_LAYERS, "identical_streams": same,
+                         "launches": kcounts}
+    if same != 8 or kcounts["pofx_matmul"] <= 0 or kcounts["kv_flash_decode"] <= 0:
+        raise AssertionError("MoE kernel streams differ from the plain path's")
+
+    # 4. a sampled run and its repeat
+    sub, subp = truncated(model, params, MOE_SAMPLED_LAYERS)
+    sp = SamplingParams(**SAMPLING)
+    t0 = time.perf_counter()
+    _, first, _ = serve(torch, sub, subp, sampling=sp)
+    _, again, _ = serve(torch, sub, subp, sampling=sp)
+    same_s = sum(a.out == b.out for a, b in zip(first, again))
+    log(f"  sampled ({MOE_SAMPLED_LAYERS} layers, temperature 0.8, top-k 40): repeat "
+        f"{same_s}/8 streams identical ({time.perf_counter() - t0:.1f}s for both)")
+    entry["sampled"] = {"n_layers": MOE_SAMPLED_LAYERS, "identical_repeat": same_s,
+                        "streams": [s.out for s in first]}
+    result["moe"] = entry
+    if same_s != 8 or any(len(s.out) != 32 for s in first):
+        raise AssertionError("MoE sampled streams differ between runs with the same seed")
+    del run, model, params, eng, small, sparams, sub, subp
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="drive the port on one card")
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9",
                     help="comma-separated phases after the build (default: all)")
     want = {int(p) for p in ap.parse_args(argv).phases.split(",")}
     import torch
@@ -767,6 +933,8 @@ def main(argv) -> int:
          lambda: phase_paging(torch, result)),
         ("phase 8: sampled serving, yi-9b full width and depth",
          lambda: phase_sampled(torch, result)),
+        ("phase 9: MoE serving, moonshot-v1-16b-a3b full width and depth",
+         lambda: result.__setitem__("moe_counts", phase_moe(torch, result))),
     ]
     for label, fn in phases:
         if int(label.split()[1].rstrip(":")) not in want:
@@ -790,7 +958,7 @@ def main(argv) -> int:
     if failed:
         log(f"FAILED: {failed}")
         return 1
-    if want != {2, 3, 4, 5, 6, 7, 8}:
+    if want != {2, 3, 4, 5, 6, 7, 8, 9}:
         log(f"ran phases {sorted(want)} only: no result line")
         return 1
     main_counts = result["main_counts"]

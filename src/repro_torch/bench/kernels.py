@@ -24,7 +24,10 @@ size. The rows:
     m = 64 (prefill), and at m = 1 on the unembed (a prefill's last
     position), and fxp_matmul at the mlp shapes, m = 4 and 64;
     kv_flash_decode and kv_flash_paged_decode at 4 slots, S = 96, ~1000
-    and 4096 (with the split's chunk and count);
+    and 4096 (with the split's chunk and count), G = 4 groups of R = 8
+    query rows; and at moonshot-v1-16b-a3b serving shapes: pofx_matmul at
+    m = 1, 4 and 64 on q/k/v/o, the shared experts' gate/up and down and
+    the unembed, both flash-decode kernels (fxp8) at G = 16, R = 1;
 (c) pofx_decode at the five yi-9b weight shapes, (N, ES) = (8, 2), and at
     the mlp shape with (9, 2).
 
@@ -61,11 +64,14 @@ from repro_torch.kernels.pofx_matmul import pofx_matmul, pofx_matmul_ref
 from repro_torch.kernels.ref import gather_pages
 from .common import Timer, bound_ms, nvidia_smi, write_csv
 
-__all__ = ["SHAPES_POFX", "POFX_SPECS", "run", "main"]
+__all__ = ["SHAPES_POFX", "MOE_SHAPES_POFX", "POFX_SPECS", "run", "main"]
 
 # yi-9b weight shapes (k, n): q/o, k/v, gate/up, down, unembed
 SHAPES_POFX = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096), (4096, 64000)]
 FXP_SHAPES = [(4096, 11008), (11008, 4096)]   # the mlp projections
+# moonshot-v1-16b-a3b's kernel shapes (k, n): q/k/v/o, shared gate/up,
+# shared down, unembed (the expert products are plain PyTorch)
+MOE_SHAPES_POFX = [(2048, 2048), (2048, 2816), (2816, 2048), (2048, 163840)]
 POFX_SPECS = [(N, ES) for N in (6, 7, 8) for ES in (1, 2, 3)]
 # every (N, ES, M) pofx_decode accepts
 DECODE_PARAMS = [(N, ES, M) for N in range(3, 10) for ES in range(5) for M in range(1, 9)]
@@ -232,9 +238,10 @@ class KernelBench:
                         ms_clean_l2=lambda: fxp_matmul(a, b),
                         library_ms_clean_l2=lib)
 
-    def kv_flash_decode_row(self, spec_s: str, S: int, pos_list) -> Dict:
+    def kv_flash_decode_row(self, spec_s: str, S: int, pos_list, G: int = 4,
+                            R: int = 8) -> Dict:
         spec = parse_spec(spec_s)
-        B, G, R, Dh = 4, 4, 8, 128
+        B, Dh = 4, 128
         dev = self.dev
         q = self.randn(B, G, R, Dh)
         ks = torch.exp2(self.randint(0, 2, (B, G, 1, Dh), torch.int64).float())
@@ -262,12 +269,13 @@ class KernelBench:
                         nbytes=nbytes, ops=4 * G * R * valid * Dh, kind="f32",
                         **kv_plan(B, G, S)._asdict())
 
-    def kv_flash_paged_decode_row(self, spec_s: str, S: int, pos_list) -> Dict:
+    def kv_flash_paged_decode_row(self, spec_s: str, S: int, pos_list, G: int = 4,
+                                  R: int = 8) -> Dict:
         """ps = 16, tables scrambled so that no slot's pages are contiguous
         in the pool, garbage page 0 past each slot's pages; also against
         kv_flash_decode on the gathered cache (bit for bit)."""
         spec = parse_spec(spec_s)
-        B, G, R, Dh, ps = 4, 4, 8, 128, 16
+        B, Dh, ps = 4, 128, 16
         dev, g = self.dev, self.g
         mp = -(-S // ps)
         n_pages = B * mp + 1
@@ -350,6 +358,13 @@ def run(device="cuda", *, smoke: bool = False, timer: Optional[Timer] = None) ->
     for spec_s in ("fxp8", "pofx8es2"):
         for S, pos_list in KV_SHAPES:
             bench.kv_flash_paged_decode_row(spec_s, S, pos_list)
+    # moonshot: its kernels' weight shapes, and 16 groups of one query row
+    for m in (1, 4, 64):
+        for k, n in MOE_SHAPES_POFX:
+            bench.pofx_matmul_row(m, k, n, torch.bfloat16, f"m={m} k={k} n={n} x=bf16")
+    for S, pos_list in KV_SHAPES:
+        bench.kv_flash_decode_row("fxp8", S, pos_list, G=16, R=1)
+        bench.kv_flash_paged_decode_row("fxp8", S, pos_list, G=16, R=1)
     # (c) pofx_decode at the yi-9b weight shapes; at the mlp shape also with
     # N = 9, whose 256-byte table has two words a bank (N = 8: one)
     for k, n in SHAPES_POFX:

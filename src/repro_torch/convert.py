@@ -5,13 +5,17 @@ reproduce, so equal weights cross as numpy arrays. ``params_from_numpy``
 takes the reference's parameter tree as nested dicts of numpy arrays, with
 each quantized leaf given as ``{"codes", "scale", "spec": "<format_spec
 string>"}``, and returns the port's tree: the layer-stacked ``blocks``
-leaves (codes AND per-layer scales, whose leading layer axis the reference
-keeps mapped) are unstacked into one dict per layer. bfloat16 arrays
-(numpy dtype name "bfloat16") are accepted as raw 16-bit patterns.
+leaves (codes AND per-layer scales, whose leading layer axes the reference
+keeps mapped) are unstacked into one dict per layer, in execution order.
+The moe family's ``blocks`` = {"moe": (n_groups, ...), "dense": (n_groups,
+moe_every - 1, ...)} becomes, group by group, the group's dense layers and
+then its MoE layer. An (E, in, out) expert leaf stays whole, its codes and
+its scale shared by the experts as they are. bfloat16 arrays (numpy dtype
+name "bfloat16") are accepted as raw 16-bit patterns.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -34,10 +38,10 @@ def _is_qleaf(node) -> bool:
     return isinstance(node, dict) and set(node) == {"codes", "scale", "spec"}
 
 
-def _convert(node, device, layer=None):
-    """Convert one subtree; ``layer`` selects one slice of stacked leaves."""
-    pick = (lambda a: np.asarray(a)) if layer is None else \
-        (lambda a: np.asarray(a)[layer])
+def _convert(node, device, layer=()):
+    """Convert one subtree; ``layer`` indexes the leading (stacked) axes."""
+    def pick(a):
+        return np.asarray(a)[layer]
     if _is_qleaf(node):
         spec = parse_spec(node["spec"])
         return QuantizedTensor(tensor_from_numpy(pick(node["codes"]), device),
@@ -48,21 +52,29 @@ def _convert(node, device, layer=None):
     return tensor_from_numpy(pick(node), device)
 
 
-def _n_layers(node) -> int:
+def _stack_shape(node, depth: int = 1):
+    """The leading ``depth`` (stacked) axes of a subtree's leaves."""
     if _is_qleaf(node):
-        return np.asarray(node["codes"]).shape[0]
+        return np.asarray(node["codes"]).shape[:depth]
     if isinstance(node, dict):
-        return _n_layers(next(iter(node.values())))
-    return np.asarray(node).shape[0]
+        return _stack_shape(next(iter(node.values())), depth)
+    return np.asarray(node).shape[:depth]
+
+
+def _blocks(node, device) -> List[Dict[str, Any]]:
+    """Stacked ``blocks`` -> one dict per layer, in execution order."""
+    if "moe" not in node:                     # dense: (L, ...)
+        return [_convert(node, device, (i,)) for i in range(_stack_shape(node)[0])]
+    layers = []
+    for g in range(_stack_shape(node["moe"])[0]):
+        if "dense" in node:                   # (n_groups, moe_every - 1, ...)
+            n_dense = _stack_shape(node["dense"], 2)[1]
+            layers += [_convert(node["dense"], device, (g, i)) for i in range(n_dense)]
+        layers.append(_convert(node["moe"], device, (g,)))
+    return layers
 
 
 def params_from_numpy(tree: Dict[str, Any], *, device) -> Dict[str, Any]:
     """The reference's parameter tree (numpy) -> the port's parameters."""
-    out = {}
-    for key, node in tree.items():
-        if key == "blocks":
-            out[key] = [_convert(node, device, i)
-                        for i in range(_n_layers(node))]
-        else:
-            out[key] = _convert(node, device)
-    return out
+    return {key: _blocks(node, device) if key == "blocks" else _convert(node, device)
+            for key, node in tree.items()}

@@ -28,7 +28,7 @@ from .quantizers import (QuantSpec, QuantizedTensor, storage_bits,
                          validate_kv_spec)
 
 __all__ = ["parse_spec", "format_spec", "QuantPolicy", "PRESETS", "KV_RULE",
-           "parse_kv_spec", "storage_report", "named_leaves",
+           "parse_kv_spec", "storage_report", "named_leaves", "layer_prefixes",
            "add_policy_arg", "add_kv_quant_arg", "resolve_kv_spec"]
 
 # Reserved rule name: "kv=<spec>" configures the decode KV-cache format and
@@ -201,17 +201,28 @@ PRESETS: Dict[str, str] = {
 # ---------------------------------------------------------------------------
 
 
+def layer_prefixes(blocks, prefix: str = "blocks/"):
+    """The reference's tree path of each layer of a per-layer ``blocks``
+    list. The dense family stacks every layer under "blocks/"; the moe
+    family stacks its MoE layers (those holding "moe") under "blocks/moe/"
+    and the dense layers between them under "blocks/dense/"."""
+    if not any("moe" in b for b in blocks):
+        return [prefix] * len(blocks)
+    return [prefix + ("moe/" if "moe" in b else "dense/") for b in blocks]
+
+
 def named_leaves(params, prefix: str = ""):
     """(path, leaf) pairs of a parameter tree, dict keys in sorted order and
     a QuantizedTensor as one leaf. A list (the per-layer ``blocks``) yields
-    every layer's leaves under the same path without a layer index, so
-    rule matching and the report see the reference's stacked-leaf names."""
+    every layer's leaves under its stacked path (``layer_prefixes``) without
+    a layer index, so rule matching and the report see the reference's
+    names."""
     if isinstance(params, dict):
         for key in sorted(params):
             yield from named_leaves(params[key], f"{prefix}{key}/")
     elif isinstance(params, (list, tuple)):
-        for item in params:
-            yield from named_leaves(item, prefix)
+        for item, path in zip(params, layer_prefixes(params, prefix)):
+            yield from named_leaves(item, path)
     else:
         yield prefix.rstrip("/"), params
 

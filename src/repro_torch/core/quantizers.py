@@ -10,6 +10,7 @@ the same code (the evict -> re-prefill resume contract).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -67,9 +68,16 @@ class QuantizedTensor:
         return self.codes.shape
 
 
+@functools.lru_cache(maxsize=None)
+def _lut_on(N: int, ES: int, M: int, rounding: str, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(pofx_norm_lut(N, ES, M, rounding), dtype=torch.int32,
+                           device=device)
+
+
 def _lut(spec: QuantSpec, device) -> torch.Tensor:
-    return torch.as_tensor(pofx_norm_lut(spec.N, spec.ES, spec.M, spec.rounding),
-                           dtype=torch.int32, device=device)
+    """The pofx decode table on ``device``, copied there once: a copy from
+    the host in every call would make every decode wait for the card."""
+    return _lut_on(spec.N, spec.ES, spec.M, spec.rounding, torch.device(device))
 
 
 def quantize(w: torch.Tensor, spec: QuantSpec,

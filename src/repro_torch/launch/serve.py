@@ -1,8 +1,9 @@
 """Serving CLI: continuous-batching quantized serving on the card.
 
-Port of ``repro/launch/serve.py`` (engine path, dense or paged cache;
-tensor parallelism and the legacy one-shot loop are later slices). Weights
-are post-training-quantized per a QuantPolicy as they are drawn, served by
+Port of ``repro/launch/serve.py`` (engine path, dense or paged cache, the
+dense and moe families; tensor parallelism and the legacy one-shot loop
+are later slices). Weights are post-training-quantized per a QuantPolicy
+as they are drawn, served by
 the continuous-batching engine; ``--use-kernel`` routes every quantized
 matmul through the hand-written PoFx/FxP kernels and, with ``--kv-quant``,
 decode attention through the flash-decode kernel (``--paged``: the paged
@@ -10,6 +11,10 @@ flash-decode kernel over a page pool with prefix sharing):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-9b \\
         --quant pofx8 --kv-quant fxp8 --use-kernel [--paged --page-size 16]
+
+``--arch moonshot-v1-16b-a3b`` serves the MoE family the same way (its
+expert products are plain PyTorch on dequantized weights, as in the
+reference; attention, the shared experts and the unembed take the kernels).
 
 ``--smoke`` serves the reduced config; ``--device cpu`` runs on the CPU
 (the kernels' plain versions). ``--temperature``/``--top-k`` sample every
@@ -88,7 +93,7 @@ def main(argv=None) -> ServeRun:
                     help="paged KV cache: fixed-size token pages + per-slot "
                          "block tables + radix prefix sharing; token "
                          "streams identical to the dense engine (dense "
-                         "family)")
+                         "and moe families)")
     ap.add_argument("--page-size", type=int, default=16,
                     help="tokens per KV page (--paged)")
     ap.add_argument("--n-pages", type=int, default=0,
@@ -99,9 +104,9 @@ def main(argv=None) -> ServeRun:
     cfg = ARCHS[args.arch]
     if args.smoke:
         cfg = smoke_cfg(cfg)
-    if args.paged and cfg.family != "dense":
-        ap.error(f"--paged supports the dense family in this port, not "
-                 f"{cfg.family} (moe waits for ROADMAP A9)")
+    if args.paged and cfg.family not in ("dense", "moe"):
+        ap.error(f"--paged supports the attention-only families (dense/moe), "
+                 f"not {cfg.family} (ROADMAP A9)")
     rcfg = RunConfig(remat="none")
     policy = QuantPolicy.from_string(args.quant)
     kv_spec = resolve_kv_spec(args.kv_quant, policy)

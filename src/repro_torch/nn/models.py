@@ -1,15 +1,23 @@
 """Model facade: one ``LM`` per (ModelConfig, RunConfig, device).
 
-Port of the dense-family serving surface of ``repro/nn/models.py``:
-``init`` (per-layer parameters, quantized leaf by leaf as they are made),
-``init_cache``, ``prefill(length=)``, ``decode_step``, plus ``apply_policy``,
-``kv_decode_bytes_per_token`` and ``build_model``.
+Port of the serving surface of ``repro/nn/models.py`` for the attention
+families dense and moe: ``init`` (per-layer parameters, quantized leaf by
+leaf as they are made), ``init_cache``, ``prefill(length=)``,
+``decode_step``, plus ``apply_policy``, ``kv_decode_bytes_per_token`` and
+``build_model``.
 
 Parameters are nested dicts like the reference's tree, except that
-``blocks`` is a list with one dict per layer instead of layer-stacked
-leaves. The decode cache keeps the reference layout: {"pos": scalar or
-(B,) int32, "kv": {"k", "v": (L, B, G, S, Dh)[, "k_scale", "v_scale":
-(L, B, G, 1, Dh)]}}; decode writes it in place. The paged cache
+``blocks`` is a list with one dict per layer, in execution order, instead
+of layer-stacked leaves. The moe family's reference stacks groups of
+``moe_every`` layers (``moe_every - 1`` dense layers, then one MoE layer)
+as {"moe": (n_groups, ...), "dense": (n_groups, moe_every - 1, ...)}; here
+each layer is one dict, an MoE layer's holding "moe" where a dense layer's
+holds "mlp", and leaves are named by the reference's paths
+(``core.policy.layer_prefixes``). The decode cache keeps the dense
+family's reference layout for both families, L counting every attention
+layer in execution order: {"pos": scalar or (B,) int32, "kv": {"k", "v":
+(L, B, G, S, Dh)[, "k_scale", "v_scale": (L, B, G, 1, Dh)]}}; decode
+writes it in place. The paged cache
 (``init_paged_cache``, ``prefill_paged``) replaces the batch and sequence
 axes by one pool of pages: {"pos": (B,), "pages": (B, max_pages) int32
 block tables, "kv": {"k", "v": (L, n_pages, G, ps, Dh)[, "k_scale",
@@ -26,13 +34,14 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig, RunConfig
-from repro_torch.core.policy import QuantPolicy
+from repro_torch.core.policy import QuantPolicy, layer_prefixes
 from repro_torch.core.quantizers import (QuantSpec, kv_code_dtype, quantize,
                                          validate_kv_spec)
 from repro_torch.kernels.ops import KERNELS, KernelSet
 from . import transformer as T
 from .attention import attn_shapes
 from .layers import matmul_param, mlp_shapes, rmsnorm
+from .moe import moe_shapes
 
 __all__ = ["LM", "build_model", "apply_policy", "kv_decode_bytes_per_token",
            "resolve_device"]
@@ -72,10 +81,13 @@ def _apply_rule(name: str, leaf: torch.Tensor, policy: Optional[QuantPolicy]):
 def apply_policy(params, policy):
     """Convert weight matrices to QuantizedTensor storage per a QuantPolicy.
 
-    Each eligible leaf (a >= 2-D matmul weight; norms and the other
-    never-quantize classes excluded) is matched by its reference path name
-    ("blocks/attn/wq", "embed", ...); every layer is quantized on its own,
-    so per-layer scales match the reference's layer-stacked ones.
+    Each eligible leaf (a >= 2-D matmul weight; norms, the MoE router and
+    the other never-quantize classes excluded) is matched by its reference
+    path name ("blocks/attn/wq", "blocks/moe/moe/wg", "embed", ...); every
+    layer is quantized on its own, so per-layer scales match the
+    reference's layer-stacked ones. A stacked (E, in, out) expert leaf is
+    quantized whole, as the reference does: one scale per output column,
+    shared by all experts.
     """
     if isinstance(policy, str):
         policy = QuantPolicy.from_string(policy)
@@ -84,7 +96,7 @@ def apply_policy(params, policy):
         if isinstance(tree, dict):
             return {k: walk(v, f"{prefix}{k}/") for k, v in tree.items()}
         if isinstance(tree, list):
-            return [walk(v, prefix) for v in tree]
+            return [walk(v, p) for v, p in zip(tree, layer_prefixes(tree, prefix))]
         return _apply_rule(prefix.rstrip("/"), tree, policy)
     return walk(params, "")
 
@@ -106,10 +118,10 @@ class LM:
     kernel_set: KernelSet = KERNELS
 
     def __post_init__(self):
-        if self.cfg.family != "dense":
+        if self.cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"family {self.cfg.family!r} is not ported yet (ROADMAP A9); "
-                "this slice serves the dense family")
+                "the port serves the dense and moe families")
         if self.cfg.tie_embeddings:
             raise NotImplementedError("tied embeddings are not ported yet")
         self.device = resolve_device(self.device)
@@ -127,6 +139,15 @@ class LM:
     def param_dtype(self) -> torch.dtype:
         return _dt(self.rcfg.weight_dtype)
 
+    @property
+    def n_groups(self) -> int:
+        """Layer groups of the reference's stack: moe_every layers each in
+        the moe family (the last of a group is the MoE layer)."""
+        cfg = self.cfg
+        if cfg.family == "moe":
+            return cfg.n_layers // cfg.moe_every
+        return cfg.n_layers
+
     # -- init -----------------------------------------------------------------
 
     def init(self, seed: int = 0, policy=None) -> Dict[str, Any]:
@@ -135,39 +156,61 @@ class LM:
         With a ``policy`` every weight is quantized right after it is drawn,
         and its float copy is dropped before the next one is made, so the
         float model never exists as a whole (a full-width yi-9b is ~8.8 GB of
-        pofx8 codes but ~35 GB of f32). The draws cannot reproduce
-        ``jax.random``; tests pass weights across with ``convert``.
+        pofx8 codes but ~35 GB of f32; moonshot-v1-16b-a3b ~29 GB of codes,
+        its largest draw one (64, 2048, 1408) expert leaf). The draws cannot
+        reproduce ``jax.random``; tests pass weights across with ``convert``.
         """
         if isinstance(policy, str):
             policy = QuantPolicy.from_string(policy)
         cfg, dt, dev = self.cfg, self.param_dtype, self.device
         gen = torch.Generator(device=dev).manual_seed(int(seed))
+        V, d = cfg.padded_vocab, cfg.d_model
 
-        def dense(name, in_dim, out_dims, scale=None):
+        def dense(name, in_dim, out_dims, scale=None, dtype=dt):
             scale = in_dim ** -0.5 if scale is None else scale
             w = torch.randn((in_dim, *out_dims), generator=gen, device=dev,
                             dtype=torch.float32) * scale
-            return _apply_rule(name, w.to(dt), policy)
+            return _apply_rule(name, w.to(dtype), policy)
 
         def ones(name, n):
             return _apply_rule(name, torch.ones((n,), dtype=dt, device=dev),
                                policy)
 
-        V, d = cfg.padded_vocab, cfg.d_model
+        def block(pre, moe):
+            blk = {"ln1": ones(f"{pre}ln1", d), "ln2": ones(f"{pre}ln2", d),
+                   "attn": {n: dense(f"{pre}attn/{n}", i, o)
+                            for n, (i, o) in attn_shapes(cfg).items()}}
+            if cfg.qk_norm:
+                blk["attn"]["q_norm"] = ones(f"{pre}attn/q_norm", cfg.d_head)
+                blk["attn"]["k_norm"] = ones(f"{pre}attn/k_norm", cfg.d_head)
+            if not moe:
+                blk["mlp"] = {n: dense(f"{pre}mlp/{n}", i, o)
+                              for n, (i, o) in mlp_shapes(d, cfg.d_ff, cfg.act).items()}
+                return blk
+            shapes = moe_shapes(cfg)
+            # the router stays f32 whatever the weight dtype (never quantized);
+            # each (E, in, out) expert leaf is drawn and quantized whole
+            m = {"router": dense(f"{pre}moe/router", d, (cfg.n_experts,),
+                                 dtype=torch.float32)}
+            m.update({n: dense(f"{pre}moe/{n}", E, (i, o), scale=i ** -0.5)
+                      for n, (E, i, o) in shapes["experts"].items()})
+            if "shared" in shapes:
+                m["shared"] = {n: dense(f"{pre}moe/shared/{n}", i, o)
+                               for n, (i, o) in shapes["shared"].items()}
+            blk["moe"] = m
+            return blk
+
         params: Dict[str, Any] = {"embed": dense("embed", V, (d,), scale=1.0),
                                   "ln_f": ones("ln_f", d),
                                   "unembed": dense("unembed", d, (V,))}
+        if cfg.family == "dense":
+            params["blocks"] = [block("blocks/", False) for _ in range(cfg.n_layers)]
+            return params
+        # moe: each group runs its moe_every - 1 dense layers, then its MoE layer
         blocks = []
-        for _ in range(cfg.n_layers):
-            blk = {"ln1": ones("blocks/ln1", d), "ln2": ones("blocks/ln2", d),
-                   "attn": {n: dense(f"blocks/attn/{n}", i, o)
-                            for n, (i, o) in attn_shapes(cfg).items()},
-                   "mlp": {n: dense(f"blocks/mlp/{n}", i, o)
-                           for n, (i, o) in mlp_shapes(d, cfg.d_ff, cfg.act).items()}}
-            if cfg.qk_norm:
-                blk["attn"]["q_norm"] = ones("blocks/attn/q_norm", cfg.d_head)
-                blk["attn"]["k_norm"] = ones("blocks/attn/k_norm", cfg.d_head)
-            blocks.append(blk)
+        for _ in range(self.n_groups):
+            blocks += [block("blocks/dense/", False) for _ in range(cfg.moe_every - 1)]
+            blocks.append(block("blocks/moe/", True))
         params["blocks"] = blocks
         return params
 
@@ -222,11 +265,11 @@ class LM:
                 "v": torch.zeros(shape, dtype=kdt, device=dev)}
 
     def _require_pageable(self) -> None:
-        # the reference pages dense and moe; moe is not ported yet
-        if self.cfg.family != "dense":
+        # the reference pages the attention-only families, dense and moe
+        if self.cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
-                f"the paged {self.cfg.family!r} cache is not ported yet "
-                "(moe: ROADMAP A9)")
+                f"no paged cache for family {self.cfg.family!r}: the "
+                "reference pages dense and moe only (ROADMAP A9)")
 
     def init_paged_cache(self, batch: int, max_len: int, *, n_pages: int,
                          page_size: int) -> Dict[str, Any]:
@@ -280,10 +323,9 @@ class LM:
         for i, lp in enumerate(params["blocks"]):
             pp = {"pool": self.layer_cache(cache, i), "row": row,
                   "prefix_len": prefix_len, "page_size": ps}
-            x, _ = T.dense_block_forward(lp, x, cfg, rcfg, positions=positions,
-                                         kernels=self.kernels,
-                                         kv_spec=self.kv_spec,
-                                         paged_prefill=pp)
+            x, _ = T.block_forward(lp, x, cfg, rcfg, positions=positions,
+                                   kernels=self.kernels, kv_spec=self.kv_spec,
+                                   paged_prefill=pp)
         length = int(length)
         logits = self._logits(params, x[:, length - 1])
         cache["pos"][int(slot)] = prefix_len + length
@@ -342,10 +384,9 @@ class LM:
             lc = self.layer_cache(cache, i)
             scales = ({"k_scale": lc["k_scale"], "v_scale": lc["v_scale"]}
                       if quant else None)
-            x, kv = T.dense_block_forward(lp, x, cfg, rcfg, positions=positions,
-                                          kernels=self.kernels,
-                                          kv_spec=self.kv_spec,
-                                          kv_scales=scales)
+            x, kv = T.block_forward(lp, x, cfg, rcfg, positions=positions,
+                                    kernels=self.kernels, kv_spec=self.kv_spec,
+                                    kv_scales=scales)
             for name in ("k", "v"):
                 dst = lc[name]
                 dst[:, :, :Sq] = kv[name].transpose(1, 2).to(dst.dtype)
@@ -383,10 +424,10 @@ class LM:
             paged = {"pages": cache["pages"],
                      "page_size": self._paged_page_size(cache)}
         for i, lp in enumerate(params["blocks"]):
-            x, _ = T.dense_block_forward(lp, x, cfg, rcfg, positions=positions,
-                                         cache=self.layer_cache(cache, i),
-                                         cache_pos=pos, kernels=self.kernels,
-                                         kv_spec=self.kv_spec, **paged)
+            x, _ = T.block_forward(lp, x, cfg, rcfg, positions=positions,
+                                   cache=self.layer_cache(cache, i),
+                                   cache_pos=pos, kernels=self.kernels,
+                                   kv_spec=self.kv_spec, **paged)
         return dict(cache, pos=pos + 1), self._logits(params, x[:, 0])
 
 

@@ -1,0 +1,101 @@
+"""Mixture-of-Experts: top-k router + sort-based capacity dispatch.
+
+Port of ``repro/nn/moe.py`` (``moe_forward`` and the shapes of
+``moe_init``; the auxiliary router loss is training and waits):
+
+  1. router logits in f32 (the router weight is never quantized) -> softmax
+     -> top-k ids and renormalised gates;
+  2. a stable sort of the T*k (token, expert) assignments by expert;
+  3. the position of each within its expert by ``searchsorted``; those at
+     or past the capacity C drop (C = T*k at decode, S == 1: drop-free);
+  4. dispatch into a fixed (E*C + 1, d) buffer whose last row takes the
+     dropped ones -> per-expert batched products -> gather back.
+
+The expert products run on every expert's dequantized weights in plain
+PyTorch, as the reference computes them outside any Pallas kernel; the
+shared experts go through ``mlp_forward`` and so through the kernels.
+
+Every shape is fixed by (T, k, E, C): no ``nonzero``, no boolean-mask
+indexing, no ``.item()``, so a step adds no host wait. The combine does not
+scatter-add (float atomics on the card would change the sum order from run
+to run): the sorted contributions are put back in (token, choice) order, a
+permutation, and summed over the k choices.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.ops import KernelSet
+from .layers import activation, is_gated, mlp_forward, mlp_shapes, param_value
+
+__all__ = ["moe_shapes", "moe_capacity", "moe_forward"]
+
+
+def moe_shapes(cfg) -> dict:
+    """Shapes of one MoE layer's matmul weights: "experts" {name: (E, in,
+    out)} (each expert weight stacked over the experts) and, with shared
+    experts, "shared" as ``mlp_shapes`` gives them. The router is (d, E)."""
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    out = {"experts": {n: (E, i, o[0])
+                       for n, (i, o) in mlp_shapes(d, ff, cfg.act).items()}}
+    if cfg.n_shared_experts:
+        out["shared"] = mlp_shapes(d, ff * cfg.n_shared_experts, cfg.act)
+    return out
+
+
+def moe_capacity(T: int, S: int, cfg) -> int:
+    """Tokens each expert takes: drop-free T*k at decode (S == 1), else the
+    capacity factor's share, rounded as Python rounds (half to even)."""
+    k, E = cfg.top_k, cfg.n_experts
+    return T * k if S == 1 else int(max(1, round(T * k * cfg.capacity_factor / E)))
+
+
+def moe_forward(p: dict, x: torch.Tensor, cfg,
+                kernels: Optional[KernelSet] = None) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d)."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    T = B * S
+    dev = x.device
+    xt = x.reshape(T, d)
+    # 1. route in f32 (a flipped choice changes a token's output entirely)
+    logits = torch.matmul(xt.to(torch.float32), param_value(p["router"], torch.float32))
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, topk_idx = torch.topk(probs, k, dim=-1)            # (T, k)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
+    # 2. sort assignments by expert
+    flat_expert = topk_idx.reshape(-1)                             # (T*k,)
+    order = torch.argsort(flat_expert, stable=True)
+    sorted_expert = flat_expert[order]
+    # 3. position within expert, capacity
+    C = moe_capacity(T, S, cfg)
+    starts = torch.searchsorted(sorted_expert, torch.arange(E, device=dev))
+    pos = torch.arange(T * k, device=dev) - starts[sorted_expert]
+    keep = pos < C
+    slot = torch.where(keep, sorted_expert * C + pos, torch.full_like(pos, E * C))
+    token_of = order // k
+    # 4. dispatch -> (E, C, d); dropped rows land (as zeros) on row E*C
+    disp = torch.zeros((E * C + 1, d), dtype=x.dtype, device=dev)
+    disp[slot] = xt[token_of] * keep[:, None].to(x.dtype)
+    disp = disp[:-1].reshape(E, C, d)
+    # 5. expert FFNs, batched over E
+    fn = activation(cfg.act)
+    if is_gated(cfg.act):
+        h = fn(torch.bmm(disp, param_value(p["wg"], x.dtype))) \
+            * torch.bmm(disp, param_value(p["wu"], x.dtype))
+    else:
+        h = fn(torch.bmm(disp, param_value(p["wi"], x.dtype)))
+    out_flat = torch.bmm(h, param_value(p["wo"], x.dtype)).reshape(E * C, d)
+    # 6. gather back, weight, and combine in (token, choice) order
+    gathered = torch.where(keep[:, None], out_flat[slot.clamp(0, E * C - 1)],
+                           torch.zeros((), dtype=out_flat.dtype, device=dev))
+    gates_sorted = gate_vals.reshape(-1)[order]
+    contrib = gathered * gates_sorted[:, None].to(x.dtype)
+    unsorted = torch.empty_like(contrib)
+    unsorted[order] = contrib
+    y = unsorted.reshape(T, k, d).sum(dim=1)
+    if cfg.n_shared_experts:
+        y = y + mlp_forward(p["shared"], xt, cfg.act, kernels=kernels)
+    return y.reshape(B, S, d)

@@ -1,9 +1,14 @@
-"""Dense decoder block and the embedding lookup.
+"""Decoder blocks (dense and MoE) and the embedding lookup.
 
-Port of the dense parts of ``repro/nn/transformer.py``: RMSNorm -> GQA
-attention -> RMSNorm -> gated MLP, one call per layer (the reference's
-``lax.scan`` over layer-stacked leaves becomes a loop over per-layer
-parameter dicts).
+Port of the attention-family parts of ``repro/nn/transformer.py``, one
+call per layer (the reference's ``lax.scan`` over layer-stacked leaves
+becomes a loop over per-layer parameter dicts):
+
+  dense — RMSNorm -> GQA attention -> RMSNorm -> MLP
+  moe   — RMSNorm -> GQA attention -> RMSNorm -> MoE FFN
+
+``block_forward`` calls the block that a layer's parameters name (an
+"moe" entry makes it an MoE block).
 """
 from __future__ import annotations
 
@@ -15,22 +20,38 @@ from repro_torch.core.quantizers import QuantizedTensor, dequantize
 from repro_torch.kernels.ops import KernelSet
 from .attention import attn_forward
 from .layers import Param, mlp_forward, rmsnorm
+from .moe import moe_forward
+
+
+def _attn_residual(p, x, cfg, rcfg, **attn_kw):
+    h, new_kv = attn_forward(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg,
+                             rcfg, **attn_kw)
+    return x + h, new_kv
 
 
 def dense_block_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
-                        positions, cache=None, cache_pos=None,
-                        kernels: Optional[KernelSet] = None, kv_spec=None,
-                        kv_scales=None, pages=None, page_size=None,
-                        paged_prefill=None):
-    h, new_kv = attn_forward(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg,
-                             rcfg, positions=positions, cache=cache,
-                             cache_pos=cache_pos, kernels=kernels,
-                             kv_spec=kv_spec, kv_scales=kv_scales, pages=pages,
-                             page_size=page_size, paged_prefill=paged_prefill)
-    x = x + h
+                        kernels: Optional[KernelSet] = None, **attn_kw):
+    """``attn_kw`` goes to ``attn_forward`` (positions, the dense or paged
+    cache, paged prefill, KV format and scales)."""
+    x, new_kv = _attn_residual(p, x, cfg, rcfg, kernels=kernels, **attn_kw)
     x = x + mlp_forward(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.act,
                         kernels=kernels)
     return x, new_kv
+
+
+def moe_block_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
+                      kernels: Optional[KernelSet] = None, **attn_kw):
+    """Attention as in ``dense_block_forward``, then the MoE FFN."""
+    x, new_kv = _attn_residual(p, x, cfg, rcfg, kernels=kernels, **attn_kw)
+    x = x + moe_forward(p["moe"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg,
+                        kernels=kernels)
+    return x, new_kv
+
+
+def block_forward(p: dict, x: torch.Tensor, cfg, rcfg, **kw):
+    """The block that ``p`` names: MoE if it holds "moe", else dense."""
+    fwd = moe_block_forward if "moe" in p else dense_block_forward
+    return fwd(p, x, cfg, rcfg, **kw)
 
 
 def embed_tokens(emb: Param, tokens: torch.Tensor,

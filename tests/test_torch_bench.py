@@ -49,11 +49,18 @@ def test_full_rows_on_cpu_at_reduced_shapes(monkeypatch, capsys):
     monkeypatch.setattr(kernels, "SHAPES_POFX", [(64, 96), (96, 40)])
     monkeypatch.setattr(kernels, "KV_SHAPES", ((20, [5, 9, 17, 20]), (40, [1, 13, 39, 40])))
     monkeypatch.setattr(kernels, "FXP_SHAPES", [(64, 96)])
+    monkeypatch.setattr(kernels, "MOE_SHAPES_POFX", [(64, 40)])
     rows = kernels.run("cpu")
     names = [r["name"] for r in rows]
     # pofx_decode: 6 sweep rows, one (8, 2) row per weight shape, one (9, 2) row
-    assert names.count("pofx_decode") == 6 + 2 + 1 and names.count("kv_flash_decode") == 4
-    assert names.count("kv_flash_paged_decode") == 4 and names.count("pofx_matmul") == 2 + 4 + 1
+    assert names.count("pofx_decode") == 6 + 2 + 1
+    # flash decode: 2 specs x 2 S at G = 4, R = 8, and fxp8 x 2 S at G = 16, R = 1
+    assert names.count("kv_flash_decode") == 4 + 2
+    assert names.count("kv_flash_paged_decode") == 4 + 2
+    # pofx_matmul: 2 sweep rows, m = 4, 64 per yi-9b shape, m = 1 unembed,
+    # m = 1, 4, 64 per moonshot shape
+    assert names.count("pofx_matmul") == 2 + 4 + 1 + 3
+    assert sum("G=16 R=1" in r["shape"] for r in rows) == 4
     assert names.count("fxp_matmul") == 1 + 2
     for r in rows:
         if r["name"] == "fxp_matmul":

@@ -360,6 +360,55 @@ def test_kv_flash_dense_at_max_len_equals_paged_at_whole_pages(cuda, spec_s, ps,
     assert torch.equal(dense, paged)
 
 
+# moonshot-v1-16b-a3b's kernel shapes: q/k/v/o, shared gate/up, shared
+# down, unembed (n = 163840)
+@pytest.mark.parametrize("k,n", [(2048, 2048), (2048, 2816), (2816, 2048), (2048, 163840)])
+@pytest.mark.parametrize("m", [1, 4, 64])
+def test_pofx_matmul_moe_serving_shapes_match_plain(cuda, m, k, n):
+    x, codes, scale = _pofx_inputs(cuda, m, k, n, seed=k + m)
+    for xt in (x.to(torch.bfloat16), x):
+        before = LAUNCHES["pofx_matmul"]
+        got = pofx_matmul(xt, codes, scale, 8, 2)
+        assert LAUNCHES["pofx_matmul"] == before + 1
+        _assert_pofx_close(got, pofx_matmul_ref(xt, codes, scale, 8, 2))
+
+
+# (B, G, R, Dh): moonshot's 16 groups of one query row at 4 slots, and the
+# llama4 smoke size's 2 groups of 2
+@pytest.mark.parametrize("B,G,R,Dh", [(4, 16, 1, 128), (2, 2, 2, 32)])
+@pytest.mark.parametrize("spec_s", ["fxp8", "pofx8es2"])
+@pytest.mark.parametrize("S", [96, 1000, 4096])
+def test_kv_flash_decode_moe_geometry_dense_and_paged_match_plain(cuda, B, G, R, Dh,
+                                                                  spec_s, S):
+    """Both flash-decode kernels against their plain versions, and the
+    paged one equal to the dense one on the same rows (16-token pages)."""
+    spec = parse_spec(spec_s)
+    q, kc, ks, vc, vs = _kv_dense(cuda, spec, B, G, R, S, Dh, seed=G * S + R)
+    ksg, vsg = ks[0], vs[0]
+    ksd, vsd = ksg[None].expand(B, G, 1, Dh), vsg[None].expand(B, G, 1, Dh)
+    pos = torch.tensor([1, S // 3, S - 1, S][-B:], dtype=torch.int32, device=cuda)
+    before = LAUNCHES["kv_flash_decode"]
+    dense = kv_flash_decode(q, kc, ksd, vc, vsd, pos, spec)
+    assert LAUNCHES["kv_flash_decode"] == before + 1
+    torch.testing.assert_close(dense, kv_flash_decode_ref(q, kc, ksd, vc, vsd, pos, spec),
+                               rtol=1e-4, atol=1e-5)
+    ps, mp = 16, -(-S // 16)
+    kpool = torch.zeros(B * mp + 1, G, ps, Dh, dtype=kc.dtype, device=cuda)
+    vpool = torch.zeros_like(kpool)
+    tables = (1 + torch.arange(mp, device=cuda)[None] * B
+              + torch.arange(B, device=cuda)[:, None]).to(torch.int32)
+    for b in range(B):
+        for j in range(mp):
+            t0, t1 = j * ps, min((j + 1) * ps, S)
+            kpool[tables[b, j], :, :t1 - t0] = kc[b, :, t0:t1]
+            vpool[tables[b, j], :, :t1 - t0] = vc[b, :, t0:t1]
+    paged = kv_flash_paged_decode(q, kpool, ksg, vpool, vsg, tables, pos, spec)
+    torch.testing.assert_close(
+        paged, kv_flash_paged_decode_ref(q, kpool, ksg, vpool, vsg, tables, pos, spec),
+        rtol=1e-4, atol=1e-5)
+    assert torch.equal(dense, paged)
+
+
 def test_wrappers_raise_on_mixed_devices(cuda):
     with pytest.raises(ValueError, match="CUDA"):
         pofx_matmul(torch.zeros(2, 8, device=cuda),

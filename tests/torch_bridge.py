@@ -54,17 +54,16 @@ def _jax_params(jcfg, policy, seed):
     return params
 
 
-def pair(policy="pofx8", *, kv=None, use_kernel=False):
+def pair(policy="pofx8", *, kv=None, use_kernel=False, arch="yi-9b"):
     """Matching (jax_model, jax_params, torch_model, torch_params) for the
-    smoke-size yi-9b at f32 activations, with the reference's weights
+    smoke-size ``arch`` at f32 activations, with the reference's weights
     (seed 0, quantized by ``policy``) carried across."""
-    jm = j_build_model(j_smoke(J_ARCHS["yi-9b"]),
+    jm = j_build_model(j_smoke(J_ARCHS[arch]),
                        JRunConfig(remat="none", activation_dtype="f32"),
                        use_kernel=use_kernel, kv_spec=jspec(kv))
-    tm = t_build_model(t_smoke(T_ARCHS["yi-9b"]),
+    tm = t_build_model(t_smoke(T_ARCHS[arch]),
                        TRunConfig(remat="none", activation_dtype="f32"),
                        device="cpu", use_kernel=use_kernel, kv_spec=tspec(kv))
     jp = _jax_params(jm.cfg, policy, 0)
     tp = params_from_numpy(to_numpy_tree(jp), device="cpu")
     return jm, jp, tm, tp
-
