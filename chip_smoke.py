@@ -57,7 +57,21 @@ Phases, one line each, any failure exits non-zero without the final line:
    that splits out the MoE FFN; then, on the same weights, the paged
    engine (the dense streams, kv_flash_paged_decode a layer and step),
    kernels against plain versions at f32 and 2 layers (identical streams)
-   and a sampled run against its repeat (identical streams).
+   and a sampled run against its repeat (identical streams);
+10. SSM serving: the serving CLI with ``--arch falcon-mamba-7b`` and
+   MAIN_ARGV's other flags (64 mamba1 layers, d_model 4096, no attention)
+   and its defaults: launch counts (in_proj and out_proj a layer plus the
+   unembed, 129 pofx_matmul a forward; no kv_flash_decode), first-token
+   logits against the plain path, a decode-step profile with the plain
+   mixer (conv, x/dt products, recurrence: ``ssm.mamba1_mix``) in a
+   ``record_function`` range; ``--paged`` refused; kernels against plain
+   versions at f32 on the first 2 layers (identical streams) and a sampled
+   run against its repeat (identical streams);
+11. hybrid serving: the same with ``--arch zamba2-1.2b`` (38 mamba2
+   layers, d_model 2048, one shared attention + MLP block before each run
+   of 6 layers, 7 a forward): 119 pofx_matmul a forward (38 x 2, 7 x 6
+   for the shared block, the unembed) and 7 kv_flash_decode a decode
+   step; the profile's range is ``ssm.mamba2_mix``.
 
 TF32 is off for matmuls and convolutions, so every f32 product (the plain
 versions included) is a true f32 product. Details go to
@@ -873,10 +887,115 @@ def phase_moe(torch, result):
     return counts
 
 
+# (arch, layers, d_model, pofx_matmul launches a forward, kv_flash_decode
+# launches a decode step)
+SSM_ARCHS = {10: ("falcon-mamba-7b", 64, 4096, 64 * 2 + 1, 0),
+             11: ("zamba2-1.2b", 38, 2048, 38 * 2 + 7 * 6 + 1, 7)}
+# the f32 kernels-vs-plain check's depth; the CLI and the sampled repeat
+# serve every layer
+SSM_IDENTITY_LAYERS = 2
+
+
+def phase_ssm(torch, result, arch, n_layers, d_model, want_pofx, want_kv):
+    """Phases 10 and 11: ssm (falcon-mamba-7b) and hybrid (zamba2-1.2b)
+    serving at full width and depth through the serving CLI with
+    MAIN_ARGV's flags and its defaults. Launch counts (in_proj and out_proj
+    a mamba layer, q/k/v/o, wi and wo a shared-block application, the
+    unembed; one kv_flash_decode a shared-block application and decode
+    step), 32 in-vocab tokens a request, first-token logits against the
+    plain path, a decode-step profile with the plain mixer in a
+    ``record_function`` range, the ``--paged`` refusal; then, on the same
+    weights, kernels against plain versions at f32 on the first layers
+    (identical greedy streams) and a sampled run against its repeat at full
+    depth (identical streams)."""
+    import repro_torch.nn.ssm as ssm_mod
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.ops import PLAIN
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.engine import SamplingParams
+    argv = ["--arch", arch] + MAIN_ARGV[2:]
+    run, counts, summary = serve_cli_run(torch, argv, f"{arch} path")
+    model, params, eng, done = run.model, run.params, run.engine, run.done
+    cfg = model.cfg
+    st = eng.stats()
+    n_attn = len(model._hybrid_chunks()) if cfg.family == "hybrid" else 0
+    per_fwd = 2 * cfg.n_layers + 6 * n_attn + 1
+    want = {"pofx_matmul": per_fwd * (st["prefill_sampled_tokens"] + st["decode_steps"]),
+            "kv_flash_decode": n_attn * st["decode_steps"],
+            "kv_flash_paged_decode": 0, "fxp_matmul": 0, "pofx_decode": 0}
+    log(f"  {per_fwd} pofx_matmul a forward, {n_attn} kv_flash_decode a decode step")
+    if counts != want or counts["pofx_matmul"] <= 0:
+        raise AssertionError(f"{arch} launch counts {counts} != expected {want}")
+    if per_fwd != want_pofx or n_attn != want_kv:
+        raise AssertionError(f"{arch}: {per_fwd} pofx_matmul a forward, {n_attn} "
+                             "shared-block applications")
+    if (cfg.name != arch or cfg.n_layers != n_layers or cfg.d_model != d_model
+            or len(done) != 8):
+        raise AssertionError(f"{arch} path ran {cfg.name}, {cfg.n_layers} layers, "
+                             f"d={cfg.d_model}, {len(done)} requests")
+    for s in done:
+        if len(s.out) != 32 or not all(0 <= t < cfg.vocab_size for t in s.out):
+            raise AssertionError(f"{arch} rid {s.req.rid}: bad output {s.out}")
+    prompt = run.requests[0].prompt
+    lk = first_logits(torch, model, params, prompt)
+    lp = first_logits(torch, dataclasses.replace(model, kernel_set=PLAIN), params, prompt)
+    if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+        raise AssertionError(f"non-finite {arch} first-token logits")
+    diff = (lk - lp).abs().max().item()
+    log(f"  first-token logits, kernels vs plain path: max |diff| {diff:.4g} "
+        f"(|logits| <= {lp.abs().max().item():.4g}, bf16 activations), "
+        f"argmax {int(lk.argmax())} vs {int(lp.argmax())}")
+    mixer = "mamba1_mix" if cfg.family == "ssm" else "mamba2_mix"
+    prof = profile_decode(torch, model, params, regions={"mixer": (ssm_mod, mixer)})
+    entry = dict(summary, first_logit_max_abs_diff=diff, decode_profile=prof,
+                 pofx_per_forward=per_fwd, kv_flash_per_step=n_attn)
+    try:
+        serve_cli.main(argv + ["--paged"])
+        refused = False
+    except SystemExit as e:
+        refused = e.code not in (0, None)
+    log(f"  --paged refused: {refused}")
+    entry["paged_refused"] = refused
+    if not refused:
+        raise AssertionError(f"{arch}: --paged was not refused")
+
+    # kernels vs plain versions at f32, the first layers
+    small, sparams = truncated(model, params, SSM_IDENTITY_LAYERS, activation_dtype="f32")
+    reset_launches()
+    _, done_k, _ = serve(torch, small, sparams)
+    kcounts = dict(LAUNCHES)
+    _, done_p, _ = serve(torch, dataclasses.replace(small, kernel_set=PLAIN), sparams)
+    same = compare(done_k, done_p, "plain")
+    log(f"  identity ({SSM_IDENTITY_LAYERS} layers, f32): {same}/8 streams identical to "
+        f"the plain path; launches {kcounts}")
+    entry["identity"] = {"n_layers": SSM_IDENTITY_LAYERS, "identical_streams": same,
+                         "launches": kcounts}
+    if same != 8 or kcounts["pofx_matmul"] <= 0 or (
+            n_attn and kcounts["kv_flash_decode"] <= 0):
+        raise AssertionError(f"{arch} kernel streams differ from the plain path's")
+
+    # a sampled run and its repeat, every layer
+    sp = SamplingParams(**SAMPLING)
+    t0 = time.perf_counter()
+    _, first, _ = serve(torch, model, params, sampling=sp)
+    _, again, _ = serve(torch, model, params, sampling=sp)
+    same_s = sum(a.out == b.out for a, b in zip(first, again))
+    log(f"  sampled ({cfg.n_layers} layers, temperature 0.8, top-k 40): repeat "
+        f"{same_s}/8 streams identical ({time.perf_counter() - t0:.1f}s for both)")
+    entry["sampled"] = {"n_layers": cfg.n_layers, "identical_repeat": same_s,
+                        "streams": [s.out for s in first]}
+    result[arch] = entry
+    if same_s != 8 or any(len(s.out) != 32 for s in first):
+        raise AssertionError(f"{arch} sampled streams differ between runs with the same seed")
+    del run, model, params, eng, small, sparams
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="drive the port on one card")
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated phases after the build (default: all)")
     want = {int(p) for p in ap.parse_args(argv).phases.split(",")}
     import torch
@@ -935,6 +1054,10 @@ def main(argv) -> int:
          lambda: phase_sampled(torch, result)),
         ("phase 9: MoE serving, moonshot-v1-16b-a3b full width and depth",
          lambda: result.__setitem__("moe_counts", phase_moe(torch, result))),
+        ("phase 10: SSM serving, falcon-mamba-7b full width and depth",
+         lambda: phase_ssm(torch, result, *SSM_ARCHS[10])),
+        ("phase 11: hybrid serving, zamba2-1.2b full width and depth",
+         lambda: phase_ssm(torch, result, *SSM_ARCHS[11])),
     ]
     for label, fn in phases:
         if int(label.split()[1].rstrip(":")) not in want:
@@ -958,7 +1081,7 @@ def main(argv) -> int:
     if failed:
         log(f"FAILED: {failed}")
         return 1
-    if want != {2, 3, 4, 5, 6, 7, 8, 9}:
+    if want != set(range(2, 12)):
         log(f"ran phases {sorted(want)} only: no result line")
         return 1
     main_counts = result["main_counts"]

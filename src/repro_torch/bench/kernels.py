@@ -27,7 +27,12 @@ size. The rows:
     and 4096 (with the split's chunk and count), G = 4 groups of R = 8
     query rows; and at moonshot-v1-16b-a3b serving shapes: pofx_matmul at
     m = 1, 4 and 64 on q/k/v/o, the shared experts' gate/up and down and
-    the unembed, both flash-decode kernels (fxp8) at G = 16, R = 1;
+    the unembed, both flash-decode kernels (fxp8) at G = 16, R = 1; and at
+    the ssm and hybrid serving shapes: pofx_matmul at m = 4 and 64 on
+    falcon-mamba-7b's in_proj, out_proj and unembed and on zamba2-1.2b's
+    in_proj (n = 8384, a half-filled last 128-column tile), out_proj, shared
+    q/k/v/o, wi, wo and unembed, and at m = 1 on both unembeds; both
+    flash-decode kernels (fxp8) at zamba2's G = 32, R = 1, Dh = 64;
 (c) pofx_decode at the five yi-9b weight shapes, (N, ES) = (8, 2), and at
     the mlp shape with (9, 2).
 
@@ -64,7 +69,8 @@ from repro_torch.kernels.pofx_matmul import pofx_matmul, pofx_matmul_ref
 from repro_torch.kernels.ref import gather_pages
 from .common import Timer, bound_ms, nvidia_smi, write_csv
 
-__all__ = ["SHAPES_POFX", "MOE_SHAPES_POFX", "POFX_SPECS", "run", "main"]
+__all__ = ["SHAPES_POFX", "MOE_SHAPES_POFX", "SSM_SHAPES_POFX", "POFX_SPECS", "run",
+           "main"]
 
 # yi-9b weight shapes (k, n): q/o, k/v, gate/up, down, unembed
 SHAPES_POFX = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096), (4096, 64000)]
@@ -72,6 +78,13 @@ FXP_SHAPES = [(4096, 11008), (11008, 4096)]   # the mlp projections
 # moonshot-v1-16b-a3b's kernel shapes (k, n): q/k/v/o, shared gate/up,
 # shared down, unembed (the expert products are plain PyTorch)
 MOE_SHAPES_POFX = [(2048, 2048), (2048, 2816), (2816, 2048), (2048, 163840)]
+# falcon-mamba-7b's kernel shapes (k, n): in_proj, out_proj, unembed; then
+# zamba2-1.2b's: in_proj, out_proj, the shared block's q/k/v/o, wi, wo and
+# the unembed (x_proj, dt_proj and the mixers are plain PyTorch)
+SSM_SHAPES_POFX = [(4096, 16384), (8192, 4096), (4096, 65024),
+                   (2048, 8384), (4096, 2048), (2048, 2048), (2048, 8192), (8192, 2048),
+                   (2048, 32000)]
+SSM_UNEMBEDS = [(4096, 65024), (2048, 32000)]
 POFX_SPECS = [(N, ES) for N in (6, 7, 8) for ES in (1, 2, 3)]
 # every (N, ES, M) pofx_decode accepts
 DECODE_PARAMS = [(N, ES, M) for N in range(3, 10) for ES in range(5) for M in range(1, 9)]
@@ -239,9 +252,9 @@ class KernelBench:
                         library_ms_clean_l2=lib)
 
     def kv_flash_decode_row(self, spec_s: str, S: int, pos_list, G: int = 4,
-                            R: int = 8) -> Dict:
+                            R: int = 8, Dh: int = 128) -> Dict:
         spec = parse_spec(spec_s)
-        B, Dh = 4, 128
+        B = 4
         dev = self.dev
         q = self.randn(B, G, R, Dh)
         ks = torch.exp2(self.randint(0, 2, (B, G, 1, Dh), torch.int64).float())
@@ -270,12 +283,12 @@ class KernelBench:
                         **kv_plan(B, G, S)._asdict())
 
     def kv_flash_paged_decode_row(self, spec_s: str, S: int, pos_list, G: int = 4,
-                                  R: int = 8) -> Dict:
+                                  R: int = 8, Dh: int = 128) -> Dict:
         """ps = 16, tables scrambled so that no slot's pages are contiguous
         in the pool, garbage page 0 past each slot's pages; also against
         kv_flash_decode on the gathered cache (bit for bit)."""
         spec = parse_spec(spec_s)
-        B, Dh, ps = 4, 128, 16
+        B, ps = 4, 16
         dev, g = self.dev, self.g
         mp = -(-S // ps)
         n_pages = B * mp + 1
@@ -365,6 +378,16 @@ def run(device="cuda", *, smoke: bool = False, timer: Optional[Timer] = None) ->
     for S, pos_list in KV_SHAPES:
         bench.kv_flash_decode_row("fxp8", S, pos_list, G=16, R=1)
         bench.kv_flash_paged_decode_row("fxp8", S, pos_list, G=16, R=1)
+    # falcon-mamba-7b and zamba2-1.2b: their kernels' weight shapes, and
+    # zamba2's shared attention, 32 groups of one query row, Dh = 64
+    for m in (4, 64):
+        for k, n in SSM_SHAPES_POFX:
+            bench.pofx_matmul_row(m, k, n, torch.bfloat16, f"m={m} k={k} n={n} x=bf16")
+    for k, n in SSM_UNEMBEDS:
+        bench.pofx_matmul_row(1, k, n, torch.bfloat16, f"m=1 k={k} n={n} x=bf16")
+    for S, pos_list in KV_SHAPES:
+        bench.kv_flash_decode_row("fxp8", S, pos_list, G=32, R=1, Dh=64)
+        bench.kv_flash_paged_decode_row("fxp8", S, pos_list, G=32, R=1, Dh=64)
     # (c) pofx_decode at the yi-9b weight shapes; at the mlp shape also with
     # N = 9, whose 256-byte table has two words a bank (N = 8: one)
     for k, n in SHAPES_POFX:

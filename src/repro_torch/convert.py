@@ -9,8 +9,10 @@ leaves (codes AND per-layer scales, whose leading layer axes the reference
 keeps mapped) are unstacked into one dict per layer, in execution order.
 The moe family's ``blocks`` = {"moe": (n_groups, ...), "dense": (n_groups,
 moe_every - 1, ...)} becomes, group by group, the group's dense layers and
-then its MoE layer. An (E, in, out) expert leaf stays whole, its codes and
-its scale shared by the experts as they are. bfloat16 arrays (numpy dtype
+then its MoE layer. The ssm and hybrid families' mamba layers ({"ln",
+"mix"}) unstack like dense layers; hybrid's one shared block (``shared``)
+is not stacked and converts as it is. An (E, in, out) expert leaf stays
+whole, its codes and its scale shared by the experts as they are. bfloat16 arrays (numpy dtype
 name "bfloat16") are accepted as raw 16-bit patterns.
 """
 from __future__ import annotations

@@ -203,7 +203,9 @@ PRESETS: Dict[str, str] = {
 
 def layer_prefixes(blocks, prefix: str = "blocks/"):
     """The reference's tree path of each layer of a per-layer ``blocks``
-    list. The dense family stacks every layer under "blocks/"; the moe
+    list. The dense, ssm and hybrid families stack every layer under
+    "blocks/" (a mamba layer's leaves are "blocks/ln", "blocks/mix/...";
+    hybrid's shared block is "shared/...", outside the list); the moe
     family stacks its MoE layers (those holding "moe") under "blocks/moe/"
     and the dense layers between them under "blocks/dense/"."""
     if not any("moe" in b for b in blocks):

@@ -7,8 +7,12 @@ Port of ``repro/launch/engine.py`` (dense cache, single device):
   masks attention per slot.
 * **Admission.** A request is prefilled alone (batch 1, optionally padded
   to a length bucket) into a batch-1 cache that carries the slot's static
-  KV scales, and that cache is copied into the slot. The first token comes
-  from the prefill logits.
+  KV scales, and that cache is copied into the slot: every leaf that holds
+  the batch on axis 1 (KV, the ssm and hybrid families' recurrent states,
+  hybrid's shared-block KV). The first token comes from the prefill
+  logits. The ssm and hybrid families prefill exact lengths only (a
+  padded prompt would run into the recurrent state), so they refuse a
+  prompt bucket above 1, as the reference does.
 * **Decode.** ``chunk`` steps run as an eager loop on the device (the
   reference's ``lax.scan``) with no host synchronisation inside the chunk;
   a slot that hits EOS or its token budget freezes (pos stops, pad tokens
@@ -24,7 +28,9 @@ Port of ``repro/launch/engine.py`` (dense cache, single device):
   ``argmax``.
 * **Eviction.** ``evict`` returns a running request to the head of the
   queue with its generated prefix folded into the context; re-admission
-  prefills prompt+prefix and continues the identical stream.
+  prefills prompt+prefix and continues the stream. (A re-prefilled
+  recurrent state is not bit-identical to one carried by decode steps, so
+  an ssm or hybrid stream may part there, in the reference too.)
 * **Paged mode** (``paged=True``). The per-slot dense cache becomes one
   pool of fixed-size token pages plus per-slot block tables; the host's
   ``launch.paging.PagedKVManager`` owns allocation, refcounts and the
@@ -53,6 +59,8 @@ __all__ = ["SamplingParams", "Request", "RequestState", "ServeEngine",
            "sample_tokens"]
 
 NEG_INF = -1e30
+# the dense cache's groups of per-slot leaves, batch on axis 1
+SLOT_GROUPS = ("kv", "ssm", "shared_kv")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -122,6 +130,10 @@ class ServeEngine:
                  chunk: int = 8, prompt_bucket: int = 1, seed: int = 0,
                  paged: bool = False, page_size: int = 16,
                  n_pages: Optional[int] = None):
+        if prompt_bucket > 1 and model.cfg.family in ("ssm", "hybrid"):
+            raise ValueError(
+                "prompt_bucket > 1 right-pads prefill, which pollutes SSM "
+                "recurrent state; use exact-length prefill (bucket 1)")
         if n_slots < 1 or chunk < 1:
             raise ValueError(
                 f"need n_slots >= 1 and chunk >= 1, got {n_slots}/{chunk}")
@@ -282,18 +294,20 @@ class ServeEngine:
         padded[0, :P] = ctx
         t0 = time.perf_counter()
         small = self.model.init_cache(1, self.max_len)
-        kv = self.cache["kv"]
-        for name in small["kv"]:
-            if name.endswith("_scale"):
-                # static scales are calibration state: the slot's own
-                # scales drive the admission prefill
-                small["kv"][name].copy_(kv[name][:, slot:slot + 1])
+        groups = [g for g in SLOT_GROUPS if g in small]
+        for g in groups:
+            for name, leaf in small[g].items():
+                if name.endswith("_scale"):
+                    # static scales are calibration state: the slot's own
+                    # scales drive the admission prefill
+                    leaf.copy_(self.cache[g][name][:, slot:slot + 1])
         length = None if Pb == P else torch.tensor(P, dtype=torch.int32)
         small, logits = self.model.prefill(
             self.params, torch.from_numpy(padded).to(self.device),
             cache=small, length=length)
-        for name, leaf in small["kv"].items():
-            kv[name][:, slot] = leaf[:, 0]
+        for g in groups:
+            for name, leaf in small[g].items():
+                self.cache[g][name][:, slot] = leaf[:, 0]
         self.cache["pos"][slot] = small["pos"].reshape(-1)[0]
         self._finish_admit(rid, slot, P, logits, t0)
 

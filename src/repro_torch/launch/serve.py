@@ -1,8 +1,8 @@
 """Serving CLI: continuous-batching quantized serving on the card.
 
 Port of ``repro/launch/serve.py`` (engine path, dense or paged cache, the
-dense and moe families; tensor parallelism and the legacy one-shot loop
-are later slices). Weights are post-training-quantized per a QuantPolicy
+dense, moe, ssm and hybrid families; tensor parallelism and the legacy
+one-shot loop, which serves encdec, are later slices). Weights are post-training-quantized per a QuantPolicy
 as they are drawn, served by
 the continuous-batching engine; ``--use-kernel`` routes every quantized
 matmul through the hand-written PoFx/FxP kernels and, with ``--kv-quant``,
@@ -15,6 +15,11 @@ flash-decode kernel over a page pool with prefix sharing):
 ``--arch moonshot-v1-16b-a3b`` serves the MoE family the same way (its
 expert products are plain PyTorch on dequantized weights, as in the
 reference; attention, the shared experts and the unembed take the kernels).
+``--arch falcon-mamba-7b`` (ssm: mamba1 layers) and ``--arch zamba2-1.2b``
+(hybrid: mamba2 layers and one shared attention block) serve their
+recurrent state in the dense engine: in_proj, out_proj, the shared block
+and the unembed take the kernels, the mixers are plain PyTorch, and
+``--paged`` and ``--prompt-bucket`` > 1 are refused as in the reference.
 
 ``--smoke`` serves the reduced config; ``--device cpu`` runs on the CPU
 (the kernels' plain versions). ``--temperature``/``--top-k`` sample every
@@ -105,8 +110,7 @@ def main(argv=None) -> ServeRun:
     if args.smoke:
         cfg = smoke_cfg(cfg)
     if args.paged and cfg.family not in ("dense", "moe"):
-        ap.error(f"--paged supports the attention-only families (dense/moe), "
-                 f"not {cfg.family} (ROADMAP A9)")
+        ap.error(f"--paged supports dense/moe families, not {cfg.family}")
     rcfg = RunConfig(remat="none")
     policy = QuantPolicy.from_string(args.quant)
     kv_spec = resolve_kv_spec(args.kv_quant, policy)

@@ -1,8 +1,8 @@
 """Model facade: one ``LM`` per (ModelConfig, RunConfig, device).
 
-Port of the serving surface of ``repro/nn/models.py`` for the attention
-families dense and moe: ``init`` (per-layer parameters, quantized leaf by
-leaf as they are made), ``init_cache``, ``prefill(length=)``,
+Port of the serving surface of ``repro/nn/models.py`` for the families
+dense, moe, ssm and hybrid: ``init`` (per-layer parameters, quantized leaf
+by leaf as they are made), ``init_cache``, ``prefill(length=)``,
 ``decode_step``, plus ``apply_policy``, ``kv_decode_bytes_per_token`` and
 ``build_model``.
 
@@ -17,7 +17,14 @@ holds "mlp", and leaves are named by the reference's paths
 family's reference layout for both families, L counting every attention
 layer in execution order: {"pos": scalar or (B,) int32, "kv": {"k", "v":
 (L, B, G, S, Dh)[, "k_scale", "v_scale": (L, B, G, 1, Dh)]}}; decode
-writes it in place. The paged cache
+writes it in place. The ssm family (falcon-mamba: mamba1 layers, no
+attention) carries each layer's recurrent state instead, {"pos", "ssm":
+{"conv": (L, B, K-1, conv_dim), "ssm": (L, B, ...)}} in f32; the hybrid
+family (zamba2: mamba2 layers, and ONE shared attention + MLP block,
+``params["shared"]``, run before each chunk of ``attn_every`` layers) adds
+"shared_kv", one KV cache of the kv layout per chunk, (n_chunks, B, G, S,
+Dh). Both refuse a right-padded prefill and the paged cache, as the
+reference does. The paged cache
 (``init_paged_cache``, ``prefill_paged``) replaces the batch and sequence
 axes by one pool of pages: {"pos": (B,), "pages": (B, max_pages) int32
 block tables, "kv": {"k", "v": (L, n_pages, G, ps, Dh)[, "k_scale",
@@ -29,6 +36,7 @@ asking for CUDA without a card raises.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional
 
 import torch
@@ -38,6 +46,7 @@ from repro_torch.core.policy import QuantPolicy, layer_prefixes
 from repro_torch.core.quantizers import (QuantSpec, kv_code_dtype, quantize,
                                          validate_kv_spec)
 from repro_torch.kernels.ops import KERNELS, KernelSet
+from . import ssm
 from . import transformer as T
 from .attention import attn_shapes
 from .layers import matmul_param, mlp_shapes, rmsnorm
@@ -118,10 +127,10 @@ class LM:
     kernel_set: KernelSet = KERNELS
 
     def __post_init__(self):
-        if self.cfg.family not in ("dense", "moe"):
+        if self.cfg.family not in ("dense", "moe", "ssm", "hybrid"):
             raise NotImplementedError(
                 f"family {self.cfg.family!r} is not ported yet (ROADMAP A9); "
-                "the port serves the dense and moe families")
+                "the port serves the dense, moe, ssm and hybrid families")
         if self.cfg.tie_embeddings:
             raise NotImplementedError("tied embeddings are not ported yet")
         self.device = resolve_device(self.device)
@@ -147,6 +156,13 @@ class LM:
         if cfg.family == "moe":
             return cfg.n_layers // cfg.moe_every
         return cfg.n_layers
+
+    def _hybrid_chunks(self):
+        """zamba2: the sizes of the runs of mamba layers, each after one
+        application of the shared block (attn_every layers, the last run
+        shorter when attn_every does not divide n_layers)."""
+        k, L = self.cfg.attn_every, self.cfg.n_layers
+        return [min(k, L - done) for done in range(0, L, k)]
 
     # -- init -----------------------------------------------------------------
 
@@ -203,6 +219,16 @@ class LM:
         params: Dict[str, Any] = {"embed": dense("embed", V, (d,), scale=1.0),
                                   "ln_f": ones("ln_f", d),
                                   "unembed": dense("unembed", d, (V,))}
+        if cfg.family in ("ssm", "hybrid"):
+            rule = functools.partial(_apply_rule, policy=policy)
+            params["blocks"] = [
+                {"ln": ones("blocks/ln", d),
+                 "mix": ssm.mamba_init(cfg, gen=gen, device=dev, dtype=dt,
+                                       rule=rule, prefix="blocks/mix/")}
+                for _ in range(cfg.n_layers)]
+            if cfg.family == "hybrid":
+                params["shared"] = block("shared/", False)
+            return params
         if cfg.family == "dense":
             params["blocks"] = [block("blocks/", False) for _ in range(cfg.n_layers)]
             return params
@@ -216,11 +242,11 @@ class LM:
 
     # -- cache ----------------------------------------------------------------
 
-    def _kv_cache(self, batch: int, max_len: int,
-                  kv_spec: Optional[QuantSpec]) -> Dict[str, torch.Tensor]:
+    def _kv_cache(self, batch: int, max_len: int, kv_spec: Optional[QuantSpec],
+                  n_layers: int) -> Dict[str, torch.Tensor]:
         cfg, dev = self.cfg, self.device
-        shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_len, cfg.d_head)
-        sshape = (cfg.n_layers, batch, cfg.n_kv_heads, 1, cfg.d_head)
+        shape = (n_layers, batch, cfg.n_kv_heads, max_len, cfg.d_head)
+        sshape = (n_layers, batch, cfg.n_kv_heads, 1, cfg.d_head)
         if kv_spec is not None:
             cdt = kv_code_dtype(kv_spec)
             return {"k": torch.zeros(shape, dtype=cdt, device=dev),
@@ -237,8 +263,17 @@ class LM:
         """Zero decode cache; ``kv_spec`` overrides the format for
         allocation only (prefill/decode_step reject a mismatched cache)."""
         spec = self.kv_spec if kv_spec == "auto" else validate_kv_spec(kv_spec)
-        return {"pos": torch.zeros((), dtype=torch.int32, device=self.device),
-                "kv": self._kv_cache(batch, max_len, spec)}
+        cfg = self.cfg
+        cache: Dict[str, Any] = {"pos": torch.zeros((), dtype=torch.int32,
+                                                    device=self.device)}
+        if cfg.family in ("dense", "moe"):
+            cache["kv"] = self._kv_cache(batch, max_len, spec, cfg.n_layers)
+            return cache
+        cache["ssm"] = ssm.mamba_init_cache(cfg, cfg.n_layers, batch, self.device)
+        if cfg.family == "hybrid":
+            cache["shared_kv"] = self._kv_cache(batch, max_len, spec,
+                                                len(self._hybrid_chunks()))
+        return cache
 
     # -- paged cache ----------------------------------------------------------
 
@@ -265,11 +300,12 @@ class LM:
                 "v": torch.zeros(shape, dtype=kdt, device=dev)}
 
     def _require_pageable(self) -> None:
-        # the reference pages the attention-only families, dense and moe
         if self.cfg.family not in ("dense", "moe"):
-            raise NotImplementedError(
-                f"no paged cache for family {self.cfg.family!r}: the "
-                "reference pages dense and moe only (ROADMAP A9)")
+            raise ValueError(
+                f"paged KV cache supports attention-only families "
+                f"(dense/moe), not {self.cfg.family!r}: SSM recurrent "
+                "state is O(1) per sequence (nothing to page) and cannot "
+                "be position-shared")
 
     def init_paged_cache(self, batch: int, max_len: int, *, n_pages: int,
                          page_size: int) -> Dict[str, Any]:
@@ -332,7 +368,9 @@ class LM:
         return cache, logits
 
     def _check_cache_layout(self, cache) -> None:
-        kv = cache["kv"]
+        kv = cache.get("kv", cache.get("shared_kv"))
+        if kv is None:                        # ssm: no attention, no KV
+            return
         if "pages" in cache:
             self._require_pageable()
             for name in ("k_scale", "v_scale"):
@@ -355,9 +393,41 @@ class LM:
                 f"(expects {kv_code_dtype(self.kv_spec)})")
 
     @staticmethod
-    def layer_cache(cache, i: int) -> Dict[str, torch.Tensor]:
-        """Views of layer ``i``'s cache leaves (writes land in ``cache``)."""
-        return {name: leaf[i] for name, leaf in cache["kv"].items()}
+    def layer_cache(cache, i: int, group: str = "kv") -> Dict[str, torch.Tensor]:
+        """Views of layer ``i``'s leaves of ``cache[group]`` ("kv", "ssm"
+        or "shared_kv"; writes land in ``cache``)."""
+        return {name: leaf[i] for name, leaf in cache[group].items()}
+
+    def _mamba_layers(self, blocks, x, cache, first: int):
+        """Run mamba layers ``blocks`` (layer ``first`` onwards) and write
+        their new recurrent states into ``cache["ssm"]`` in place."""
+        variant = "mamba1" if self.cfg.family == "ssm" else "mamba2"
+        for j, lp in enumerate(blocks):
+            lc = self.layer_cache(cache, first + j, "ssm")
+            x, new = T.mamba_block_forward(lp, x, self.cfg, cache=lc,
+                                           kernels=self.kernels, variant=variant)
+            for name, leaf in new.items():
+                lc[name].copy_(leaf)
+        return x
+
+    def _layers(self, params, x, cache, attn):
+        """Every layer in execution order; ``attn(layer params, x, layer
+        cache)`` runs an attention block (a decoder layer, or hybrid's
+        shared block with its chunk's cache)."""
+        fam = self.cfg.family
+        if fam == "ssm":
+            return self._mamba_layers(params["blocks"], x, cache, 0)
+        if fam == "hybrid":
+            first = 0
+            for ci, size in enumerate(self._hybrid_chunks()):
+                x = attn(params["shared"], x, self.layer_cache(cache, ci, "shared_kv"))
+                x = self._mamba_layers(params["blocks"][first:first + size], x,
+                                       cache, first)
+                first += size
+            return x
+        for i, lp in enumerate(params["blocks"]):
+            x = attn(lp, x, self.layer_cache(cache, i))
+        return x
 
     # -- serving --------------------------------------------------------------
 
@@ -372,16 +442,23 @@ class LM:
         ``length`` (scalar or (B,)) marks the true prompt length when
         ``tokens`` is right-padded to a bucket: logits are taken at
         ``length-1`` and ``cache["pos"]`` becomes the per-sequence length.
+        The ssm and hybrid families refuse it: the pad tokens would run
+        into the recurrent state. Their prefill starts from the states in
+        ``cache`` and writes the new ones in place.
         """
         cfg, rcfg = self.cfg, self.rcfg
         self._check_cache_layout(cache)
+        if length is not None and cfg.family in ("ssm", "hybrid"):
+            raise ValueError(
+                "bucketed prefill (length=) is attention-family only: "
+                "right-padding pollutes the SSM recurrent state")
         tokens = tokens.to(self.device)
         B, Sq = tokens.shape
         positions = torch.arange(Sq, device=self.device)[None, :].expand(B, Sq)
         x = T.embed_tokens(params["embed"], tokens, self.act_dtype)
         quant = self.kv_spec is not None
-        for i, lp in enumerate(params["blocks"]):
-            lc = self.layer_cache(cache, i)
+
+        def attn(lp, x, lc):
             scales = ({"k_scale": lc["k_scale"], "v_scale": lc["v_scale"]}
                       if quant else None)
             x, kv = T.block_forward(lp, x, cfg, rcfg, positions=positions,
@@ -390,6 +467,9 @@ class LM:
             for name in ("k", "v"):
                 dst = lc[name]
                 dst[:, :, :Sq] = kv[name].transpose(1, 2).to(dst.dtype)
+            return x
+
+        x = self._layers(params, x, cache, attn)
         if length is None:
             last = x[:, -1]
             pos = torch.tensor(Sq, dtype=torch.int32, device=self.device)
@@ -408,8 +488,8 @@ class LM:
         ``cache["pos"]`` is a scalar or (B,) per-slot lengths; rotary
         positions, the KV write and the attention mask follow it per slot.
         A paged cache (``"pages"`` in it) is read and written through its
-        block tables. The layer caches are updated in place; the returned
-        dict carries ``pos + 1``.
+        block tables. The layer caches (KV and recurrent states) are
+        updated in place; the returned dict carries ``pos + 1``.
         """
         cfg, rcfg = self.cfg, self.rcfg
         self._check_cache_layout(cache)
@@ -423,11 +503,13 @@ class LM:
             # block tables instead of per-slot rows
             paged = {"pages": cache["pages"],
                      "page_size": self._paged_page_size(cache)}
-        for i, lp in enumerate(params["blocks"]):
-            x, _ = T.block_forward(lp, x, cfg, rcfg, positions=positions,
-                                   cache=self.layer_cache(cache, i),
-                                   cache_pos=pos, kernels=self.kernels,
-                                   kv_spec=self.kv_spec, **paged)
+
+        def attn(lp, x, lc):
+            return T.block_forward(lp, x, cfg, rcfg, positions=positions,
+                                   cache=lc, cache_pos=pos, kernels=self.kernels,
+                                   kv_spec=self.kv_spec, **paged)[0]
+
+        x = self._layers(params, x, cache, attn)
         return dict(cache, pos=pos + 1), self._logits(params, x[:, 0])
 
 

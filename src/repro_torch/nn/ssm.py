@@ -1,0 +1,326 @@
+"""State-space sequence mixers: Mamba1 selective scan and Mamba2 SSD.
+
+Port of ``repro/nn/ssm.py``; both mixers are plain PyTorch, chunk-parallel
+as in the reference, so the (B, S, d_inner, state) tensor is never made
+over the whole sequence:
+
+* Mamba1 (falcon-mamba): per-channel diagonal A. Within a chunk of c steps
+  the recurrence h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t is an associative
+  scan (``_assoc_scan``, the reference's ``lax.associative_scan`` order);
+  chunks follow each other in a loop (the reference's ``lax.scan``).
+* Mamba2 (zamba2): one scalar A per head (SSD). Inside a chunk the decay
+  mask L turns the recurrence into products, (C B^T * L) X plus the
+  incoming state; the state passes from chunk to chunk.
+
+Decode is the same code at S = 1 (one chunk of one step) against the
+carried state: {"conv": (B, K-1, conv_dim), "ssm": (B, ...)}, both f32.
+Only ``in_proj`` and ``out_proj`` take the kernel datapath; ``x_proj`` and
+``dt_proj`` are dequantized and multiplied (``matmul_param`` without
+kernels) even when the kernels are on, as in the reference. A_log,
+dt_bias, D, the conv taps and the norm are never quantized.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ops import KernelSet
+from .layers import matmul_param, param_value, rmsnorm
+
+__all__ = ["mamba_init", "mamba_init_cache", "mamba1_mix", "mamba1_forward",
+           "mamba2_mix", "mamba2_forward", "mamba1_mix_ref", "mamba2_mix_ref",
+           "softplus"]
+
+_f32 = torch.float32
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``, i.e. ``logaddexp(x, 0)`` = max(x, 0) +
+    log1p(exp(-|x|)) (``F.softplus`` returns x itself above 20)."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def _chunk_len(S: int, chunk: int) -> int:
+    """The reference's chunk rule: the largest c <= chunk dividing S."""
+    c = min(chunk, S)
+    while S % c:
+        c -= 1
+    return c
+
+
+# ---------------------------------------------------------------------------
+# init and cache
+# ---------------------------------------------------------------------------
+
+
+def mamba_init(cfg, *, gen: torch.Generator, device, dtype: torch.dtype,
+               rule: Callable, prefix: str) -> dict:
+    """One mixer's parameters (mamba1 for the ssm family, mamba2 for
+    hybrid), drawn from ``gen`` as the reference's ``mamba{1,2}_init``
+    distributes them; ``rule(name, leaf)`` applies the quantization policy
+    to each leaf as it is made."""
+    d, di, ds, K = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.conv_width
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=device, dtype=_f32)
+
+    def leaf(name, w):
+        return rule(prefix + name, w)
+
+    def dense(name, i, o, scale=None):
+        scale = i ** -0.5 if scale is None else scale
+        return leaf(name, (randn(i, o) * scale).to(dtype))
+
+    if cfg.family == "ssm":
+        dr = cfg.dt_rank
+        # A = -[1..ds] per channel (S4D-real), stored as its log
+        a = torch.arange(1, ds + 1, dtype=_f32, device=device).expand(di, ds)
+        lo, hi = math.log(1e-3), math.log(1e-1)
+        u = torch.rand(di, generator=gen, device=device, dtype=_f32) * (hi - lo) + lo
+        return {
+            "in_proj": dense("in_proj", d, 2 * di),
+            "conv_w": leaf("conv_w", (randn(K, di) * 0.1).to(dtype)),
+            "conv_b": leaf("conv_b", torch.zeros(di, dtype=dtype, device=device)),
+            "x_proj": dense("x_proj", di, dr + 2 * ds),
+            "dt_proj": dense("dt_proj", dr, di, scale=dr ** -0.5),
+            "dt_bias": leaf("dt_bias", torch.log(torch.expm1(torch.exp(u)))),
+            "A_log": leaf("A_log", torch.log(a).contiguous()),
+            "D": leaf("D", torch.ones(di, dtype=_f32, device=device)),
+            "out_proj": dense("out_proj", di, d),
+        }
+    nh = di // cfg.ssm_head_dim
+    cd = di + 2 * ds
+    # in_proj packs [z (di), x (di), B (ds), C (ds), dt (nh)]
+    return {
+        "in_proj": dense("in_proj", d, 2 * di + 2 * ds + nh),
+        "conv_w": leaf("conv_w", (randn(K, cd) * 0.1).to(dtype)),
+        "conv_b": leaf("conv_b", torch.zeros(cd, dtype=dtype, device=device)),
+        "A_log": leaf("A_log", torch.log(torch.linspace(1.0, 16.0, nh, device=device))),
+        "dt_bias": leaf("dt_bias", torch.zeros(nh, dtype=_f32, device=device)),
+        "D": leaf("D", torch.ones(nh, dtype=_f32, device=device)),
+        "norm_w": leaf("norm_w", torch.ones(di, dtype=dtype, device=device)),
+        "out_proj": dense("out_proj", di, d),
+    }
+
+
+def mamba_init_cache(cfg, n_layers: int, batch: int, device) -> dict:
+    """Zero recurrent state of ``n_layers`` mixers, f32:
+    {"conv": (L, B, K-1, conv_dim), "ssm": (L, B, di, ds) for mamba1 or
+    (L, B, nh, dh, ds) for mamba2}."""
+    di, ds, K = cfg.d_inner, cfg.ssm_state, cfg.conv_width
+    if cfg.family == "ssm":
+        conv_dim, state = di, (di, ds)
+    else:
+        dh = cfg.ssm_head_dim
+        conv_dim, state = di + 2 * ds, (di // dh, dh, ds)
+    return {"conv": torch.zeros((n_layers, batch, K - 1, conv_dim), dtype=_f32,
+                                device=device),
+            "ssm": torch.zeros((n_layers, batch, *state), dtype=_f32, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# shared pieces
+# ---------------------------------------------------------------------------
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 state: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv over the sequence. x (B, S, d); w (K, d);
+    state (B, K-1, d), the previous segment's trailing inputs. Returns
+    (y in x's dtype, new state in the state's dtype). The state enters in
+    x's dtype, so at bf16 activations a carried f32 state holds
+    bf16-rounded values, as in the reference."""
+    K = w.shape[0]
+    B, S, d = x.shape
+    if state is None:
+        state = torch.zeros((B, K - 1, d), dtype=x.dtype, device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)
+    y = torch.zeros((B, S, d), dtype=_f32, device=x.device)
+    for i in range(K):
+        y = y + xp[:, i:i + S].to(_f32) * w[i].to(_f32)
+    new_state = xp[:, S:].to(state.dtype)
+    return (y + b.to(_f32)).to(x.dtype), new_state
+
+
+def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
+    """even[0], odd[0], even[1], ... along axis 1."""
+    out = even.new_empty((even.shape[0], even.shape[1] + odd.shape[1], *even.shape[2:]))
+    out[:, 0::2] = even
+    out[:, 1::2] = odd
+    return out
+
+
+def _assoc_scan(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan along axis 1 of the linear recurrence's pairs:
+    (a1, b1) then (a2, b2) compose to (a2 a1, a2 b1 + b2). The recursion
+    of ``jax.lax.associative_scan``: combine adjacent pairs, scan those,
+    then fill in the even positions."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+
+    def comb(l, r):
+        (a1, b1), (a2, b2) = l, r
+        return a2 * a1, a2 * b1 + b2
+
+    ra, rb = comb((a[:, 0:-1:2], b[:, 0:-1:2]), (a[:, 1::2], b[:, 1::2]))
+    oa, ob = _assoc_scan(ra, rb)
+    if n % 2 == 0:
+        ea, eb = comb((oa[:, :-1], ob[:, :-1]), (a[:, 2::2], b[:, 2::2]))
+    else:
+        ea, eb = comb((oa, ob), (a[:, 2::2], b[:, 2::2]))
+    ea = torch.cat([a[:, :1], ea], dim=1)
+    eb = torch.cat([b[:, :1], eb], dim=1)
+    return _interleave(ea, oa), _interleave(eb, ob)
+
+
+def _chunk_scan_diag(dA: torch.Tensor, dBx: torch.Tensor, h0: torch.Tensor):
+    """h_t = dA_t * h_{t-1} + dBx_t within a chunk, diagonal dA.
+    dA, dBx (B, c, ...); h0 (B, ...). Returns (h_all (B, c, ...), h_last).
+    Every product stays in (0, 1] (dA = exp(dt A), A < 0)."""
+    A, Bv = _assoc_scan(dA, dBx)
+    h = A * h0[:, None] + Bv
+    return h, h[:, -1]
+
+
+# ---------------------------------------------------------------------------
+# Mamba1 (falcon-mamba-7b)
+# ---------------------------------------------------------------------------
+
+
+def mamba1_mix(p: dict, xz: torch.Tensor, cfg, *, conv_state=None, ssm_state=None,
+               chunk: Optional[int] = None):
+    """The mamba1 mixer after in_proj. xz (B, S, 2 di). Returns (y (B, S,
+    di) in xz's dtype, new conv state, new ssm state)."""
+    di, ds, dr = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    x, z = torch.split(xz, di, dim=-1)
+    x, new_conv = _causal_conv(x, param_value(p["conv_w"], _f32),
+                               param_value(p["conv_b"], _f32), conv_state)
+    x = F.silu(x)
+    # the input-dependent dt, B, C: plain dequantize + matmul
+    dbc = matmul_param(x, p["x_proj"])
+    dt, Bm, Cm = torch.split(dbc, [dr, ds, ds], dim=-1)
+    dt = matmul_param(dt, p["dt_proj"]).to(_f32)
+    dt = softplus(dt + p["dt_bias"].to(_f32))                   # (B, S, di)
+    A = -torch.exp(p["A_log"].to(_f32))                         # (di, ds)
+    B_, S_, _ = x.shape
+    c = _chunk_len(S_, chunk or cfg.ssm_chunk)
+    xf = x.to(_f32)
+    dA = torch.exp(dt[..., None] * A)                           # (B, S, di, ds)
+    dBx = (dt * xf)[..., None] * Bm.to(_f32)[..., None, :]
+    Cf = Cm.to(_f32)
+    h = (torch.zeros((B_, di, ds), dtype=_f32, device=xz.device)
+         if ssm_state is None else ssm_state)
+    ys = []
+    for s in range(0, S_, c):
+        h_all, h = _chunk_scan_diag(dA[:, s:s + c], dBx[:, s:s + c], h)
+        ys.append(torch.einsum("bcds,bcs->bcd", h_all, Cf[:, s:s + c]))
+    y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
+    y = y + xf * p["D"].to(_f32)
+    y = y * F.silu(z.to(_f32))
+    return y.to(xz.dtype), new_conv, h
+
+
+def mamba1_forward(p: dict, x: torch.Tensor, cfg, *, cache: Optional[dict] = None,
+                   kernels: Optional[KernelSet] = None):
+    """The whole mamba1 mixer. x (B, S, d); cache {"conv", "ssm"} or None.
+    Returns (out (B, S, d), new cache or None)."""
+    xz = matmul_param(x, p["in_proj"], kernels=kernels)
+    conv_s = cache["conv"] if cache else None
+    ssm_s = cache["ssm"] if cache else None
+    y, new_conv, new_ssm = mamba1_mix(p, xz, cfg, conv_state=conv_s, ssm_state=ssm_s)
+    out = matmul_param(y, p["out_proj"], kernels=kernels)
+    return out, ({"conv": new_conv, "ssm": new_ssm} if cache is not None else None)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 / SSD (zamba2)
+# ---------------------------------------------------------------------------
+
+
+def _ssd_chunk(x, dt, A, Bm, Cm, h0):
+    """One SSD chunk. x (B, c, nh, dh); dt (B, c, nh); A (nh,) negative;
+    Bm, Cm (B, c, ds); h0 (B, nh, dh, ds). Returns (y, h_last). With
+    a_t = exp(dt_t A) per head:
+      intra: y_t  = C_t . sum_{i<=t} (prod_{i<j<=t} a_j) dt_i B_i x_i
+      inter: y_t += C_t . (prod_{i<=t} a_i) h0
+    """
+    c = x.shape[1]
+    la = dt * A                                         # (B, c, nh), <= 0
+    cum = torch.cumsum(la, dim=1)
+    # L[t, i] = exp(cum_t - cum_i) for i <= t, else 0; masked before the
+    # exp (the i > t entries are positive and would overflow)
+    Lm = cum[:, :, None, :] - cum[:, None, :, :]        # (B, t, i, nh)
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device))
+    Lm = torch.exp(torch.where(tri[None, :, :, None], Lm,
+                               torch.full_like(Lm, -1e30)))
+    CB = torch.einsum("bts,bis->bti", Cm, Bm)
+    W = CB[..., None] * Lm                              # (B, t, i, nh)
+    dx = dt[..., None] * x                              # (B, c, nh, dh)
+    y = torch.einsum("btih,bihd->bthd", W, dx)
+    decay0 = torch.exp(cum)
+    y = y + torch.einsum("bts,bhds,bth->bthd", Cm, h0, decay0)
+    w_last = torch.exp(cum[:, -1:, :] - cum)            # (B, c, nh)
+    h_last = (torch.exp(cum[:, -1])[:, :, None, None] * h0
+              + torch.einsum("bih,bihd,bis->bhds", w_last, dx, Bm))
+    return y, h_last
+
+
+def mamba2_mix(p: dict, zxbcdt: torch.Tensor, cfg, *, conv_state=None,
+               ssm_state=None, chunk: Optional[int] = None):
+    """The mamba2 mixer after in_proj. zxbcdt (B, S, 2 di + 2 ds + nh).
+    Returns (y (B, S, di) after the gated RMSNorm, new conv state, new ssm
+    state)."""
+    di, ds, dh = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
+    nh = di // dh
+    z, xBC, dt = torch.split(zxbcdt, [di, di + 2 * ds, nh], dim=-1)
+    xBC, new_conv = _causal_conv(xBC, param_value(p["conv_w"], _f32),
+                                 param_value(p["conv_b"], _f32), conv_state)
+    xBC = F.silu(xBC)
+    x, Bm, Cm = torch.split(xBC, [di, ds, ds], dim=-1)
+    Bsz, S, _ = x.shape
+    dt = softplus(dt.to(_f32) + p["dt_bias"].to(_f32))
+    A = -torch.exp(p["A_log"].to(_f32))                 # (nh,)
+    xh = x.to(_f32).reshape(Bsz, S, nh, dh)
+    Bf, Cf = Bm.to(_f32), Cm.to(_f32)
+    c = _chunk_len(S, chunk or cfg.ssm_chunk)
+    h = (torch.zeros((Bsz, nh, dh, ds), dtype=_f32, device=zxbcdt.device)
+         if ssm_state is None else ssm_state)
+    ys = []
+    for s in range(0, S, c):
+        y_c, h = _ssd_chunk(xh[:, s:s + c], dt[:, s:s + c], A, Bf[:, s:s + c],
+                            Cf[:, s:s + c], h)
+        ys.append(y_c)
+    y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
+    y = y + xh * p["D"].to(_f32)[None, None, :, None]
+    y = y.reshape(Bsz, S, di)
+    # gated RMSNorm (mamba2): norm(y * silu(z))
+    y = y * F.silu(z.to(_f32))
+    y = rmsnorm(y.to(zxbcdt.dtype), p["norm_w"], cfg.norm_eps)
+    return y, new_conv, h
+
+
+def mamba2_forward(p: dict, x: torch.Tensor, cfg, *, cache: Optional[dict] = None,
+                   kernels: Optional[KernelSet] = None):
+    """The whole mamba2 mixer, as ``mamba1_forward``."""
+    zxbcdt = matmul_param(x, p["in_proj"], kernels=kernels)
+    conv_s = cache["conv"] if cache else None
+    ssm_s = cache["ssm"] if cache else None
+    y, new_conv, new_ssm = mamba2_mix(p, zxbcdt, cfg, conv_state=conv_s, ssm_state=ssm_s)
+    out = matmul_param(y, p["out_proj"], kernels=kernels)
+    return out, ({"conv": new_conv, "ssm": new_ssm} if cache is not None else None)
+
+
+# sequential references: one step a chunk (the correctness oracles) ---------
+
+
+def mamba1_mix_ref(p: dict, xz: torch.Tensor, cfg):
+    return mamba1_mix(p, xz, cfg, chunk=1)
+
+
+def mamba2_mix_ref(p: dict, zxbcdt: torch.Tensor, cfg):
+    return mamba2_mix(p, zxbcdt, cfg, chunk=1)

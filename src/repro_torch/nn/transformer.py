@@ -1,11 +1,12 @@
-"""Decoder blocks (dense and MoE) and the embedding lookup.
+"""Decoder blocks (dense, MoE and mamba) and the embedding lookup.
 
-Port of the attention-family parts of ``repro/nn/transformer.py``, one
-call per layer (the reference's ``lax.scan`` over layer-stacked leaves
-becomes a loop over per-layer parameter dicts):
+Port of the serving parts of ``repro/nn/transformer.py``, one call per
+layer (the reference's ``lax.scan`` over layer-stacked leaves becomes a
+loop over per-layer parameter dicts):
 
   dense — RMSNorm -> GQA attention -> RMSNorm -> MLP
   moe   — RMSNorm -> GQA attention -> RMSNorm -> MoE FFN
+  mamba — RMSNorm -> mamba1 or mamba2 mixer ({"ln", "mix"})
 
 ``block_forward`` calls the block that a layer's parameters name (an
 "moe" entry makes it an MoE block).
@@ -21,6 +22,7 @@ from repro_torch.kernels.ops import KernelSet
 from .attention import attn_forward
 from .layers import Param, mlp_forward, rmsnorm
 from .moe import moe_forward
+from . import ssm
 
 
 def _attn_residual(p, x, cfg, rcfg, **attn_kw):
@@ -52,6 +54,16 @@ def block_forward(p: dict, x: torch.Tensor, cfg, rcfg, **kw):
     """The block that ``p`` names: MoE if it holds "moe", else dense."""
     fwd = moe_block_forward if "moe" in p else dense_block_forward
     return fwd(p, x, cfg, rcfg, **kw)
+
+
+def mamba_block_forward(p: dict, x: torch.Tensor, cfg, *, cache=None,
+                        kernels: Optional[KernelSet] = None, variant: str = "mamba1"):
+    """x + mixer(RMSNorm(x)); ``cache`` {"conv", "ssm"} carries the layer's
+    recurrent state. Returns (x, the new state or None)."""
+    fwd = ssm.mamba1_forward if variant == "mamba1" else ssm.mamba2_forward
+    h, new_cache = fwd(p["mix"], rmsnorm(x, p["ln"], cfg.norm_eps), cfg,
+                       cache=cache, kernels=kernels)
+    return x + h, new_cache
 
 
 def embed_tokens(emb: Param, tokens: torch.Tensor,

@@ -50,17 +50,24 @@ def test_full_rows_on_cpu_at_reduced_shapes(monkeypatch, capsys):
     monkeypatch.setattr(kernels, "KV_SHAPES", ((20, [5, 9, 17, 20]), (40, [1, 13, 39, 40])))
     monkeypatch.setattr(kernels, "FXP_SHAPES", [(64, 96)])
     monkeypatch.setattr(kernels, "MOE_SHAPES_POFX", [(64, 40)])
+    monkeypatch.setattr(kernels, "SSM_SHAPES_POFX", [(64, 40), (32, 72)])
+    monkeypatch.setattr(kernels, "SSM_UNEMBEDS", [(64, 40)])
     rows = kernels.run("cpu")
     names = [r["name"] for r in rows]
     # pofx_decode: 6 sweep rows, one (8, 2) row per weight shape, one (9, 2) row
     assert names.count("pofx_decode") == 6 + 2 + 1
-    # flash decode: 2 specs x 2 S at G = 4, R = 8, and fxp8 x 2 S at G = 16, R = 1
-    assert names.count("kv_flash_decode") == 4 + 2
-    assert names.count("kv_flash_paged_decode") == 4 + 2
+    # flash decode: 2 specs x 2 S at G = 4, R = 8, and fxp8 x 2 S at G = 16,
+    # R = 1 (moonshot) and at G = 32, R = 1, Dh = 64 (zamba2)
+    assert names.count("kv_flash_decode") == 4 + 2 + 2
+    assert names.count("kv_flash_paged_decode") == 4 + 2 + 2
     # pofx_matmul: 2 sweep rows, m = 4, 64 per yi-9b shape, m = 1 unembed,
-    # m = 1, 4, 64 per moonshot shape
-    assert names.count("pofx_matmul") == 2 + 4 + 1 + 3
+    # m = 1, 4, 64 per moonshot shape, m = 4, 64 per ssm/hybrid shape and
+    # m = 1 per ssm/hybrid unembed
+    assert names.count("pofx_matmul") == 2 + 4 + 1 + 3 + 4 + 1
     assert sum("G=16 R=1" in r["shape"] for r in rows) == 4
+    zamba_kv = [r for r in rows if "G=32 R=1" in r["shape"]]
+    assert len(zamba_kv) == 4 and all("Dh=64" in r["shape"] for r in zamba_kv)
+    assert sum(r["shape"] == "m=4 k=32 n=72 x=bf16" for r in rows) == 1
     assert names.count("fxp_matmul") == 1 + 2
     for r in rows:
         if r["name"] == "fxp_matmul":

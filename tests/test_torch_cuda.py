@@ -77,6 +77,24 @@ def test_pofx_matmul_serving_shapes_match_plain(cuda, m, k, n):
         _assert_pofx_close(got, pofx_matmul_ref(xt, codes, scale, 8, 2))
 
 
+# falcon-mamba-7b's in_proj, out_proj and unembed; zamba2-1.2b's in_proj,
+# whose 8384 columns leave the last 128-column tile half filled, and unembed
+@pytest.mark.parametrize("k,n", [(4096, 16384), (8192, 4096), (4096, 65024),
+                                 (2048, 8384), (2048, 32000)])
+@pytest.mark.parametrize("m", [1, 4, 64])
+def test_pofx_matmul_ssm_serving_shapes_match_plain(cuda, m, k, n):
+    x, codes, scale = _pofx_inputs(cuda, m, k, n, seed=m + n)
+    for xt in (x.to(torch.bfloat16), x):
+        before = LAUNCHES["pofx_matmul"]
+        got = pofx_matmul(xt, codes, scale, 8, 2)
+        assert LAUNCHES["pofx_matmul"] == before + 1 and got.shape == (m, n)
+        want = pofx_matmul_ref(xt, codes, scale, 8, 2)
+        _assert_pofx_close(got, want)
+        # the last, partial tile on its own
+        tail = n - n % 128 if n % 128 else n - 128
+        _assert_pofx_close(got[:, tail:], want[:, tail:])
+
+
 @pytest.mark.parametrize("k,n", [(1000, 777), (33, 5), (257, 66)])
 @pytest.mark.parametrize("m", [1, 4, 70])
 def test_pofx_matmul_ragged_shapes_match_plain(cuda, m, k, n):
@@ -382,6 +400,17 @@ def test_kv_flash_decode_moe_geometry_dense_and_paged_match_plain(cuda, B, G, R,
                                                                   spec_s, S):
     """Both flash-decode kernels against their plain versions, and the
     paged one equal to the dense one on the same rows (16-token pages)."""
+    _dense_and_paged_match_plain(cuda, B, G, R, Dh, spec_s, S)
+
+
+# zamba2-1.2b's shared attention: 32 groups of one query row, Dh = 64
+@pytest.mark.parametrize("spec_s", ["fxp8", "pofx8es2"])
+@pytest.mark.parametrize("S", [96, 1000, 4096])
+def test_kv_flash_decode_hybrid_geometry_dense_and_paged_match_plain(cuda, spec_s, S):
+    _dense_and_paged_match_plain(cuda, 4, 32, 1, 64, spec_s, S)
+
+
+def _dense_and_paged_match_plain(cuda, B, G, R, Dh, spec_s, S):
     spec = parse_spec(spec_s)
     q, kc, ks, vc, vs = _kv_dense(cuda, spec, B, G, R, S, Dh, seed=G * S + R)
     ksg, vsg = ks[0], vs[0]

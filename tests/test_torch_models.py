@@ -137,5 +137,6 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
 
 
 def test_other_families_are_not_silently_served():
+    """encdec (whisper) is the one family still to port (ROADMAP A9)."""
     with pytest.raises(NotImplementedError, match="A9"):
-        build_model(smoke(ARCHS["falcon-mamba-7b"]), RunConfig(), device="cpu")
+        build_model(smoke(ARCHS["whisper-medium"]), RunConfig(), device="cpu")

@@ -16,7 +16,6 @@ Both packages run at f32 activations; tolerances as in
 ``tests/test_torch_models.py``.
 """
 import dataclasses
-import math
 
 import jax
 import jax.numpy as jnp
@@ -33,12 +32,12 @@ from repro.nn.moe import moe_forward as j_moe_forward, moe_init as j_moe_init
 from repro.nn.sharding import make_ctx
 from repro_torch.configs import ARCHS, RunConfig, smoke
 from repro_torch.convert import params_from_numpy
-from repro_torch.core.policy import QuantPolicy, format_spec, named_leaves, storage_report
+from repro_torch.core.policy import QuantPolicy, named_leaves, storage_report
 from repro_torch.core.quantizers import QuantizedTensor
 from repro_torch.kernels.ops import KERNELS, PLAIN
 from repro_torch.nn.models import apply_policy, build_model
 from repro_torch.nn.moe import moe_capacity, moe_forward
-from torch_bridge import _jax_params, pair, to_numpy_tree
+from torch_bridge import _jax_params, pair, port_leaves, reference_leaves, to_numpy_tree
 
 MOE_ARCHS = ["moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b"]
 MIXED = "attn/*=pofx8es2,mlp/*=fxp8f7,*=bf16"
@@ -226,40 +225,6 @@ def test_moe_bucketed_prefill_length_matches(arch):
 # ---------------------------------------------------------------------------
 
 
-def _reference_leaves(params):
-    """{name: (format, codes shape, scale shape, count)} of the reference's
-    tree, stacked axes stripped (the port's per-layer leaves)."""
-    flat = jax.tree_util.tree_flatten_with_path(
-        params, is_leaf=lambda x: isinstance(x, JQT))[0]
-    out = {}
-    for path, leaf in flat:
-        names = [str(getattr(k, "key", getattr(k, "name", k))) for k in path]
-        depth = (2 if "dense" in names else 1) if "blocks" in names else 0
-        if isinstance(leaf, JQT):
-            codes, scale = np.asarray(leaf.codes), np.asarray(leaf.scale)
-            fmt = format_spec(leaf.spec)
-            out["/".join(names)] = (fmt, codes.shape[depth:], scale.shape[depth:],
-                                    math.prod(codes.shape[:depth]))
-        else:
-            a = np.asarray(leaf)
-            out["/".join(names)] = (a.dtype.name, a.shape[depth:], None,
-                                    math.prod(a.shape[:depth]))
-    return out
-
-
-def _port_leaves(params):
-    out = {}
-    for name, leaf in named_leaves(params):
-        if isinstance(leaf, QuantizedTensor):
-            key = (format_spec(leaf.spec), tuple(leaf.codes.shape), tuple(leaf.scale.shape))
-        else:
-            key = (str(leaf.dtype).replace("torch.", ""), tuple(leaf.shape), None)
-        fmt, shape, sshape, n = out.get(name, (*key, 0))
-        assert (fmt, shape, sshape) == key, (name, key, (fmt, shape, sshape))
-        out[name] = (fmt, shape, sshape, n + 1)
-    return out
-
-
 @pytest.mark.parametrize("arch", MOE_ARCHS)
 @pytest.mark.parametrize("policy", ["pofx8", MIXED])
 def test_init_quantizes_the_reference_leaves(arch, policy):
@@ -273,7 +238,7 @@ def test_init_quantizes_the_reference_leaves(arch, policy):
     cfg = smoke(ARCHS[arch])
     tm = build_model(cfg, RunConfig(remat="none"), device="cpu")
     tp = tm.init(2, policy=policy)
-    want, got = _reference_leaves(jp), _port_leaves(tp)
+    want, got = reference_leaves(jp), port_leaves(tp)
     assert got == want
     assert j_build_model(jcfg, JRunConfig()).n_groups == tm.n_groups
     assert got["blocks/moe/moe/router"][0] == "float32"

@@ -223,16 +223,18 @@ def test_paged_cache_layout_and_rejections():
 
 @pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-1.2b"])
 def test_paged_non_pageable_families_refused(arch, capsys):
-    """The reference pages dense and moe only; ssm and hybrid are not
-    ported yet and are refused by build_model and by serve --paged."""
+    """The reference pages dense and moe only: ssm and hybrid models build
+    and serve dense, but refuse a paged cache, and serve --paged refuses
+    them, with the reference's messages."""
     from repro_torch.configs import ARCHS, RunConfig, smoke
     from repro_torch.launch import serve
     from repro_torch.nn.models import build_model
-    with pytest.raises(NotImplementedError, match="A9"):
-        build_model(smoke(ARCHS[arch]), RunConfig(), device="cpu")
+    model = build_model(smoke(ARCHS[arch]), RunConfig(), device="cpu")
+    with pytest.raises(ValueError, match="attention-only families"):
+        model.init_paged_cache(2, 16, n_pages=9, page_size=4)
     with pytest.raises(SystemExit):
         serve.main(["--arch", arch, "--smoke", "--device", "cpu", "--paged"])
-    assert "A9" in capsys.readouterr().err
+    assert "--paged supports dense/moe families" in capsys.readouterr().err
 
 
 # ---------------------------------------------------------------------------
