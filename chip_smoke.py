@@ -71,7 +71,27 @@ Phases, one line each, any failure exits non-zero without the final line:
    layers, d_model 2048, one shared attention + MLP block before each run
    of 6 layers, 7 a forward): 119 pofx_matmul a forward (38 x 2, 7 x 6
    for the shared block, the unembed) and 7 kv_flash_decode a decode
-   step; the profile's range is ``ssm.mamba2_mix``.
+   step; the profile's range is ``ssm.mamba2_mix``;
+12. encdec serving: the serving CLI with ``--arch whisper-medium`` and
+   MAIN_ARGV's other flags (24 encoder + 24 decoder layers, d_model 1024;
+   the CLI drops the fxp8 KV cache and runs the one-shot loop: 4 sequences
+   of 64 tokens and 64 encoder frames drawn as the reference draws them,
+   one batched prefill, 31 greedy decode steps) and its defaults: exactly
+   385 pofx_matmul in the prefill (24 x 6 encoder, 24 x 10 decoder, the
+   unembed) and 193 a decode step (24 x 8 + 1), 6368 in all, none of the
+   other kernels; 4 x 32 in-vocab tokens, finite logits; first-token
+   logits against the plain path (same argmax); kernels against plain
+   versions at f32 on the first 2 encoder and 2 decoder layers (identical
+   streams); the loop repeated at full depth (identical tokens); a
+   decode-step profile with the cross-attention (``attention._cross_attn``)
+   in a ``record_function`` range.
+
+Before torch is imported, the CUDA driver is asked to start in a process of
+its own (``wait_for_card``): a freshly booted host may refuse for a while
+(CUDA_ERROR_SYSTEM_NOT_READY until its fabric manager is up), and a start
+that failed stays failed in the process that saw it, so the script retries
+there for up to CARD_WAIT_S seconds. No CUDA driver, or one that finds no
+device, ends the script at once with exit code 2.
 
 TF32 is off for matmuls and convolutions, so every f32 product (the plain
 versions included) is a true f32 product. Details go to
@@ -81,6 +101,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import subprocess
 import sys
 import time
 import traceback
@@ -88,6 +109,54 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out"
+
+CARD_WAIT_S = 300
+CUDA_SUCCESS, CUDA_ERROR_NO_DEVICE = 0, 100
+CUDA_PROBE = """
+import ctypes, sys
+try:
+    lib = ctypes.CDLL("libcuda.so.1")
+except OSError:
+    sys.exit(3)
+n = ctypes.c_int(0)
+rc = lib.cuInit(0)
+if rc == 0:
+    rc = lib.cuDeviceGetCount(ctypes.byref(n))
+print(rc, n.value)
+"""
+
+
+def cuda_driver_state():
+    """(cuInit's result, device count), asked of the driver in a fresh
+    process; None when there is no CUDA driver library."""
+    try:
+        res = subprocess.run([sys.executable, "-c", CUDA_PROBE], capture_output=True,
+                             text=True, timeout=120)
+    except subprocess.TimeoutExpired:
+        return (-1, 0)
+    if res.returncode == 3:
+        return None
+    try:
+        rc, n = (int(v) for v in res.stdout.split())
+    except ValueError:
+        return (-1, 0)
+    return (rc, n)
+
+
+def wait_for_card(limit_s: float = CARD_WAIT_S):
+    """Retry the driver's start every 10 s until it succeeds, reports no
+    device, or ``limit_s`` has passed; returns the last state."""
+    t0 = time.monotonic()
+    while True:
+        state = cuda_driver_state()
+        if state is None or state[0] in (CUDA_SUCCESS, CUDA_ERROR_NO_DEVICE):
+            return state
+        if time.monotonic() - t0 >= limit_s:
+            return state
+        print(f"chip_smoke: cuInit returned {state[0]}; retrying in 10 s", file=sys.stderr,
+              flush=True)
+        time.sleep(10)
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -203,7 +272,7 @@ def compare(done_k, done_p, what):
 
 
 def profile_decode(torch, model, params, steps: int = 4, paged: bool = False,
-                   sample: bool = False, regions=None):
+                   sample: bool = False, regions=None, cache=None):
     """Device time by kernel over ``steps`` decode steps at 4 slots and a
     64-token context (torch.profiler, CUDA activity), against the host
     wall time of the same steps: where a decode step's time goes. ``paged``
@@ -212,19 +281,23 @@ def profile_decode(torch, model, params, steps: int = 4, paged: bool = False,
     temperature 0.8, top-k 40), its token fed back as the engine does.
     ``regions`` {label: (module, function name)} wraps those functions in
     ``record_function`` ranges while profiling and reports the device time
-    of the kernels launched inside each, a step."""
+    of the kernels launched inside each, a step. ``cache`` (4 slots, room
+    for 9 more positions) replaces the zero cache at position 64, e.g. one
+    that a prefill filled."""
     restore = []
     try:
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
         from repro_torch.core import prng
         from repro_torch.launch.engine import sample_tokens
-        if paged:
-            cache = model.init_paged_cache(4, 96, n_pages=25, page_size=16)
-            cache["pages"] = torch.arange(1, 25, dtype=torch.int32, device="cuda").reshape(4, 6)
-        else:
-            cache = model.init_cache(4, 96)
-        cache["pos"] = torch.full((4,), 64, dtype=torch.int32, device="cuda")
+        if cache is None:
+            if paged:
+                cache = model.init_paged_cache(4, 96, n_pages=25, page_size=16)
+                cache["pages"] = torch.arange(1, 25, dtype=torch.int32,
+                                              device="cuda").reshape(4, 6)
+            else:
+                cache = model.init_cache(4, 96)
+            cache["pos"] = torch.full((4,), 64, dtype=torch.int32, device="cuda")
         tok = torch.zeros((4, 1), dtype=torch.long, device="cuda")
         keys = prng.fold_in(prng.PRNGKey(0, "cuda").expand(4, 2),
                             torch.arange(4, device="cuda"))
@@ -770,12 +843,17 @@ MOE_ARGV = ["--arch", "moonshot-v1-16b-a3b", "--quant", "pofx8", "--kv-quant", "
 MOE_IDENTITY_LAYERS, MOE_SAMPLED_LAYERS = 2, 12
 
 
-def truncated(model, params, n_layers, **rcfg):
-    """The model on its first ``n_layers`` layers' weights (embed, unembed
-    and ln_f as they are), run config fields replaced by ``rcfg``."""
+def truncated(model, params, n_layers, enc_layers=None, **rcfg):
+    """The model on its first ``n_layers`` layers' weights (and, encdec,
+    the first ``enc_layers`` encoder layers'; embed, unembed and the norms
+    as they are), run config fields replaced by ``rcfg``."""
     cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
+    sub_params = dict(params, blocks=params["blocks"][:n_layers])
+    if enc_layers is not None:
+        cfg = dataclasses.replace(cfg, n_enc_layers=enc_layers)
+        sub_params["enc_blocks"] = params["enc_blocks"][:enc_layers]
     sub = dataclasses.replace(model, cfg=cfg, rcfg=dataclasses.replace(model.rcfg, **rcfg))
-    return sub, dict(params, blocks=params["blocks"][:n_layers])
+    return sub, sub_params
 
 
 def phase_moe(torch, result):
@@ -992,15 +1070,136 @@ def phase_ssm(torch, result, arch, n_layers, d_model, want_pofx, want_kv):
     return counts
 
 
+ENCDEC_ARGV = ["--arch", "whisper-medium"] + MAIN_ARGV[2:]
+# the f32 kernels-vs-plain check's depth (encoder and decoder layers); the
+# CLI and the repeat run every layer
+ENCDEC_IDENTITY_LAYERS = 2
+
+
+def phase_encdec(torch, result):
+    """Phase 12: whisper-medium through the serving CLI with ENCDEC_ARGV
+    and its defaults, i.e. the reference's one-shot loop at full width and
+    depth. Exact launch counts (385 pofx_matmul in the prefill: q/k/v/o and
+    wi/wo a encoder layer; self q/k/v/o, cross q/k/v/o and wi/wo a decoder
+    layer; the unembed. 193 a decode step: the cross K/V come from the
+    static cache. The cross cache's own two products a layer take the plain
+    path, as in the reference, and launch nothing), 4 x 32 in-vocab tokens,
+    finite logits; first-token logits against the plain path; kernels
+    against plain versions at f32 on the first layers (identical tokens);
+    the loop again on the same weights and inputs (identical tokens); a
+    decode-step profile with the cross-attention in a ``record_function``
+    range."""
+    import repro_torch.nn.attention as attn_mod
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.ops import PLAIN
+    from repro_torch.launch import serve as serve_cli
+    torch.cuda.reset_peak_memory_stats()
+    log(f"  repro_torch.launch.serve {' '.join(ENCDEC_ARGV)}")
+    reset_launches()
+    run = serve_cli.main(ENCDEC_ARGV)
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    model, params, leg = run.model, run.params, run.legacy
+    cfg = model.cfg
+    B, P = leg.prompts.shape
+    gen = leg.tokens.shape[1]
+    per_prefill = 6 * cfg.n_enc_layers + 10 * cfg.n_layers + 1
+    per_step = 8 * cfg.n_layers + 1
+    want = {"pofx_matmul": per_prefill + (gen - 1) * per_step, "kv_flash_decode": 0,
+            "kv_flash_paged_decode": 0, "fxp_matmul": 0, "pofx_decode": 0}
+    log(f"  launches: {counts}; expected {per_prefill} in the prefill + {gen - 1} x "
+        f"{per_step} = {want['pofx_matmul']}")
+    if (cfg.name, cfg.n_layers, cfg.n_enc_layers, cfg.d_model, cfg.n_heads, cfg.d_ff,
+            cfg.padded_vocab) != ("whisper-medium", 24, 24, 1024, 16, 4096, 51968):
+        raise AssertionError(f"encdec path ran {cfg}")
+    if (B, P, gen) != (4, 64, 32) or want["pofx_matmul"] != 6368 or counts != want:
+        raise AssertionError(f"encdec launch counts {counts} != expected {want} "
+                             f"(B={B}, P={P}, gen={gen})")
+    toks = leg.tokens
+    if run.engine is not None or model.kv_spec is not None or leg.frames is None:
+        raise AssertionError("whisper was not served by the one-shot loop with a bf16 cache")
+    if not (((0 <= toks) & (toks < cfg.vocab_size)).all() and torch.isfinite(leg.logits).all()):
+        raise AssertionError(f"bad encdec output: {toks.tolist()}")
+    summary = {"argv": ENCDEC_ARGV, "arch": cfg.name, "n_layers": cfg.n_layers,
+               "n_enc_layers": cfg.n_enc_layers, "batch": B, "prompt_len": P, "gen": gen,
+               "prefill_s": leg.prefill_s, "decode_s": leg.decode_s,
+               "prefill_tok_s": B * P / leg.prefill_s,
+               "decode_tok_s": (gen - 1) * B / leg.decode_s, "launches": counts,
+               "pofx_per_prefill": per_prefill, "pofx_per_decode_step": per_step,
+               "peak_gib": peak}
+    log(f"  one-shot loop: prefill {B}x{P} tokens in {leg.prefill_s:.3f}s "
+        f"({summary['prefill_tok_s']:.1f} tok/s), decode {gen - 1} steps x {B} in "
+        f"{leg.decode_s:.3f}s ({summary['decode_tok_s']:.1f} tok/s), peak {peak:.2f} GiB "
+        f"(init included)")
+    prompts, frames = leg.prompts.cuda(), leg.frames.cuda()
+
+    def first(m, p):
+        cache = m.init_cache(B, P + 1, enc_len=P)
+        return m.prefill(p, prompts, cache=cache, frames=frames)[1].float()
+
+    lk, lp = first(model, params), first(dataclasses.replace(model, kernel_set=PLAIN), params)
+    if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()):
+        raise AssertionError("non-finite encdec first-token logits")
+    diff = (lk - lp).abs().max().item()
+    same_argmax = int((lk.argmax(-1) == lp.argmax(-1)).sum())
+    log(f"  first-token logits, kernels vs plain path: max |diff| {diff:.4g} "
+        f"(|logits| <= {lp.abs().max().item():.4g}, bf16 activations), argmax "
+        f"{lk.argmax(-1).tolist()} vs {lp.argmax(-1).tolist()}; the CLI's first tokens "
+        f"{toks[:, 0].tolist()}")
+    cache = model.init_cache(B, P + gen, enc_len=P)
+    cache, _ = model.prefill(params, prompts, cache=cache, frames=frames)
+    prof = profile_decode(torch, model, params, cache=cache,
+                          regions={"cross_attn": (attn_mod, "_cross_attn")})
+    del cache
+    entry = dict(summary, first_logit_max_abs_diff=diff, first_argmax_agree=same_argmax,
+                 decode_profile=prof, tokens=toks.tolist())
+    if same_argmax != B or toks[:, 0].tolist() != lk.argmax(-1).tolist():
+        raise AssertionError("encdec first tokens differ between kernels, plain and the CLI")
+
+    # kernels vs plain versions at f32, the first encoder and decoder layers
+    n = ENCDEC_IDENTITY_LAYERS
+    small, sparams = truncated(model, params, n, enc_layers=n, activation_dtype="f32")
+    reset_launches()
+    got_k = serve_cli.legacy_loop(small, sparams, prompts, frames, gen)[0]
+    kcounts = dict(LAUNCHES)
+    got_p = serve_cli.legacy_loop(dataclasses.replace(small, kernel_set=PLAIN), sparams,
+                                  prompts, frames, gen)[0]
+    same = int((got_k == got_p).all(axis=1).sum())
+    log(f"  identity ({n} + {n} layers, f32): {same}/{B} streams identical to the plain "
+        f"path; launches {kcounts}")
+    entry["identity"] = {"n_layers": n, "n_enc_layers": n, "identical_streams": same,
+                         "launches": kcounts}
+    if same != B or kcounts["pofx_matmul"] != 6 * n + 10 * n + 1 + (gen - 1) * (8 * n + 1):
+        raise AssertionError("encdec kernel streams differ from the plain path's")
+
+    # the loop again at full depth on the same weights and inputs
+    t0 = time.perf_counter()
+    again = serve_cli.legacy_loop(model, params, prompts, frames, gen)[0]
+    same_r = int((again == toks).all(axis=1).sum())
+    log(f"  repeat ({cfg.n_layers} + {cfg.n_enc_layers} layers): {same_r}/{B} streams "
+        f"identical ({time.perf_counter() - t0:.1f}s)")
+    entry["identical_repeat"] = same_r
+    result["whisper-medium"] = entry
+    if same_r != B:
+        raise AssertionError("the encdec repeat differs from the CLI run")
+    del run, model, params, leg, small, sparams, prompts, frames
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="drive the port on one card")
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases after the build (default: all)")
     want = {int(p) for p in ap.parse_args(argv).phases.split(",")}
+    state = wait_for_card()
     import torch
     if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is False; needs a CUDA card",
+        driver = ("no CUDA driver library" if state is None
+                  else f"cuInit returned {state[0]}, {state[1]} device(s)")
+        print(f"chip_smoke: torch.cuda.is_available() is False ({driver}); needs a CUDA card",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
@@ -1058,6 +1257,8 @@ def main(argv) -> int:
          lambda: phase_ssm(torch, result, *SSM_ARCHS[10])),
         ("phase 11: hybrid serving, zamba2-1.2b full width and depth",
          lambda: phase_ssm(torch, result, *SSM_ARCHS[11])),
+        ("phase 12: encdec serving, whisper-medium full width and depth",
+         lambda: result.__setitem__("encdec_counts", phase_encdec(torch, result))),
     ]
     for label, fn in phases:
         if int(label.split()[1].rstrip(":")) not in want:
@@ -1081,7 +1282,7 @@ def main(argv) -> int:
     if failed:
         log(f"FAILED: {failed}")
         return 1
-    if want != set(range(2, 12)):
+    if want != set(range(2, 13)):
         log(f"ran phases {sorted(want)} only: no result line")
         return 1
     main_counts = result["main_counts"]

@@ -32,7 +32,11 @@ size. The rows:
     falcon-mamba-7b's in_proj, out_proj and unembed and on zamba2-1.2b's
     in_proj (n = 8384, a half-filled last 128-column tile), out_proj, shared
     q/k/v/o, wi, wo and unembed, and at m = 1 on both unembeds; both
-    flash-decode kernels (fxp8) at zamba2's G = 32, R = 1, Dh = 64;
+    flash-decode kernels (fxp8) at zamba2's G = 32, R = 1, Dh = 64; and
+    pofx_matmul at whisper-medium's q/k/v/o (self and cross), wi, wo and
+    unembed at m = 4 (decode, and the one-shot prefill's unembed) and m =
+    256 (the one-shot prefill: 4 sequences x 64 positions, encoder and
+    decoder);
 (c) pofx_decode at the five yi-9b weight shapes, (N, ES) = (8, 2), and at
     the mlp shape with (9, 2).
 
@@ -69,8 +73,8 @@ from repro_torch.kernels.pofx_matmul import pofx_matmul, pofx_matmul_ref
 from repro_torch.kernels.ref import gather_pages
 from .common import Timer, bound_ms, nvidia_smi, write_csv
 
-__all__ = ["SHAPES_POFX", "MOE_SHAPES_POFX", "SSM_SHAPES_POFX", "POFX_SPECS", "run",
-           "main"]
+__all__ = ["SHAPES_POFX", "MOE_SHAPES_POFX", "SSM_SHAPES_POFX",
+           "WHISPER_SHAPES_POFX", "POFX_SPECS", "run", "main"]
 
 # yi-9b weight shapes (k, n): q/o, k/v, gate/up, down, unembed
 SHAPES_POFX = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096), (4096, 64000)]
@@ -85,6 +89,9 @@ SSM_SHAPES_POFX = [(4096, 16384), (8192, 4096), (4096, 65024),
                    (2048, 8384), (4096, 2048), (2048, 2048), (2048, 8192), (8192, 2048),
                    (2048, 32000)]
 SSM_UNEMBEDS = [(4096, 65024), (2048, 32000)]
+# whisper-medium's kernel shapes (k, n): q/k/v/o (self and cross), wi, wo,
+# the unembed (vocab 51865 padded to 51968)
+WHISPER_SHAPES_POFX = [(1024, 1024), (1024, 4096), (4096, 1024), (1024, 51968)]
 POFX_SPECS = [(N, ES) for N in (6, 7, 8) for ES in (1, 2, 3)]
 # every (N, ES, M) pofx_decode accepts
 DECODE_PARAMS = [(N, ES, M) for N in range(3, 10) for ES in range(5) for M in range(1, 9)]
@@ -388,6 +395,10 @@ def run(device="cuda", *, smoke: bool = False, timer: Optional[Timer] = None) ->
     for S, pos_list in KV_SHAPES:
         bench.kv_flash_decode_row("fxp8", S, pos_list, G=32, R=1, Dh=64)
         bench.kv_flash_paged_decode_row("fxp8", S, pos_list, G=32, R=1, Dh=64)
+    # whisper-medium's one-shot loop: m = 4 a decode step, m = 256 in its prefill
+    for m in (4, 256):
+        for k, n in WHISPER_SHAPES_POFX:
+            bench.pofx_matmul_row(m, k, n, torch.bfloat16, f"m={m} k={k} n={n} x=bf16")
     # (c) pofx_decode at the yi-9b weight shapes; at the mlp shape also with
     # N = 9, whose 256-byte table has two words a bank (N = 8: one)
     for k, n in SHAPES_POFX:

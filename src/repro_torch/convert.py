@@ -11,9 +11,12 @@ The moe family's ``blocks`` = {"moe": (n_groups, ...), "dense": (n_groups,
 moe_every - 1, ...)} becomes, group by group, the group's dense layers and
 then its MoE layer. The ssm and hybrid families' mamba layers ({"ln",
 "mix"}) unstack like dense layers; hybrid's one shared block (``shared``)
-is not stacked and converts as it is. An (E, in, out) expert leaf stays
-whole, its codes and its scale shared by the experts as they are. bfloat16 arrays (numpy dtype
-name "bfloat16") are accepted as raw 16-bit patterns.
+is not stacked and converts as it is. The encdec family's ``enc_blocks``
+(the encoder's dense layers) unstack like ``blocks``, whose decoder layers
+carry their "ln_x" and "xattn" leaves along; ``enc_ln`` converts as it
+is. An (E, in, out) expert leaf stays whole, its codes and its scale
+shared by the experts as they are. bfloat16 arrays (numpy dtype name
+"bfloat16") are accepted as raw 16-bit patterns.
 """
 from __future__ import annotations
 
@@ -78,5 +81,6 @@ def _blocks(node, device) -> List[Dict[str, Any]]:
 
 def params_from_numpy(tree: Dict[str, Any], *, device) -> Dict[str, Any]:
     """The reference's parameter tree (numpy) -> the port's parameters."""
-    return {key: _blocks(node, device) if key == "blocks" else _convert(node, device)
+    return {key: _blocks(node, device) if key in ("blocks", "enc_blocks")
+            else _convert(node, device)
             for key, node in tree.items()}

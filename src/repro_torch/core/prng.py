@@ -1,15 +1,17 @@
-"""The reference's PRNG, in torch: threefry-2x32 keys, fold_in and the
-gumbel-max categorical draw.
+"""The reference's PRNG, in torch: threefry-2x32 keys, fold_in, split and
+the draws the serving paths make.
 
-A torch copy of JAX's default PRNG as the serving engine uses it
-(``jax.random.PRNGKey``, ``fold_in``, ``categorical``; raw ``(2,)`` uint32
-keys, ``jax_threefry_partitionable`` on), so the port draws the reference's
-sample streams bit for bit from the same seed:
+A torch copy of JAX's default PRNG as the serving engine and the one-shot
+CLI loop use it (``jax.random.PRNGKey``, ``fold_in``, ``split``,
+``categorical``, ``randint``, ``normal``; raw ``(2,)`` uint32 keys,
+``jax_threefry_partitionable`` on), so the port draws the reference's
+sample streams, prompts and frames from the same seed:
 
 * ``threefry_2x32`` is the 20-round Threefry-2x32 hash
   (``jax/_src/prng.py`` ``_threefry2x32_lowering``).
 * ``fold_in(key, data)`` hashes the count pair ``threefry_seed(data) = (0,
-  data)`` under ``key``.
+  data)`` under ``key``; ``split(key, n)`` hashes the counts ``(0, i)``,
+  ``i < n``, and each pair of output words is one new key.
 * ``random_bits(key, shape)`` hashes the 64-bit row-major index of every
   element, split into ``(hi, lo)`` words, and XORs the two output words
   (the partitionable layout; not the older split-counter one).
@@ -23,7 +25,8 @@ carried in int64 and masked to 32 bits after each add and rotate. A key is
 a ``(..., 2)`` int64 tensor of such words; leading dims batch the keys, as
 the reference's ``vmap`` does. Nothing here holds global state: keys live
 on the device they were made on and every draw runs there. Only the two
-``log``s of ``gumbel`` may differ from XLA's by an ulp.
+``log``s of ``gumbel`` and the ``log1p`` of ``erf_inv`` may differ from
+XLA's by an ulp, which the polynomial carries to a few ulps of ``normal``.
 """
 from __future__ import annotations
 
@@ -32,8 +35,9 @@ from typing import Sequence, Union
 
 import torch
 
-__all__ = ["PRNGKey", "threefry_2x32", "threefry_seed",
-           "fold_in", "random_bits", "uniform", "gumbel", "categorical"]
+__all__ = ["PRNGKey", "threefry_2x32", "threefry_seed", "fold_in", "split",
+           "random_bits", "uniform", "gumbel", "categorical", "randint",
+           "erf_inv", "normal"]
 
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -99,15 +103,28 @@ def fold_in(key: torch.Tensor, data: Data) -> torch.Tensor:
     return torch.stack([y0, y1], dim=-1)
 
 
+def _count_words(n: int, device):
+    """The (hi, lo) words of the flat indices 0..n-1 (the reference's
+    ``iota_2x32_shape``)."""
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    return idx >> 32, idx & MASK
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` of one (2,) key: (num, 2) keys, the
+    hash of the counts ``(0, i)`` (the partitionable fold-like split)."""
+    hi, lo = _count_words(int(num), key.device)
+    y0, y1 = threefry_2x32(key[0], key[1], hi, lo)
+    return torch.stack([y0, y1], dim=-1)
+
+
 def random_bits(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
     """32 random bits per element of ``shape`` under each key of ``key``
     (..., 2): a (..., *shape) int64 tensor of uint32 words."""
     shape = tuple(int(s) for s in shape)
-    idx = torch.arange(math.prod(shape), dtype=torch.int64,
-                       device=key.device).reshape(shape)
+    hi, lo = (w.reshape(shape) for w in _count_words(math.prod(shape), key.device))
     expand = (...,) + (None,) * len(shape)
-    y0, y1 = threefry_2x32(key[..., 0][expand], key[..., 1][expand],
-                          idx >> 32, idx & MASK)
+    y0, y1 = threefry_2x32(key[..., 0][expand], key[..., 1][expand], hi, lo)
     return y0 ^ y1
 
 
@@ -146,3 +163,60 @@ def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
     """
     g = gumbel(key, logits.shape[-1:], logits.dtype)
     return torch.argmax(g + logits, dim=-1)
+
+
+def randint(key: torch.Tensor, shape: Sequence[int], minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval)`` at its default
+    int32: values in ``[minval, maxval)`` (``minval`` wherever ``maxval <=
+    minval``). Two words a value, one from each half of ``split(key)``,
+    are folded into the span as ``((hi % span) * (2^32 % span) + lo %
+    span) % span`` in wrapping uint32 arithmetic. Returns int32."""
+    i32 = torch.iinfo(torch.int32)
+    lo_v, hi_v = int(minval), int(maxval)
+    if not (i32.min <= lo_v <= i32.max and i32.min <= hi_v <= i32.max):
+        raise ValueError(f"randint bounds must lie in int32, got [{lo_v}, {hi_v})")
+    span = 1 if hi_v <= lo_v else (hi_v - lo_v) & MASK
+    k1, k2 = split(key)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    mult = (2 ** 16) % span
+    mult = ((mult * mult) & MASK) % span
+    # (hi % span) * mult < 2^64 may pass int64's range: its wrap keeps the
+    # low 32 bits, all that uint32 arithmetic keeps
+    offset = ((higher % span) * mult + lower % span) & MASK
+    offset = (offset % span + lo_v) & MASK
+    return torch.where(offset > i32.max, offset - 2 ** 32, offset).to(torch.int32)
+
+
+# XLA's f32 ErfInv: M. Giles, "Approximating the erfinv function" (GPU Gems
+# Computing), one polynomial for w = -log1p(-x^2) < 5 and one above
+_ERF_INV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+                0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
+                1.50140941)
+_ERF_INV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+                0.00573950773, -0.0076224613, 0.00943887047, 1.00167406,
+                2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """``lax.erf_inv`` for f32 as XLA computes it (its polynomial, each
+    step rounded to f32; +-inf at +-1). ``torch.special.erfinv`` is another
+    approximation, up to 64 ulps from XLA's near +-1."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    coef = [torch.where(lt, a, b) for a, b in
+            zip(torch.tensor(_ERF_INV_LT5, device=x.device),
+                torch.tensor(_ERF_INV_GE5, device=x.device))]
+    p = coef[0]
+    for c in coef[1:]:
+        p = c + p * w
+    return torch.where(x.abs() == 1.0, x * math.inf, p * x)
+
+
+def normal(key: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """``jax.random.normal(key, shape)`` in f32: ``sqrt(2) * erf_inv(u)``,
+    ``u`` uniform over ``[nextafter(-1, 0), 1)``."""
+    lo = float(torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)))
+    u = uniform(key, shape, torch.float32, minval=lo, maxval=1.0)
+    return float(torch.tensor(math.sqrt(2), dtype=torch.float32)) * erf_inv(u)

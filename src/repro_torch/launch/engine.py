@@ -130,6 +130,10 @@ class ServeEngine:
                  chunk: int = 8, prompt_bucket: int = 1, seed: int = 0,
                  paged: bool = False, page_size: int = 16,
                  n_pages: Optional[int] = None):
+        if model.cfg.family == "encdec":
+            raise NotImplementedError(
+                "encdec serving needs per-request encoder frames; use the "
+                "one-shot path in repro_torch.launch.serve (--legacy)")
         if prompt_bucket > 1 and model.cfg.family in ("ssm", "hybrid"):
             raise ValueError(
                 "prompt_bucket > 1 right-pads prefill, which pollutes SSM "

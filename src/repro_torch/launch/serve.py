@@ -1,10 +1,9 @@
 """Serving CLI: continuous-batching quantized serving on the card.
 
-Port of ``repro/launch/serve.py`` (engine path, dense or paged cache, the
-dense, moe, ssm and hybrid families; tensor parallelism and the legacy
-one-shot loop, which serves encdec, are later slices). Weights are post-training-quantized per a QuantPolicy
-as they are drawn, served by
-the continuous-batching engine; ``--use-kernel`` routes every quantized
+Port of ``repro/launch/serve.py`` (engine path, dense or paged cache, and
+the one-shot ``--legacy`` loop; every family; tensor parallelism is a
+later slice). Weights are post-training-quantized per a QuantPolicy as
+they are drawn, served by the continuous-batching engine; ``--use-kernel`` routes every quantized
 matmul through the hand-written PoFx/FxP kernels and, with ``--kv-quant``,
 decode attention through the flash-decode kernel (``--paged``: the paged
 flash-decode kernel over a page pool with prefix sharing):
@@ -21,22 +20,39 @@ recurrent state in the dense engine: in_proj, out_proj, the shared block
 and the unembed take the kernels, the mixers are plain PyTorch, and
 ``--paged`` and ``--prompt-bucket`` > 1 are refused as in the reference.
 
+``--legacy`` (automatic for encdec, ``--arch whisper-medium``, whose
+encoder needs per-batch frames) runs the reference's one-shot fixed-batch
+greedy loop instead: ``--batch`` sequences of ``--prompt-len`` tokens and,
+for encdec, as many encoder frames, drawn as the reference draws them
+(``jax.random.randint(PRNGKey(1), ...)``, ``jax.random.normal(PRNGKey(2),
+...)``, ``core.prng``), one batched prefill and ``--gen`` - 1 greedy
+decode steps at one position for the whole batch. encdec serves with a
+bf16 KV cache (a quantized one is dropped with a message, as in the
+reference) and refuses ``--paged``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \
+        --quant pofx8 --kv-quant fxp8 --use-kernel
+
 ``--smoke`` serves the reduced config; ``--device cpu`` runs on the CPU
 (the kernels' plain versions). ``--temperature``/``--top-k`` sample every
 request (greedy by default) and draw the reference's streams. ``--gen`` counts tokens generated per
 request: the first from the prefill logits, ``gen-1`` from decode steps.
-``main`` returns what it served (a ``ServeRun``), so a driver script can
-read the engine's stats and reuse the model.
+``main`` returns what it served (a ``ServeRun``: the engine and its
+requests, or the one-shot loop's ``LegacyRun``), so a calling script can
+read the engine's stats or the loop's tokens and reuse the model.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-from typing import Any, List
+import time
+from typing import Any, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.configs import ARCHS, RunConfig, smoke as smoke_cfg
+from repro_torch.core import prng
 from repro_torch.core.policy import (QuantPolicy, add_kv_quant_arg,
                                      add_policy_arg, format_spec,
                                      resolve_kv_spec, storage_report)
@@ -46,12 +62,27 @@ from repro_torch.nn.models import build_model, kv_decode_bytes_per_token
 
 
 @dataclasses.dataclass
+class LegacyRun:
+    """What the one-shot loop served: the (B, P) prompts, the (B, P,
+    d_model) f32 frames (encdec, else None), the (B, gen) greedy tokens,
+    the last step's logits and the wall seconds of the prefill and of the
+    gen - 1 decode steps."""
+    prompts: torch.Tensor
+    frames: Optional[torch.Tensor]
+    tokens: np.ndarray
+    logits: torch.Tensor
+    prefill_s: float
+    decode_s: float
+
+
+@dataclasses.dataclass
 class ServeRun:
     model: Any
     params: Any
-    engine: ServeEngine
+    engine: Optional[ServeEngine]
     requests: List[Request]
     done: List[RequestState]
+    legacy: Optional[LegacyRun] = None
 
 
 def make_requests(vocab: int, n: int, prompt_len: int, gen: int,
@@ -63,6 +94,72 @@ def make_requests(vocab: int, n: int, prompt_len: int, gen: int,
     return [Request(rid=i, prompt=rng.integers(0, vocab, prompt_len),
                     max_new=gen, sampling=sampling, arrival=i * arrival_gap)
             for i in range(n)]
+
+
+def legacy_inputs(cfg, batch: int, prompt_len: int):
+    """The reference CLI's one-shot inputs, drawn on the CPU: (B, P) int64
+    prompts from ``randint(PRNGKey(1), (B, P), 0, vocab)`` and, for
+    encdec, (B, P, d_model) f32 frames from ``normal(PRNGKey(2), ...)``
+    (else None)."""
+    prompts = prng.randint(prng.PRNGKey(1), (batch, prompt_len), 0, cfg.vocab_size)
+    frames = None
+    if cfg.family == "encdec":
+        frames = prng.normal(prng.PRNGKey(2), (batch, prompt_len, cfg.d_model))
+    return prompts.long(), frames
+
+
+def _wait(t: torch.Tensor) -> None:
+    if t.is_cuda:
+        torch.cuda.synchronize(t.device)
+
+
+def legacy_loop(model, params, prompts: torch.Tensor, frames, gen: int):
+    """One-shot fixed-batch greedy serving (the encdec path): one batched
+    prefill into a cache of ``P + gen`` positions (the cross cache sized
+    P), then ``gen - 1`` greedy decode steps at one scalar position.
+    Returns (tokens (B, gen) on the host, the last logits, prefill
+    seconds, decode seconds)."""
+    B, P = prompts.shape
+    cache = model.init_cache(B, P + gen, enc_len=P)
+    prompts = prompts.to(model.device)
+    if frames is not None:
+        frames = frames.to(model.device)
+    t0 = time.perf_counter()
+    cache, logits = model.prefill(params, prompts, cache=cache, frames=frames)
+    _wait(logits)
+    t_prefill = time.perf_counter() - t0
+    tok = torch.argmax(logits, dim=-1)[:, None]
+    outs = [tok]
+    t0 = time.perf_counter()
+    for _ in range(gen - 1):
+        cache, logits = model.decode_step(params, cache, tok)
+        tok = torch.argmax(logits, dim=-1)[:, None]
+        outs.append(tok)
+    _wait(tok)
+    t_decode = time.perf_counter() - t0
+    return torch.cat(outs, dim=1).cpu().numpy(), logits, t_prefill, t_decode
+
+
+def _legacy_main(args, cfg, model, params) -> LegacyRun:
+    """The reference's ``_legacy_main``: generates exactly ``args.gen``
+    tokens a sequence (1 from the prefill logits + ``gen - 1`` decode
+    steps), and the rates divide by the matching counts."""
+    B, P = args.batch, args.prompt_len
+    prompts, frames = legacy_inputs(cfg, B, P)
+    gen, logits, t_prefill, t_decode = legacy_loop(model, params, prompts, frames,
+                                                   args.gen)
+    n_steps = args.gen - 1
+    if torch.isnan(logits).any():      # must survive `python -O`
+        raise RuntimeError("NaN logits")
+    print(f"prefill: {B}x{P} tokens in {t_prefill:.3f}s "
+          f"({B*P/t_prefill:.0f} tok/s, +1 sampled token/seq)")
+    if n_steps:
+        print(f"decode:  {n_steps} steps x {B} seqs in {t_decode:.3f}s "
+              f"({n_steps*B/t_decode:.1f} tok/s)")
+    print(f"total:   {args.gen} tokens/seq x {B} seqs")
+    print(f"sample ({gen.shape[1]} tokens):", gen[0, :16].tolist(),
+          "..." if gen.shape[1] > 16 else "")
+    return LegacyRun(prompts, frames, gen, logits, t_prefill, t_decode)
 
 
 def main(argv=None) -> ServeRun:
@@ -77,7 +174,8 @@ def main(argv=None) -> ServeRun:
                          "kernels and quantized-KV decode through the "
                          "flash-decode kernel")
     add_kv_quant_arg(ap)
-    ap.add_argument("--batch", type=int, default=4, help="engine slots")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="engine slots (legacy: fixed batch size)")
     ap.add_argument("--requests", type=int, default=0,
                     help="requests to serve (default: 2x slots)")
     ap.add_argument("--prompt-len", type=int, default=64)
@@ -104,16 +202,25 @@ def main(argv=None) -> ServeRun:
     ap.add_argument("--n-pages", type=int, default=0,
                     help="page pool size (--paged; 0 = dense-equivalent "
                          "capacity + headroom)")
+    ap.add_argument("--legacy", action="store_true",
+                    help="one-shot fixed-batch greedy loop (no engine)")
     args = ap.parse_args(argv)
 
     cfg = ARCHS[args.arch]
     if args.smoke:
         cfg = smoke_cfg(cfg)
+    legacy = args.legacy or cfg.family == "encdec"
+    if args.paged and legacy:
+        ap.error("--paged needs the engine path (not --legacy / encdec)")
     if args.paged and cfg.family not in ("dense", "moe"):
         ap.error(f"--paged supports dense/moe families, not {cfg.family}")
     rcfg = RunConfig(remat="none")
     policy = QuantPolicy.from_string(args.quant)
     kv_spec = resolve_kv_spec(args.kv_quant, policy)
+    if kv_spec is not None and cfg.family == "encdec":
+        print("(encdec: quantized KV cache unsupported on the legacy "
+              "one-shot path; serving with a bf16 cache)")
+        kv_spec = None
     model = build_model(cfg, rcfg, device=args.device,
                         use_kernel=args.use_kernel, kv_spec=kv_spec)
     params = model.init(0, policy=policy)
@@ -132,6 +239,23 @@ def main(argv=None) -> ServeRun:
               f"bf16 {kv_b['code_bytes'] / 2**10:.1f} KiB "
               f"({kv_b['code_bytes'] / kv_q['code_bytes']:.1f}x less decode "
               f"memory traffic)")
+
+    if legacy:
+        if not args.legacy:
+            print("(encdec: engine unsupported, using one-shot path)")
+        ignored = [f for f, on in (
+            ("--temperature", args.temperature != 0.0),
+            ("--top-k", args.top_k != 0),
+            ("--requests", args.requests != 0),
+            ("--arrival-gap", args.arrival_gap != 0.0),
+            ("--prompt-bucket", args.prompt_bucket > 1),
+            ("--eos-id", args.eos_id >= 0),
+            ("--chunk", args.chunk != 8)) if on]
+        if ignored:
+            print(f"(legacy path is greedy fixed-batch; ignoring "
+                  f"{', '.join(ignored)})")
+        return ServeRun(model, params, None, [], [],
+                        legacy=_legacy_main(args, cfg, model, params))
 
     P, G = args.prompt_len, args.gen
     n_req = args.requests or 2 * args.batch

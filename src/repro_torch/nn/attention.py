@@ -19,8 +19,11 @@ Port of the dense, single-device paths of ``repro/nn/attention.py``:
   fallback; the batch-1 admission prefill attends [shared prefix ;
   suffix] with ``bias_offset`` = prefix length and writes the suffix's
   codes through the slot's table row.
+* cross-attention (the encdec decoder) — q from x with no rotary; K/V
+  from the encoder states ``xa`` (non-causal flash attention over them),
+  or at decode from a static cross cache that is read and never written.
 
-Tensor-parallel modes and cross-attention are later slices.
+Tensor-parallel modes are a later slice.
 """
 from __future__ import annotations
 
@@ -170,9 +173,32 @@ def attn_shapes(cfg) -> dict:
             "wo": (H * Dh, (d,))}
 
 
+def _cross_attn(p: dict, q: torch.Tensor, cfg, rcfg, *, xa, cache,
+                kernels: Optional[KernelSet]):
+    """Cross-attention of q (B, Sq, G, R, Dh), no rotary anywhere: over the
+    encoder states ``xa`` (K/V through the weights, non-causal; new_kv the
+    grouped (B, Se, G, Dh) K/V), or over the static cross cache {"k_static",
+    "v_static": (B, G, Se, Dh), "len"} for one token (new_kv None)."""
+    if xa is None:
+        if q.shape[1] != 1:
+            raise ValueError(f"the static cross cache serves one token, got {q.shape[1]}")
+        y = decode_attention(q, cache["k_static"], cache["v_static"], cache["len"])
+        return y, None
+    B, Se = xa.shape[:2]
+    G, Dh = q.shape[2], q.shape[4]
+    k = matmul_param(xa, p["wk"], kernels=kernels).reshape(B, Se, G, Dh)
+    v = matmul_param(xa, p["wv"], kernels=kernels).reshape(B, Se, G, Dh)
+    if cfg.qk_norm:
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    y = flash_attention(q, k, v, causal=False, q_chunk=rcfg.attn_q_chunk,
+                        kv_chunk=rcfg.attn_kv_chunk)
+    return y, {"k": k, "v": v}
+
+
 def attn_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
                  positions: torch.Tensor, causal: bool = True,
                  cache: Optional[dict] = None, cache_pos=None,
+                 xa: Optional[torch.Tensor] = None,
                  kernels: Optional[KernelSet] = None, kv_spec=None,
                  kv_scales: Optional[dict] = None,
                  pages: Optional[torch.Tensor] = None,
@@ -193,6 +219,9 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
     (batch 1); the suffix attends to the ``prefix_len`` tokens already
     resident in the row's pages and writes its own codes through the row.
     Both update the pool in place and return it as new_kv.
+
+    Cross-attention: ``xa`` (B, Se, d) encoder states, or a ``cache``
+    holding "k_static", "v_static" and "len" (``_cross_attn``).
     """
     B, Sq, _ = x.shape
     Dh = cfg.d_head
@@ -202,6 +231,9 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
     q = matmul_param(x, p["wq"], kernels=kernels).reshape(B, Sq, G, R, Dh)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+    if xa is not None or (cache is not None and "k_static" in cache):
+        y, new_kv = _cross_attn(p, q, cfg, rcfg, xa=xa, cache=cache, kernels=kernels)
+        return _out_proj(p, y, x, kernels), new_kv
     cos, sin = rotary_cos_sin(positions, Dh, cfg.rope_theta)
     q = apply_rotary(q.reshape(B, Sq, H, Dh), cos, sin).reshape(B, Sq, G, R, Dh)
     k = matmul_param(x, p["wk"], kernels=kernels).reshape(B, Sq, G, Dh)
@@ -294,5 +326,11 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
             new_kv = {"k": k, "v": v}
         y = flash_attention(q, k, v, causal=causal, q_chunk=rcfg.attn_q_chunk,
                             kv_chunk=rcfg.attn_kv_chunk)
-    y = y.reshape(B, Sq, H * Dh).to(x.dtype)
-    return matmul_param(y, p["wo"], kernels=kernels), new_kv
+    return _out_proj(p, y, x, kernels), new_kv
+
+
+def _out_proj(p: dict, y: torch.Tensor, x: torch.Tensor,
+              kernels: Optional[KernelSet]) -> torch.Tensor:
+    """Heads (B, Sq, G, R, Dh) -> (B, Sq, H * Dh) in x's dtype, through wo."""
+    y = y.reshape(*x.shape[:2], -1).to(x.dtype)
+    return matmul_param(y, p["wo"], kernels=kernels)

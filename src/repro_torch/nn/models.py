@@ -1,10 +1,10 @@
 """Model facade: one ``LM`` per (ModelConfig, RunConfig, device).
 
-Port of the serving surface of ``repro/nn/models.py`` for the families
-dense, moe, ssm and hybrid: ``init`` (per-layer parameters, quantized leaf
-by leaf as they are made), ``init_cache``, ``prefill(length=)``,
-``decode_step``, plus ``apply_policy``, ``kv_decode_bytes_per_token`` and
-``build_model``.
+Port of the serving surface of ``repro/nn/models.py`` for every family
+the reference serves (dense, moe, ssm, hybrid and encdec): ``init``
+(per-layer parameters, quantized leaf by leaf as they are made),
+``init_cache``, ``prefill(length=, frames=)``, ``decode_step``, plus
+``apply_policy``, ``kv_decode_bytes_per_token`` and ``build_model``.
 
 Parameters are nested dicts like the reference's tree, except that
 ``blocks`` is a list with one dict per layer, in execution order, instead
@@ -24,7 +24,14 @@ family (zamba2: mamba2 layers, and ONE shared attention + MLP block,
 ``params["shared"]``, run before each chunk of ``attn_every`` layers) adds
 "shared_kv", one KV cache of the kv layout per chunk, (n_chunks, B, G, S,
 Dh). Both refuse a right-padded prefill and the paged cache, as the
-reference does. The paged cache
+reference does. The encdec family (whisper) adds the encoder:
+``enc_blocks`` (a list of dense blocks, run non-causally over the frame
+positions) and ``enc_ln``; its decoder layers add "ln_x" and "xattn"
+(leaves named "enc_blocks/..." and "blocks/xattn/..."). Its cache adds
+"cross" ({"k", "v": (L, B, G, enc_len, Dh)}, bf16, filled once by the
+prefill from the encoder states) and "xlen" (the encoder length); it takes
+no quantized KV cache, no paged cache and no engine: the one-shot loop of
+``launch.serve`` serves it. The paged cache
 (``init_paged_cache``, ``prefill_paged``) replaces the batch and sequence
 axes by one pool of pages: {"pos": (B,), "pages": (B, max_pages) int32
 block tables, "kv": {"k", "v": (L, n_pages, G, ps, Dh)[, "k_scale",
@@ -127,10 +134,6 @@ class LM:
     kernel_set: KernelSet = KERNELS
 
     def __post_init__(self):
-        if self.cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-            raise NotImplementedError(
-                f"family {self.cfg.family!r} is not ported yet (ROADMAP A9); "
-                "the port serves the dense, moe, ssm and hybrid families")
         if self.cfg.tie_embeddings:
             raise NotImplementedError("tied embeddings are not ported yet")
         self.device = resolve_device(self.device)
@@ -192,13 +195,19 @@ class LM:
             return _apply_rule(name, torch.ones((n,), dtype=dt, device=dev),
                                policy)
 
-        def block(pre, moe):
-            blk = {"ln1": ones(f"{pre}ln1", d), "ln2": ones(f"{pre}ln2", d),
-                   "attn": {n: dense(f"{pre}attn/{n}", i, o)
-                            for n, (i, o) in attn_shapes(cfg).items()}}
+        def attn(pre):
+            a = {n: dense(f"{pre}{n}", i, o) for n, (i, o) in attn_shapes(cfg).items()}
             if cfg.qk_norm:
-                blk["attn"]["q_norm"] = ones(f"{pre}attn/q_norm", cfg.d_head)
-                blk["attn"]["k_norm"] = ones(f"{pre}attn/k_norm", cfg.d_head)
+                a["q_norm"] = ones(f"{pre}q_norm", cfg.d_head)
+                a["k_norm"] = ones(f"{pre}k_norm", cfg.d_head)
+            return a
+
+        def block(pre, moe=False, cross=False):
+            blk = {"ln1": ones(f"{pre}ln1", d), "ln2": ones(f"{pre}ln2", d),
+                   "attn": attn(f"{pre}attn/")}
+            if cross:
+                blk["ln_x"] = ones(f"{pre}ln_x", d)
+                blk["xattn"] = attn(f"{pre}xattn/")
             if not moe:
                 blk["mlp"] = {n: dense(f"{pre}mlp/{n}", i, o)
                               for n, (i, o) in mlp_shapes(d, cfg.d_ff, cfg.act).items()}
@@ -227,16 +236,21 @@ class LM:
                                        rule=rule, prefix="blocks/mix/")}
                 for _ in range(cfg.n_layers)]
             if cfg.family == "hybrid":
-                params["shared"] = block("shared/", False)
+                params["shared"] = block("shared/")
             return params
         if cfg.family == "dense":
-            params["blocks"] = [block("blocks/", False) for _ in range(cfg.n_layers)]
+            params["blocks"] = [block("blocks/") for _ in range(cfg.n_layers)]
+            return params
+        if cfg.family == "encdec":
+            params["enc_blocks"] = [block("enc_blocks/") for _ in range(cfg.n_enc_layers)]
+            params["enc_ln"] = ones("enc_ln", d)
+            params["blocks"] = [block("blocks/", cross=True) for _ in range(cfg.n_layers)]
             return params
         # moe: each group runs its moe_every - 1 dense layers, then its MoE layer
         blocks = []
         for _ in range(self.n_groups):
-            blocks += [block("blocks/dense/", False) for _ in range(cfg.moe_every - 1)]
-            blocks.append(block("blocks/moe/", True))
+            blocks += [block("blocks/dense/") for _ in range(cfg.moe_every - 1)]
+            blocks.append(block("blocks/moe/", moe=True))
         params["blocks"] = blocks
         return params
 
@@ -258,16 +272,25 @@ class LM:
         return {"k": torch.zeros(shape, dtype=kdt, device=dev),
                 "v": torch.zeros(shape, dtype=kdt, device=dev)}
 
-    def init_cache(self, batch: int, max_len: int,
+    def init_cache(self, batch: int, max_len: int, enc_len: Optional[int] = None,
                    kv_spec="auto") -> Dict[str, Any]:
-        """Zero decode cache; ``kv_spec`` overrides the format for
+        """Zero decode cache; ``enc_len`` sizes the encdec cross-attention
+        cache (default ``max_len``); ``kv_spec`` overrides the format for
         allocation only (prefill/decode_step reject a mismatched cache)."""
         spec = self.kv_spec if kv_spec == "auto" else validate_kv_spec(kv_spec)
         cfg = self.cfg
+        if spec is not None and cfg.family == "encdec":
+            raise ValueError(
+                "quantized KV cache is not supported for encdec: the "
+                "legacy one-shot path owns its cross-attention cache")
         cache: Dict[str, Any] = {"pos": torch.zeros((), dtype=torch.int32,
                                                     device=self.device)}
-        if cfg.family in ("dense", "moe"):
+        if cfg.family in ("dense", "moe", "encdec"):
             cache["kv"] = self._kv_cache(batch, max_len, spec, cfg.n_layers)
+            if cfg.family == "encdec":
+                cache["cross"] = self._kv_cache(batch, enc_len or max_len, None,
+                                                cfg.n_layers)
+                cache["xlen"] = torch.zeros((), dtype=torch.int32, device=self.device)
             return cache
         cache["ssm"] = ssm.mamba_init_cache(cfg, cfg.n_layers, batch, self.device)
         if cfg.family == "hybrid":
@@ -305,7 +328,8 @@ class LM:
                 f"paged KV cache supports attention-only families "
                 f"(dense/moe), not {self.cfg.family!r}: SSM recurrent "
                 "state is O(1) per sequence (nothing to page) and cannot "
-                "be position-shared")
+                "be position-shared, and encdec serves on the legacy "
+                "one-shot path")
 
     def init_paged_cache(self, batch: int, max_len: int, *, n_pages: int,
                          page_size: int) -> Dict[str, Any]:
@@ -368,6 +392,9 @@ class LM:
         return cache, logits
 
     def _check_cache_layout(self, cache) -> None:
+        if self.cfg.family == "encdec" and "cross" not in cache:
+            raise ValueError("an encdec cache holds the cross-attention "
+                             "cache too (init_cache(enc_len=...))")
         kv = cache.get("kv", cache.get("shared_kv"))
         if kv is None:                        # ssm: no attention, no KV
             return
@@ -394,8 +421,8 @@ class LM:
 
     @staticmethod
     def layer_cache(cache, i: int, group: str = "kv") -> Dict[str, torch.Tensor]:
-        """Views of layer ``i``'s leaves of ``cache[group]`` ("kv", "ssm"
-        or "shared_kv"; writes land in ``cache``)."""
+        """Views of layer ``i``'s leaves of ``cache[group]`` ("kv", "ssm",
+        "shared_kv" or "cross"; writes land in ``cache``)."""
         return {name: leaf[i] for name, leaf in cache[group].items()}
 
     def _mamba_layers(self, blocks, x, cache, first: int):
@@ -413,7 +440,9 @@ class LM:
     def _layers(self, params, x, cache, attn):
         """Every layer in execution order; ``attn(layer params, x, layer
         cache)`` runs an attention block (a decoder layer, or hybrid's
-        shared block with its chunk's cache)."""
+        shared block with its chunk's cache). An encdec layer's cache also
+        holds its cross cache, "xk" and "xv", and the encoder length "xlen"
+        (the reference's merged layer cache)."""
         fam = self.cfg.family
         if fam == "ssm":
             return self._mamba_layers(params["blocks"], x, cache, 0)
@@ -426,7 +455,11 @@ class LM:
                 first += size
             return x
         for i, lp in enumerate(params["blocks"]):
-            x = attn(lp, x, self.layer_cache(cache, i))
+            lc = self.layer_cache(cache, i)
+            if fam == "encdec":
+                xc = self.layer_cache(cache, i, "cross")
+                lc.update(xk=xc["k"], xv=xc["v"], xlen=cache["xlen"])
+            x = attn(lp, x, lc)
         return x
 
     # -- serving --------------------------------------------------------------
@@ -435,8 +468,34 @@ class LM:
         x = rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
         return matmul_param(x, params["unembed"], kernels=self.kernels)
 
+    def _encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+        """encdec: the encoder over (B, Se, d_model) frames, in the
+        activation dtype; rotary over the frame positions, no causal mask,
+        then ``enc_ln``."""
+        cfg, rcfg = self.cfg, self.rcfg
+        xa = frames.to(self.device).to(self.act_dtype)
+        B, Se, _ = xa.shape
+        positions = torch.arange(Se, device=self.device)[None, :].expand(B, Se)
+        for lp in params["enc_blocks"]:
+            xa, _ = T.dense_block_forward(lp, xa, cfg, rcfg, positions=positions,
+                                          causal=False, kernels=self.kernels)
+        return rmsnorm(xa, params["enc_ln"], cfg.norm_eps)
+
+    def _write_cross(self, lp, xa: torch.Tensor, lc) -> None:
+        """encdec: the layer's static cross cache from the encoder states.
+        The reference computes it through the plain datapath (its
+        ``matmul_param`` there takes no ``use_kernel``) even when its
+        prefill's cross-attention took the kernels; so does this."""
+        B, Se, _ = xa.shape
+        G, Dh = self.cfg.n_kv_heads, self.cfg.d_head
+        for name in ("k", "v"):
+            t = matmul_param(xa, lp["xattn"][f"w{name}"]).reshape(B, Se, G, Dh)
+            dst = lc[f"x{name}"]
+            dst[:, :, :Se] = t.transpose(1, 2).to(dst.dtype)
+
     @torch.no_grad()
-    def prefill(self, params, tokens: torch.Tensor, *, cache, length=None):
+    def prefill(self, params, tokens: torch.Tensor, *, cache, frames=None,
+                length=None):
         """Run the prompt, filling the cache. Returns (cache, last_logits).
 
         ``length`` (scalar or (B,)) marks the true prompt length when
@@ -444,7 +503,9 @@ class LM:
         ``length-1`` and ``cache["pos"]`` becomes the per-sequence length.
         The ssm and hybrid families refuse it: the pad tokens would run
         into the recurrent state. Their prefill starts from the states in
-        ``cache`` and writes the new ones in place.
+        ``cache`` and writes the new ones in place. The encdec family
+        encodes ``frames`` (B, Se, d_model) first, attends to them in every
+        decoder layer, fills the cross cache and sets ``xlen`` to Se.
         """
         cfg, rcfg = self.cfg, self.rcfg
         self._check_cache_layout(cache)
@@ -452,6 +513,11 @@ class LM:
             raise ValueError(
                 "bucketed prefill (length=) is attention-family only: "
                 "right-padding pollutes the SSM recurrent state")
+        xa = None
+        if cfg.family == "encdec":
+            if frames is None:
+                raise ValueError("encdec prefill needs the encoder frames")
+            xa = self._encode(params, frames)
         tokens = tokens.to(self.device)
         B, Sq = tokens.shape
         positions = torch.arange(Sq, device=self.device)[None, :].expand(B, Sq)
@@ -459,11 +525,16 @@ class LM:
         quant = self.kv_spec is not None
 
         def attn(lp, x, lc):
-            scales = ({"k_scale": lc["k_scale"], "v_scale": lc["v_scale"]}
-                      if quant else None)
-            x, kv = T.block_forward(lp, x, cfg, rcfg, positions=positions,
-                                    kernels=self.kernels, kv_spec=self.kv_spec,
-                                    kv_scales=scales)
+            if xa is not None:
+                x, kv = T.decoder_xblock_forward(lp, x, cfg, rcfg, positions=positions,
+                                                 xa=xa, kernels=self.kernels)
+                self._write_cross(lp, xa, lc)
+            else:
+                scales = ({"k_scale": lc["k_scale"], "v_scale": lc["v_scale"]}
+                          if quant else None)
+                x, kv = T.block_forward(lp, x, cfg, rcfg, positions=positions,
+                                        kernels=self.kernels, kv_spec=self.kv_spec,
+                                        kv_scales=scales)
             for name in ("k", "v"):
                 dst = lc[name]
                 dst[:, :, :Sq] = kv[name].transpose(1, 2).to(dst.dtype)
@@ -479,6 +550,9 @@ class LM:
             last = x[torch.arange(B, device=self.device), pos.long() - 1]
         logits = self._logits(params, last)
         cache = dict(cache, pos=pos)
+        if xa is not None:
+            cache["xlen"] = torch.tensor(xa.shape[1], dtype=torch.int32,
+                                         device=self.device)
         return cache, logits
 
     @torch.no_grad()
@@ -489,7 +563,9 @@ class LM:
         positions, the KV write and the attention mask follow it per slot.
         A paged cache (``"pages"`` in it) is read and written through its
         block tables. The layer caches (KV and recurrent states) are
-        updated in place; the returned dict carries ``pos + 1``.
+        updated in place; the returned dict carries ``pos + 1``. An encdec
+        layer's cross-attention reads its static cross cache, masked at
+        ``xlen``.
         """
         cfg, rcfg = self.cfg, self.rcfg
         self._check_cache_layout(cache)
@@ -505,6 +581,10 @@ class LM:
                      "page_size": self._paged_page_size(cache)}
 
         def attn(lp, x, lc):
+            if "xk" in lc:
+                return T.decoder_xblock_forward(lp, x, cfg, rcfg, positions=positions,
+                                                cache=lc, cache_pos=pos,
+                                                kernels=self.kernels)[0]
             return T.block_forward(lp, x, cfg, rcfg, positions=positions,
                                    cache=lc, cache_pos=pos, kernels=self.kernels,
                                    kv_spec=self.kv_spec, **paged)[0]

@@ -1,4 +1,4 @@
-"""Decoder blocks (dense, MoE and mamba) and the embedding lookup.
+"""Decoder blocks (dense, MoE, mamba and encdec) and the embedding lookup.
 
 Port of the serving parts of ``repro/nn/transformer.py``, one call per
 layer (the reference's ``lax.scan`` over layer-stacked leaves becomes a
@@ -7,6 +7,9 @@ loop over per-layer parameter dicts):
   dense — RMSNorm -> GQA attention -> RMSNorm -> MLP
   moe   — RMSNorm -> GQA attention -> RMSNorm -> MoE FFN
   mamba — RMSNorm -> mamba1 or mamba2 mixer ({"ln", "mix"})
+  encdec — the encoder block is the dense block run with causal=False;
+           the decoder block adds RMSNorm -> cross-attention ("ln_x",
+           "xattn") between the self-attention and the MLP
 
 ``block_forward`` calls the block that a layer's parameters name (an
 "moe" entry makes it an MoE block).
@@ -54,6 +57,31 @@ def block_forward(p: dict, x: torch.Tensor, cfg, rcfg, **kw):
     """The block that ``p`` names: MoE if it holds "moe", else dense."""
     fwd = moe_block_forward if "moe" in p else dense_block_forward
     return fwd(p, x, cfg, rcfg, **kw)
+
+
+def decoder_xblock_forward(p: dict, x: torch.Tensor, cfg, rcfg, *, positions,
+                           xa: Optional[torch.Tensor] = None, cache=None,
+                           cache_pos=None, kernels: Optional[KernelSet] = None):
+    """Whisper decoder block: self-attention (with its cache), then
+    cross-attention after ``ln_x``, then the MLP. Prefill passes the
+    encoder states ``xa``; decode passes ``cache`` = the layer's {"k", "v"}
+    and its static cross cache "xk", "xv" (B, G, Se, Dh) with its length
+    "xlen". Returns (x, the self-attention's new_kv)."""
+    self_cache = None if cache is None else {"k": cache["k"], "v": cache["v"]}
+    x, new_kv = _attn_residual(p, x, cfg, rcfg, positions=positions,
+                               cache=self_cache, cache_pos=cache_pos,
+                               kernels=kernels)
+    xcache = None
+    if cache is not None and "xk" in cache:
+        xcache = {"k_static": cache["xk"], "v_static": cache["xv"],
+                  "len": cache["xlen"]}
+    h, _ = attn_forward(p["xattn"], rmsnorm(x, p["ln_x"], cfg.norm_eps), cfg,
+                        rcfg, positions=positions, xa=xa, cache=xcache,
+                        kernels=kernels)
+    x = x + h
+    x = x + mlp_forward(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.act,
+                        kernels=kernels)
+    return x, new_kv
 
 
 def mamba_block_forward(p: dict, x: torch.Tensor, cfg, *, cache=None,

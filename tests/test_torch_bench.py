@@ -52,6 +52,7 @@ def test_full_rows_on_cpu_at_reduced_shapes(monkeypatch, capsys):
     monkeypatch.setattr(kernels, "MOE_SHAPES_POFX", [(64, 40)])
     monkeypatch.setattr(kernels, "SSM_SHAPES_POFX", [(64, 40), (32, 72)])
     monkeypatch.setattr(kernels, "SSM_UNEMBEDS", [(64, 40)])
+    monkeypatch.setattr(kernels, "WHISPER_SHAPES_POFX", [(32, 40)])
     rows = kernels.run("cpu")
     names = [r["name"] for r in rows]
     # pofx_decode: 6 sweep rows, one (8, 2) row per weight shape, one (9, 2) row
@@ -61,9 +62,10 @@ def test_full_rows_on_cpu_at_reduced_shapes(monkeypatch, capsys):
     assert names.count("kv_flash_decode") == 4 + 2 + 2
     assert names.count("kv_flash_paged_decode") == 4 + 2 + 2
     # pofx_matmul: 2 sweep rows, m = 4, 64 per yi-9b shape, m = 1 unembed,
-    # m = 1, 4, 64 per moonshot shape, m = 4, 64 per ssm/hybrid shape and
-    # m = 1 per ssm/hybrid unembed
-    assert names.count("pofx_matmul") == 2 + 4 + 1 + 3 + 4 + 1
+    # m = 1, 4, 64 per moonshot shape, m = 4, 64 per ssm/hybrid shape,
+    # m = 1 per ssm/hybrid unembed and m = 4, 256 per whisper shape
+    assert names.count("pofx_matmul") == 2 + 4 + 1 + 3 + 4 + 1 + 2
+    assert sum(r["shape"] == "m=256 k=32 n=40 x=bf16" for r in rows) == 1
     assert sum("G=16 R=1" in r["shape"] for r in rows) == 4
     zamba_kv = [r for r in rows if "G=32 R=1" in r["shape"]]
     assert len(zamba_kv) == 4 and all("Dh=64" in r["shape"] for r in zamba_kv)

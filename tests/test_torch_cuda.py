@@ -95,6 +95,24 @@ def test_pofx_matmul_ssm_serving_shapes_match_plain(cuda, m, k, n):
         _assert_pofx_close(got[:, tail:], want[:, tail:])
 
 
+# whisper-medium's q/k/v/o, wi, wo and unembed at the one-shot prefill's m
+# = 256 (4 sequences x 64 positions: four 64-row m tiles on the grid's z
+# axis, each reading every code tile) and at decode's m = 4
+@pytest.mark.parametrize("k,n", [(1024, 1024), (1024, 4096), (4096, 1024), (1024, 51968)])
+@pytest.mark.parametrize("m", [4, 256])
+def test_pofx_matmul_whisper_shapes_match_plain(cuda, m, k, n):
+    x, codes, scale = _pofx_inputs(cuda, m, k, n, seed=m + k + n)
+    for xt in (x.to(torch.bfloat16), x):
+        before = LAUNCHES["pofx_matmul"]
+        got = pofx_matmul(xt, codes, scale, 8, 2)
+        assert LAUNCHES["pofx_matmul"] == before + 1 and got.shape == (m, n)
+        want = pofx_matmul_ref(xt, codes, scale, 8, 2)
+        _assert_pofx_close(got, want)
+        # each 64-row m tile on its own
+        for r in range(0, m, 64):
+            _assert_pofx_close(got[r:r + 64], want[r:r + 64])
+
+
 @pytest.mark.parametrize("k,n", [(1000, 777), (33, 5), (257, 66)])
 @pytest.mark.parametrize("m", [1, 4, 70])
 def test_pofx_matmul_ragged_shapes_match_plain(cuda, m, k, n):

@@ -137,6 +137,10 @@ def test_entry_points_refuse_cuda_without_a_card(monkeypatch):
 
 
 def test_other_families_are_not_silently_served():
-    """encdec (whisper) is the one family still to port (ROADMAP A9)."""
-    with pytest.raises(NotImplementedError, match="A9"):
-        build_model(smoke(ARCHS["whisper-medium"]), RunConfig(), device="cpu")
+    """encdec (whisper) builds, but the engine refuses it as the
+    reference's does: its encoder needs per-batch frames, which the
+    one-shot loop of the serving CLI supplies."""
+    from repro_torch.launch.engine import ServeEngine
+    m = build_model(smoke(ARCHS["whisper-medium"]), RunConfig(), device="cpu")
+    with pytest.raises(NotImplementedError, match="one-shot"):
+        ServeEngine(m, m.init(0), n_slots=2, max_len=16)

@@ -80,7 +80,8 @@ def reference_leaves(params):
     out = {}
     for path, leaf in flat:
         names = [str(getattr(k, "key", getattr(k, "name", k))) for k in path]
-        depth = (2 if "dense" in names else 1) if "blocks" in names else 0
+        stacked = "blocks" in names or "enc_blocks" in names
+        depth = (2 if "dense" in names else 1) if stacked else 0
         if isinstance(leaf, JQT):
             codes, scale = np.asarray(leaf.codes), np.asarray(leaf.scale)
             fmt = format_spec(leaf.spec)
