@@ -84,7 +84,23 @@ Phases, one line each, any failure exits non-zero without the final line:
    versions at f32 on the first 2 encoder and 2 decoder layers (identical
    streams); the loop repeated at full depth (identical tokens); a
    decode-step profile with the cross-attention (``attention._cross_attn``)
-   in a ``record_function`` range.
+   in a ``record_function`` range;
+13. training, yi-9b full width: the training CLI (``python -m
+   repro_torch.launch.train --arch yi-9b --opt-quant posit8``, 48 layers,
+   batch 8 x 128 tokens, bf16 weights, block remat) in a process of its
+   own: finite losses and grad norms, step ms, tokens/s, the model-FLOP
+   share of the bf16 peak, peak device memory and a profiled step split
+   into forward, backward and optimizer; f32 moments at 16 layers (three
+   steps on one batch: the loss falls; microbatch 2 against 1); at 2
+   layers and f32, ``LM.loss`` gradients through the flash backward
+   against autograd through a materialized softmax, and the flash forward
+   and backward at bf16 against ``scaled_dot_product_attention``; at 2
+   layers with posit8 moments an async checkpoint at step 1 restored into
+   a fresh state (equal leaf for leaf) and the resumed step 2's loss equal
+   to the uninterrupted run's bit for bit, after two uninterrupted runs
+   show whether the card's step is deterministic. The in-process parts
+   launch none of the port's kernels (the reference runs no Pallas kernel
+   in training).
 
 Before torch is imported, the CUDA driver is asked to start in a process of
 its own (``wait_for_card``): a freshly booted host may refuse for a while
@@ -101,6 +117,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1188,10 +1207,243 @@ def phase_encdec(torch, result):
     return counts
 
 
+# phase 13: the CLI at full width and depth (its last step profiled, so
+# steps 1-3 are timed bare), f32 moments at 16 layers, oracles and the
+# checkpoint round trip at 2
+TRAIN_ARGV = ["--arch", "yi-9b", "--opt-quant", "posit8", "--steps", "5",
+              "--log-every", "1", "--profile"]
+TRAIN_F32_LAYERS, TRAIN_SMALL_LAYERS = 16, 2
+BF16_PEAK = 989e12        # dense bf16 FLOP/s of one H100 SXM (data sheet)
+GRAD_RTOL = 1e-4          # LM.loss gradients, flash vs materialized softmax, f32
+SDPA_RTOL = 2e-2          # flash vs SDPA at bf16, of each output's largest value
+MICRO_ATOL = 5e-3         # microbatch 2 vs 1 loss (the reference's test's bound)
+
+
+def naive_attention(torch, q, k, v, *, causal, q_chunk, kv_chunk, bias_offset=0):
+    """Attention through a materialized softmax (autograd's own backward):
+    the oracle for the flash Function."""
+    Dh, Sq, Skv = q.shape[-1], q.shape[1], k.shape[1]
+    s = torch.einsum("bqgrd,bkgd->bgrqk", q.float(), k.float()) * Dh ** -0.5
+    if causal:
+        keep = (torch.arange(Skv, device=q.device)[None, :]
+                <= bias_offset + torch.arange(Sq, device=q.device)[:, None])
+        s = s.masked_fill(~keep, float("-inf"))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bgrqk,bkgd->bqgrd", p, v.float()).to(q.dtype)
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| over max |b|, in f32."""
+    a, b = a.float(), b.float()
+    return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+
+
+def train_cli(torch, result):
+    """Phase 13 part 1: the training CLI in a process of its own (its own
+    CUDA context; this process's caches emptied first)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"  this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; "
+        f"python -m repro_torch.launch.train {' '.join(TRAIN_ARGV)}")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *TRAIN_ARGV],
+                          cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    for line in proc.stdout.splitlines():
+        if not line.startswith("train: "):
+            log(f"    {line}")
+    if proc.returncode:
+        raise AssertionError(f"the training CLI exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    run = json.loads(next(l for l in proc.stdout.splitlines() if l.startswith("train: "))[7:])
+    from repro_torch.configs import ARCHS
+    cfg = ARCHS["yi-9b"]
+    n_params = cfg.param_count()
+    losses, gnorms = run["loss"], run["grad_norm"]
+    if run["steps"] != list(range(5)) or not all(map(math.isfinite, losses + gnorms)):
+        raise AssertionError(f"training CLI: steps {run['steps']}, losses {losses}, "
+                             f"grad norms {gnorms}")
+    step_s = sorted(run["step_s"][1:4])[1]
+    flops = 8 * n_params * run["tokens_per_step"]       # forward, remat's forward, backward
+    entry = {"argv": TRAIN_ARGV, "n_layers": cfg.n_layers, "params": n_params,
+             "loss": losses, "grad_norm": gnorms, "step_s": run["step_s"],
+             "median_step_ms": step_s * 1e3, "tokens_per_s": run["tokens_per_step"] / step_s,
+             "model_flop_share": flops / step_s / BF16_PEAK,
+             "peak_gib": run["peak_bytes"] / 2**30, "profile": run.get("profile"),
+             "init_s": run["init_s"], "process_s": wall}
+    log(f"  yi-9b {cfg.n_layers} layers, {n_params / 1e9:.2f} B params, posit8 moments: "
+        f"step {entry['median_step_ms']:.1f} ms (median of steps 1-3), "
+        f"{entry['tokens_per_s']:.1f} tokens/s, model-FLOP share "
+        f"{100 * entry['model_flop_share']:.2f} % of {BF16_PEAK / 1e12:.0f} TFLOP/s, peak "
+        f"{entry['peak_gib']:.2f} GiB; losses {[round(x, 4) for x in losses]}; init "
+        f"{run['init_s']:.1f} s, the process {wall:.1f} s")
+    result["train_cli"] = entry
+
+
+def phase_train(torch, result):
+    """Phase 13: training. Part 1 is the CLI in its own process; parts 2-4
+    run here and must launch none of the port's kernels."""
+    import repro_torch.nn.attention as attn_mod
+    import torch.nn.functional as F
+    from repro_torch.configs import ARCHS, RunConfig
+    from repro_torch.core.policy import named_leaves
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.launch.train import make_train_state, make_train_step, value_and_grad
+    from repro_torch.nn.models import build_model
+    from repro_torch.optim import tree_leaves
+    from repro_torch.runtime import CheckpointManager
+
+    train_cli(torch, result)
+    entry = result["train_cli"]
+    before = dict(LAUNCHES)
+    base = ARCHS["yi-9b"]
+    dc = DataConfig(vocab_size=base.vocab_size, seq_len=128, global_batch=8)
+    batch0 = synthetic_batch(dc, 0)
+    # lr 1e-5: the reference's test takes 1e-3 at d_model 128. Adam's first
+    # steps move every weight by ~lr whatever its gradient; at d_model 4096
+    # (init scale 4096^-0.5 = 0.016) 1e-3 makes the loss rise and 1e-4
+    # overshoots within three steps on one batch
+    run_kw = dict(learning_rate=1e-5, total_steps=10, warmup_steps=1, remat="block")
+
+    # 2. f32 moments at 16 layers: three steps on one batch, microbatch 2 vs 1
+    cfg = dataclasses.replace(base, n_layers=TRAIN_F32_LAYERS)
+    model = build_model(cfg, RunConfig(**run_kw), device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    state = make_train_state(model, 0)
+    step = make_train_step(model)
+    metrics = [step(state, batch0)[1] for _ in range(3)]
+    losses = [float(m["loss"]) for m in metrics]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del state
+    torch.cuda.empty_cache()
+    micro = dataclasses.replace(model, rcfg=RunConfig(microbatch=2, **run_kw))
+    m2 = make_train_step(micro)(make_train_state(micro, 0), batch0)[1]
+    loss2, gn1, gn2 = float(m2["loss"]), float(metrics[0]["grad_norm"]), float(m2["grad_norm"])
+    torch.cuda.empty_cache()
+    log(f"  f32 moments, {cfg.n_layers} layers ({cfg.param_count() / 1e9:.2f} B params): "
+        f"losses {losses} on one batch, peak {peak:.2f} GiB; microbatch 2: loss {loss2:.5f} "
+        f"vs {losses[0]:.5f}, grad norm {gn2:.4f} vs {gn1:.4f}")
+    entry["f32_moments"] = {"n_layers": cfg.n_layers, "losses": losses, "peak_gib": peak,
+                            "microbatch2_loss": loss2, "grad_norm": [gn1, gn2]}
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"f32-moment losses do not fall: {losses}")
+    if abs(loss2 - losses[0]) > MICRO_ATOL:
+        raise AssertionError(f"microbatch 2 loss {loss2} vs {losses[0]}")
+    del model, micro, metrics, m2
+
+    # 3. gradients against oracles: LM.loss at f32 (2 layers), flash vs SDPA at bf16
+    cfg = dataclasses.replace(base, n_layers=TRAIN_SMALL_LAYERS)
+    model = build_model(cfg, RunConfig(weight_dtype="f32", activation_dtype="f32", **run_kw),
+                        device="cuda")
+    params = model.init(0)
+    names = [n for n, _ in named_leaves(params)]
+    loss_f, g_flash = value_and_grad(model, params, batch0)
+    flash = attn_mod.flash_attention
+    attn_mod.flash_attention = lambda *a, **kw: naive_attention(torch, *a, **kw)
+    try:
+        loss_n, g_naive = value_and_grad(model, params, batch0)
+    finally:
+        attn_mod.flash_attention = flash
+    errs = {}
+    for name, a, b in zip(names, g_flash, g_naive):
+        errs[name] = max(errs.get(name, 0.0), rel_err(a, b))
+    worst = max(errs.values())
+    log(f"  LM.loss gradients, flash Function vs materialized softmax ({cfg.n_layers} layers, "
+        f"f32): loss {float(loss_f):.6f} vs {float(loss_n):.6f}, max relative error "
+        f"{worst:.3g} (bound {GRAD_RTOL}) over {len(errs)} leaves")
+    entry["grad_oracle"] = {"max_rel_err": worst, "per_leaf": errs}
+    if not worst <= GRAD_RTOL:
+        raise AssertionError(f"flash gradients off the oracle: {errs}")
+    del params, g_flash, g_naive, model
+    sdpa = {}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for B, S in ((8, 128), (1, 2048)):
+        G, R, Dh = base.n_kv_heads, base.n_heads // base.n_kv_heads, base.d_head
+        mk = lambda *shape: torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+        q, k, v, do = mk(B, S, G, R, Dh), mk(B, S, G, Dh), mk(B, S, G, Dh), mk(B, S, G, R, Dh)
+        outs = []
+        for fn in ("flash", "sdpa"):
+            qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+            if fn == "flash":
+                o = attn_mod.flash_attention(qq, kk, vv, causal=True, q_chunk=1024,
+                                             kv_chunk=1024)
+            else:
+                o = F.scaled_dot_product_attention(
+                    qq.reshape(B, S, G * R, Dh).transpose(1, 2),
+                    kk.repeat_interleave(R, dim=2).transpose(1, 2),
+                    vv.repeat_interleave(R, dim=2).transpose(1, 2),
+                    is_causal=True).transpose(1, 2).reshape(B, S, G, R, Dh)
+            o.backward(do)
+            outs.append((o.detach(), qq.grad, kk.grad, vv.grad))
+        errs = {n: rel_err(a, b) for n, a, b in zip(("out", "dq", "dk", "dv"), *outs)}
+        sdpa[f"B={B} S={S}"] = errs
+        log(f"  flash vs SDPA at bf16 (B={B}, S={S}, G={G}, R={R}, causal): "
+            f"{', '.join(f'{n} {e:.3g}' for n, e in errs.items())} (bound {SDPA_RTOL})")
+        if max(errs.values()) > SDPA_RTOL:
+            raise AssertionError(f"flash off SDPA at B={B} S={S}: {errs}")
+    entry["flash_vs_sdpa"] = sdpa
+
+    # 4. checkpoint resume at 2 layers, posit8 moments (bf16 weights)
+    model = build_model(cfg, RunConfig(opt_state_quant="posit8", **run_kw), device="cuda")
+    step = make_train_step(model)
+    ckpt = ROOT / "build" / "phase13_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    mgr = CheckpointManager(str(ckpt), keep=2, async_save=True)
+
+    def run(save=False):
+        state, losses, snap = make_train_state(model, 0), [], None
+        for i in range(3):
+            state, m = step(state, synthetic_batch(dc, i))
+            losses.append(m["loss"])
+            if save and i == 1:
+                mgr.save(i, state)
+                snap = [t.clone() for t in state_tensors(state)]
+        return losses, snap
+
+    def state_tensors(state):
+        out = []
+        for leaf in tree_leaves(state["params"]) + tree_leaves(state["opt"]["m"]) \
+                + tree_leaves(state["opt"]["v"]) + [state["opt"]["count"]]:
+            out += [leaf.codes, leaf.scale] if hasattr(leaf, "codes") else [leaf]
+        return out
+
+    try:
+        losses_a, snap = run(save=True)
+        losses_c, _ = run()
+        deterministic = all(torch.equal(a, c) for a, c in zip(losses_a, losses_c))
+        restored = mgr.restore(make_train_state(model, 1), 1)
+        same_leaves = sum(torch.equal(a, b) for a, b in zip(state_tensors(restored), snap))
+        _, m = step(restored, synthetic_batch(dc, 2))
+        resumed_equal = torch.equal(m["loss"], losses_a[2])
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    log(f"  checkpoint ({cfg.n_layers} layers, posit8 moments): two uninterrupted runs "
+        f"{'agree bit for bit' if deterministic else 'DIFFER'} "
+        f"({[float(x) for x in losses_a]} vs {[float(x) for x in losses_c]}); restored "
+        f"{same_leaves}/{len(snap)} tensors equal to the saved state; resumed step 2 loss "
+        f"{float(m['loss']):.6f} vs {float(losses_a[2]):.6f} (bit-equal: {resumed_equal})")
+    entry["checkpoint"] = {"deterministic": deterministic, "equal_tensors": same_leaves,
+                           "tensors": len(snap), "resumed_bit_equal": resumed_equal}
+    if not deterministic:
+        raise AssertionError("two uninterrupted training runs differ on the card")
+    if same_leaves != len(snap) or not resumed_equal:
+        raise AssertionError("the checkpoint round trip is not exact")
+
+    # 5. no kernel of the port on the training path
+    after = dict(LAUNCHES)
+    log(f"  launches in the in-process parts: {({k: after[k] - before[k] for k in after})}")
+    if after != before:
+        raise AssertionError(f"training launched the port's kernels: {before} -> {after}")
+    del model, restored
+    torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="drive the port on one card")
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated phases after the build (default: all)")
     want = {int(p) for p in ap.parse_args(argv).phases.split(",")}
     state = wait_for_card()
@@ -1259,6 +1511,8 @@ def main(argv) -> int:
          lambda: phase_ssm(torch, result, *SSM_ARCHS[11])),
         ("phase 12: encdec serving, whisper-medium full width and depth",
          lambda: result.__setitem__("encdec_counts", phase_encdec(torch, result))),
+        ("phase 13: training, yi-9b full width",
+         lambda: phase_train(torch, result)),
     ]
     for label, fn in phases:
         if int(label.split()[1].rstrip(":")) not in want:
@@ -1282,7 +1536,7 @@ def main(argv) -> int:
     if failed:
         log(f"FAILED: {failed}")
         return 1
-    if want != set(range(2, 13)):
+    if want != set(range(2, 14)):
         log(f"ran phases {sorted(want)} only: no result line")
         return 1
     main_counts = result["main_counts"]

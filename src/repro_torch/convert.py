@@ -16,7 +16,21 @@ is not stacked and converts as it is. The encdec family's ``enc_blocks``
 carry their "ln_x" and "xattn" leaves along; ``enc_ln`` converts as it
 is. An (E, in, out) expert leaf stays whole, its codes and its scale
 shared by the experts as they are. bfloat16 arrays (numpy dtype name
-"bfloat16") are accepted as raw 16-bit patterns.
+"bfloat16", or 2-byte void arrays holding the bits) are accepted as raw
+16-bit patterns.
+
+The way back, ``params_to_numpy``, re-stacks every ``blocks`` and
+``enc_blocks`` list (and the moe family's {"moe", "dense"} groups) into
+the reference's layout, on the host. It takes a parameter tree or a whole
+train state {"params", "opt": {"m", "v", "count"}}: the moments under
+"opt" are stacked with ONE scale for each stacked leaf, since the
+reference quantizes each stacked moment leaf whole (the port's optimizer
+gives every layer of such a leaf the same scale). ``params_from_numpy``
+unstacks such a scale's size-1 layer axes back onto each layer, and
+``train_state_from_numpy`` takes the reference's train state (posit8
+moments as {"codes", "scale", "spec"} leaves) into the port's. bfloat16
+tensors leave as 2-byte void arrays holding their bits (the form the
+reference's ``np.save`` round-trips them through).
 """
 from __future__ import annotations
 
@@ -25,15 +39,23 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from repro_torch.core.policy import parse_spec
-from repro_torch.core.quantizers import QuantizedTensor
+from repro_torch.core.policy import format_spec, parse_spec
+from repro_torch.core.quantizers import QuantSpec, QuantizedTensor
 
-__all__ = ["params_from_numpy", "tensor_from_numpy"]
+__all__ = ["params_from_numpy", "params_to_numpy", "reference_layout",
+           "reference_structure", "tensor_from_numpy", "tensor_to_numpy",
+           "train_state_from_numpy"]
+
+_STACKED = ("blocks", "enc_blocks")
+
+
+def _is_bf16(a: np.ndarray) -> bool:
+    return a.dtype.name == "bfloat16" or (a.dtype.kind == "V" and a.dtype.itemsize == 2)
 
 
 def tensor_from_numpy(a: np.ndarray, device) -> torch.Tensor:
     a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
+    if _is_bf16(a):
         bits = np.array(a).view(np.uint16).astype(np.int16)
         return torch.from_numpy(bits).view(torch.bfloat16).to(device)
     return torch.from_numpy(np.array(a)).to(device)
@@ -43,17 +65,29 @@ def _is_qleaf(node) -> bool:
     return isinstance(node, dict) and set(node) == {"codes", "scale", "spec"}
 
 
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t``; bfloat16 as a 2-byte void array of its bits."""
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        return np.array(t.view(torch.int16).cpu().numpy()).view("V2")
+    return np.array(t.cpu().numpy())
+
+
 def _convert(node, device, layer=()):
-    """Convert one subtree; ``layer`` indexes the leading (stacked) axes."""
+    """Convert one subtree; ``layer`` indexes the leading (stacked) axes (a
+    size-1 stacked axis, a moment's one scale, is shared by every layer)."""
     def pick(a):
-        return np.asarray(a)[layer]
+        a = np.asarray(a)
+        return a[tuple(0 if a.shape[j] == 1 else i for j, i in enumerate(layer))]
     if _is_qleaf(node):
-        spec = parse_spec(node["spec"])
+        spec = node["spec"]
+        spec = spec if isinstance(spec, QuantSpec) else parse_spec(spec)
         return QuantizedTensor(tensor_from_numpy(pick(node["codes"]), device),
                                tensor_from_numpy(pick(node["scale"]), device),
                                spec)
     if isinstance(node, dict):
-        return {k: _convert(v, device, layer) for k, v in node.items()}
+        return {k: _blocks(v, device) if k in _STACKED and not layer
+                else _convert(v, device, layer) for k, v in node.items()}
     return tensor_from_numpy(pick(node), device)
 
 
@@ -80,7 +114,114 @@ def _blocks(node, device) -> List[Dict[str, Any]]:
 
 
 def params_from_numpy(tree: Dict[str, Any], *, device) -> Dict[str, Any]:
-    """The reference's parameter tree (numpy) -> the port's parameters."""
-    return {key: _blocks(node, device) if key in ("blocks", "enc_blocks")
-            else _convert(node, device)
-            for key, node in tree.items()}
+    """The reference's parameter tree (numpy) -> the port's parameters;
+    ``blocks``/``enc_blocks`` at any depth (a train state's moments too)
+    are unstacked."""
+    return _convert(tree, device)
+
+
+def train_state_from_numpy(tree: Dict[str, Any], *, device) -> Dict[str, Any]:
+    """The reference's train state {"params", "opt": {"m", "v", "count"}}
+    (numpy; posit8 moments as {"codes", "scale", "spec"} leaves) -> the
+    port's, on ``device``."""
+    if set(tree) - {"params", "opt", "ef"} or set(tree["opt"]) != {"m", "v", "count"}:
+        raise ValueError(f"not a train state: keys {sorted(tree)}, "
+                         f"opt {sorted(tree.get('opt', {}))}")
+    return params_from_numpy(tree, device=device)
+
+
+# -- the way back: the reference's stacked layout -------------------------
+
+
+def _moe_groups(layers):
+    """A per-layer list in execution order -> [(dense layers, MoE layer)]
+    per reference group, or None when no layer is an MoE layer."""
+    if not any("moe" in lp for lp in layers):
+        return None
+    groups, dense = [], []
+    for lp in layers:
+        if "moe" in lp:
+            groups.append((dense, lp))
+            dense = []
+        else:
+            dense.append(lp)
+    if dense:
+        raise ValueError("an moe blocks list must end with an MoE layer")
+    return groups
+
+
+def _host(x) -> np.ndarray:
+    return tensor_to_numpy(x) if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _stack(trees: List[Any], shared: bool):
+    """Stack same-structured subtrees on a new leading axis; with ``shared``
+    a QuantizedTensor keeps its one scale (it must be every layer's)."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees], shared) for k in first}
+    if isinstance(first, QuantizedTensor):
+        scales = [_host(t.scale) for t in trees]
+        if shared:
+            if any(not np.array_equal(sc, scales[0]) for sc in scales):
+                raise ValueError("moment layers of one stacked leaf must share their scale")
+            scale = scales[0][None]
+        else:
+            scale = np.stack(scales)
+        return QuantizedTensor(np.stack([_host(t.codes) for t in trees]), scale,
+                               first.spec)
+    return np.stack([_host(t) for t in trees])
+
+
+def _stack_layers(layers: List[Any], shared: bool):
+    groups = _moe_groups(layers)
+    if groups is None:
+        return _stack(layers, shared)
+    out = {"moe": _stack([moe for _, moe in groups], shared)}
+    if groups[0][0]:
+        out["dense"] = _stack([_stack(dense, shared) for dense, _ in groups], shared)
+    return out
+
+
+def reference_layout(tree, _path=()):
+    """The port's tree in the reference's stacked layout on the host:
+    numpy leaves, and QuantizedTensors holding numpy codes and scales."""
+    if isinstance(tree, dict):
+        return {k: reference_layout(v, _path + (k,)) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return _stack_layers(tree, shared=_path[:2] in (("opt", "m"), ("opt", "v")))
+    if isinstance(tree, QuantizedTensor):
+        return QuantizedTensor(_host(tree.codes), _host(tree.scale), tree.spec)
+    return _host(tree)
+
+
+def _as_qleaves(tree):
+    if isinstance(tree, dict):
+        return {k: _as_qleaves(v) for k, v in tree.items()}
+    if isinstance(tree, QuantizedTensor):
+        return {"codes": tree.codes, "scale": tree.scale, "spec": format_spec(tree.spec)}
+    return tree
+
+
+def params_to_numpy(tree) -> Dict[str, Any]:
+    """The inverse of ``params_from_numpy``: the port's parameters (or train
+    state) as the reference's nested numpy dicts, blocks re-stacked and a
+    QuantizedTensor as {"codes", "scale", "spec": format_spec string}."""
+    return _as_qleaves(reference_layout(tree))
+
+
+def reference_structure(tree) -> Any:
+    """The reference layout's structure without its data: nested dicts
+    whose leaves are the port's first leaf of each stacked leaf (so a
+    QuantizedTensor stays recognizable)."""
+    if isinstance(tree, dict):
+        return {k: reference_structure(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        groups = _moe_groups(tree)
+        if groups is None:
+            return reference_structure(tree[0])
+        out = {"moe": reference_structure(groups[0][1])}
+        if groups[0][0]:
+            out["dense"] = reference_structure(groups[0][0][0])
+        return out
+    return tree

@@ -3,7 +3,10 @@
 Port of ``repro/core/posit.py``: ``value = (-1)^s * (2^(2^ES))^k * 2^e *
 1.f`` with two's-complement negative codes, run-length regime, MSB-aligned
 zero-completed exponent, and NaR at ``10...0``. Codes are int32 tensors
-holding the raw N-bit pattern in [0, 2^N).
+holding the raw N-bit pattern in [0, 2^N). ``posit_decode_np`` and
+``posit_encode_np`` are the reference's float64 numpy codec (checkpoints
+store posit-packed leaves through them); they share the field extraction
+and the nearest-code search with the torch codec.
 """
 from __future__ import annotations
 
@@ -12,7 +15,8 @@ import functools
 import numpy as np
 import torch
 
-__all__ = ["NAR", "posit_decode", "posit_encode", "posit_value_table"]
+__all__ = ["NAR", "posit_decode", "posit_decode_np", "posit_encode",
+           "posit_encode_np", "posit_value_table"]
 
 
 def NAR(N: int) -> int:
@@ -71,6 +75,18 @@ def posit_decode(codes: torch.Tensor, N: int, ES: int) -> torch.Tensor:
     return torch.where(c == NAR(N), torch.full_like(val, float("nan")), val)
 
 
+def posit_decode_np(codes, N: int, ES: int) -> np.ndarray:
+    """Golden float64 decode of a numpy array. Zero -> 0.0, NaR -> NaN."""
+    _check_config(N, ES)
+    c = np.asarray(codes).astype(np.int64) & ((1 << N) - 1)
+    s, k, e, frac = (t.numpy().astype(np.int64) for t in
+                     _decode_fields(torch.from_numpy(c.astype(np.int32)), N, ES))
+    sig = 1.0 + frac.astype(np.float64) / float(1 << (N - 1))
+    val = np.where(s == 1, -1.0, 1.0) * np.exp2(((k << ES) + e).astype(np.float64)) * sig
+    val = np.where(c == 0, 0.0, val)
+    return np.where(c == NAR(N), np.nan, val)
+
+
 @functools.lru_cache(maxsize=64)
 def posit_value_table(N: int, ES: int) -> np.ndarray:
     """float64 values of the non-negative posit codes [0, 2^(N-1)):
@@ -86,15 +102,11 @@ def posit_value_table(N: int, ES: int) -> np.ndarray:
     return vals
 
 
-def posit_encode(x: torch.Tensor, N: int, ES: int,
-                 allow_zero: bool = True) -> torch.Tensor:
-    """Round float values to the nearest posit code (ties to the even code),
-    through a float32 value table (``searchsorted(right=False)`` is jnp's
-    default ``side="left"``)."""
-    _check_config(N, ES)
-    x = x.to(torch.float32)
-    table = torch.as_tensor(posit_value_table(N, ES), dtype=torch.float32,
-                            device=x.device)
+def _encode(x: torch.Tensor, table: torch.Tensor, N: int,
+            allow_zero: bool) -> torch.Tensor:
+    """Nearest code of ``x`` on the value ``table`` (ties to the even code;
+    ``searchsorted(right=False)`` is jnp's default ``side="left"``), in the
+    precision of ``x`` and ``table``."""
     a = x.abs()
     L = 1 << (N - 1)
     idx = torch.searchsorted(table, a, right=False).clamp(0, L - 1)
@@ -109,3 +121,23 @@ def posit_encode(x: torch.Tensor, N: int, ES: int,
     code = torch.where(x < 0, (-code) & ((1 << N) - 1), code)
     code = torch.where(a == 0, 0, code)
     return torch.where(torch.isnan(x), NAR(N), code).to(torch.int32)
+
+
+def posit_encode(x: torch.Tensor, N: int, ES: int,
+                 allow_zero: bool = True) -> torch.Tensor:
+    """Round float values to the nearest posit code (ties to the even code),
+    through a float32 value table."""
+    _check_config(N, ES)
+    x = x.to(torch.float32)
+    table = torch.as_tensor(posit_value_table(N, ES), dtype=torch.float32,
+                            device=x.device)
+    return _encode(x, table, N, allow_zero)
+
+
+def posit_encode_np(x, N: int, ES: int, allow_zero: bool = True) -> np.ndarray:
+    """Round float64 values to the nearest posit code (ties to the even
+    code), through the float64 value table; int32 codes."""
+    _check_config(N, ES)
+    xt = torch.from_numpy(np.asarray(x, dtype=np.float64))
+    table = torch.from_numpy(posit_value_table(N, ES))
+    return _encode(xt, table, N, allow_zero).numpy()

@@ -2,9 +2,15 @@
 
 Port of the dense, single-device paths of ``repro/nn/attention.py``:
 
-* prefill — ``flash_attention`` is plain torch with the reference's
-  ``_divisor_chunk`` q/kv-chunk structure (forward only), so kv-chunk
+* prefill and training — ``flash_attention`` is plain torch with the
+  reference's ``_divisor_chunk`` q/kv-chunk structure, so kv-chunk
   boundaries line up with the reference's (paged prefill relies on them).
+  When q, k or v needs a gradient it runs as ``_Flash``, a
+  ``torch.autograd.Function`` holding the reference's custom VJP: the
+  forward saves only q, k, v, out and the per-row log-sum-exp, and the
+  backward rebuilds each (q-chunk, kv-chunk) probability block from them
+  (``_flash_bwd``). Without a gradient the forward runs alone, with the
+  same arithmetic.
   With a quantized cache, K/V are fake-quantized through the cache grid
   before attending, so prefill attends to exactly what decode reads back
   (the evict -> re-prefill resume contract).
@@ -60,12 +66,13 @@ def _blk_scores(q_blk, k_blk, scale, causal, qi, kvc, bias_offset, kj):
     return s
 
 
-def _flash_fwd(causal, qc, kvc, bias_offset, q, k, v):
-    """Online-softmax forward. Returns out (B, Sq, G, R, Dh) in q's dtype."""
+def _flash_fwd(causal, qc, kvc, bias_offset, q, k, v, with_lse=False):
+    """Online-softmax forward. Returns out (B, Sq, G, R, Dh) in q's dtype,
+    and with ``with_lse`` also lse = m + log(max(l, 1e-30)), (B, G, R, Sq)."""
     B, Sq, G, R, Dh = q.shape
     Skv = k.shape[1]
     scale = Dh ** -0.5
-    outs = []
+    outs, lses = [], []
     for qi in range(0, Sq, qc):
         q_blk = q[:, qi:qi + qc]
         q_end = qi + qc + bias_offset
@@ -87,16 +94,80 @@ def _flash_fwd(causal, qc, kvc, bias_offset, q, k, v):
             m = m_new
         o = acc / l.clamp_min(1e-30)[..., None]
         outs.append(o.permute(0, 3, 1, 2, 4).to(q.dtype))
-    return torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+        if with_lse:
+            lses.append(m + torch.log(l.clamp_min(1e-30)))
+    out = torch.cat(outs, dim=1) if len(outs) > 1 else outs[0]
+    if not with_lse:
+        return out
+    return out, (torch.cat(lses, dim=-1) if len(lses) > 1 else lses[0])
+
+
+def _flash_bwd(causal, qc, kvc, bias_offset, q, k, v, out, lse, dout):
+    """The reference's ``_flash_bwd_rule``: P rebuilt per (q-chunk,
+    kv-chunk) block from lse, the same causal kv limit per q-chunk; dq, dk
+    and dv accumulate in f32 and return in the inputs' dtypes."""
+    f32 = torch.float32
+    B, Sq, G, R, Dh = q.shape
+    Skv = k.shape[1]
+    scale = Dh ** -0.5
+    delta = (dout.to(f32) * out.to(f32)).sum(dim=-1)       # (B, Sq, G, R)
+    delta = delta.permute(0, 2, 3, 1)                       # (B, G, R, Sq)
+    dk = torch.zeros(k.shape, dtype=f32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=f32, device=v.device)
+    dq_chunks = []
+    for qi in range(0, Sq, qc):
+        q_blk = q[:, qi:qi + qc]
+        do_blk = dout[:, qi:qi + qc].to(f32)
+        lse_blk = lse[..., qi:qi + qc]
+        dlt_blk = delta[..., qi:qi + qc]
+        q_end = qi + qc + bias_offset
+        kv_hi = Skv if not causal else min(Skv, ((q_end + kvc - 1) // kvc) * kvc)
+        dq_acc = torch.zeros((B, qc, G, R, Dh), dtype=f32, device=q.device)
+        for kj in range(kv_hi // kvc):
+            sl = slice(kj * kvc, (kj + 1) * kvc)
+            k_blk, v_blk = k[:, sl], v[:, sl]
+            s = _blk_scores(q_blk, k_blk, scale, causal, qi, kvc, bias_offset, kj)
+            p = torch.exp(s - lse_blk[..., None])           # (B, G, R, qc, kvc)
+            dv[:, sl] += torch.einsum("bgrqk,bqgrd->bkgd", p, do_blk)
+            dp = torch.einsum("bqgrd,bkgd->bgrqk", do_blk, v_blk.to(f32))
+            ds = p * (dp - dlt_blk[..., None]) * scale
+            dq_acc += torch.einsum("bgrqk,bkgd->bqgrd",
+                                   ds.to(k.dtype).to(f32), k_blk.to(f32))
+            dk[:, sl] += torch.einsum("bgrqk,bqgrd->bkgd",
+                                      ds.to(q.dtype).to(f32), q_blk.to(f32))
+        dq_chunks.append(dq_acc)
+    dq = torch.cat(dq_chunks, dim=1) if len(dq_chunks) > 1 else dq_chunks[0]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention with the recompute backward: saves q, k, v, out and
+    lse only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, qc, kvc, bias_offset):
+        out, lse = _flash_fwd(causal, qc, kvc, bias_offset, q, k, v, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.chunks = (causal, qc, kvc, bias_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        dq, dk, dv = _flash_bwd(*ctx.chunks, *ctx.saved_tensors, dout)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool, q_chunk: int, kv_chunk: int,
                     bias_offset: int = 0) -> torch.Tensor:
-    """Online-softmax chunked attention (forward). q: (B, Sq, G, R, Dh);
-    k/v: (B, Skv, G, Dh). Causal q-chunks visit kv-chunks up to the
-    diagonal only."""
+    """Online-softmax chunked attention with a flash (recompute) backward.
+    q: (B, Sq, G, R, Dh); k/v: (B, Skv, G, Dh). Causal q-chunks visit
+    kv-chunks up to the diagonal only; k positions lead q's by
+    ``bias_offset``."""
     qc = _divisor_chunk(q.shape[1], q_chunk)
     kvc = _divisor_chunk(k.shape[1], kv_chunk)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _Flash.apply(q, k, v, causal, qc, kvc, bias_offset)
     return _flash_fwd(causal, qc, kvc, bias_offset, q, k, v)
 
 

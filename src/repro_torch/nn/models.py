@@ -4,7 +4,12 @@ Port of the serving surface of ``repro/nn/models.py`` for every family
 the reference serves (dense, moe, ssm, hybrid and encdec): ``init``
 (per-layer parameters, quantized leaf by leaf as they are made),
 ``init_cache``, ``prefill(length=, frames=)``, ``decode_step``, plus
-``apply_policy``, ``kv_decode_bytes_per_token`` and ``build_model``.
+``apply_policy``, ``kv_decode_bytes_per_token`` and ``build_model``; and
+the training surface of the dense family: ``forward`` (full-sequence
+logits, each block under ``torch.utils.checkpoint`` when
+``rcfg.remat == "block"`` and gradients are on), ``loss`` and
+``ce_loss``. ``tie_embeddings`` drops ``unembed`` and reads the logits
+through the transposed embedding, as the reference does.
 
 Parameters are nested dicts like the reference's tree, except that
 ``blocks`` is a list with one dict per layer, in execution order, instead
@@ -44,9 +49,10 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.policy import QuantPolicy, layer_prefixes
@@ -56,11 +62,11 @@ from repro_torch.kernels.ops import KERNELS, KernelSet
 from . import ssm
 from . import transformer as T
 from .attention import attn_shapes
-from .layers import matmul_param, mlp_shapes, rmsnorm
+from .layers import matmul_param, mlp_shapes, param_value, rmsnorm
 from .moe import moe_shapes
 
-__all__ = ["LM", "build_model", "apply_policy", "kv_decode_bytes_per_token",
-           "resolve_device"]
+__all__ = ["LM", "build_model", "apply_policy", "ce_loss",
+           "kv_decode_bytes_per_token", "resolve_device"]
 
 _NEVER_QUANT = ("ln", "norm", "A_log", "dt_bias", "D", "router", "conv_w",
                 "conv_b", "q_norm", "k_norm")
@@ -69,6 +75,21 @@ _NEVER_QUANT = ("ln", "norm", "A_log", "dt_bias", "D", "router", "conv_w",
 def _dt(name: str) -> torch.dtype:
     return {"f32": torch.float32, "fp32": torch.float32,
             "bf16": torch.bfloat16}[name]
+
+
+def ce_loss(logits: torch.Tensor, labels: torch.Tensor, *,
+            z_weight: float = 0.0) -> torch.Tensor:
+    """Mean cross-entropy over every position, in f32 over the padded
+    vocab, with the max taken out of the gradient (a stop-gradient, as the
+    reference's); ``z_weight`` adds z_weight * mean(lse^2)."""
+    lg = logits.to(torch.float32)
+    m = lg.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(lg - m).sum(dim=-1)) + m[..., 0]
+    ll = lg.gather(-1, labels.long()[..., None])[..., 0]
+    nll = (lse - ll).mean()
+    if z_weight:
+        nll = nll + z_weight * torch.square(lse).mean()
+    return nll
 
 
 def resolve_device(device) -> torch.device:
@@ -134,8 +155,6 @@ class LM:
     kernel_set: KernelSet = KERNELS
 
     def __post_init__(self):
-        if self.cfg.tie_embeddings:
-            raise NotImplementedError("tied embeddings are not ported yet")
         self.device = resolve_device(self.device)
         self.kv_spec = validate_kv_spec(self.kv_spec)
 
@@ -226,8 +245,9 @@ class LM:
             return blk
 
         params: Dict[str, Any] = {"embed": dense("embed", V, (d,), scale=1.0),
-                                  "ln_f": ones("ln_f", d),
-                                  "unembed": dense("unembed", d, (V,))}
+                                  "ln_f": ones("ln_f", d)}
+        if not cfg.tie_embeddings:
+            params["unembed"] = dense("unembed", d, (V,))
         if cfg.family in ("ssm", "hybrid"):
             rule = functools.partial(_apply_rule, policy=policy)
             params["blocks"] = [
@@ -466,7 +486,45 @@ class LM:
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         x = rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
+        if self.cfg.tie_embeddings:
+            # the reference's tied branch: the plain datapath, no kernels
+            return matmul_param(x, param_value(params["embed"], x.dtype).transpose(0, 1))
         return matmul_param(x, params["unembed"], kernels=self.kernels)
+
+    # -- training -------------------------------------------------------------
+
+    def forward(self, params, tokens: torch.Tensor, *, frames=None) -> torch.Tensor:
+        """Full-sequence logits (B, S, padded vocab), dense family. Each
+        block is called with ``positions`` and no cache; with
+        ``rcfg.remat == "block"`` and gradients on, each runs under
+        ``torch.utils.checkpoint`` (its activations recomputed in the
+        backward, as the reference's ``jax.checkpoint`` in ``scan_blocks``)."""
+        cfg, rcfg = self.cfg, self.rcfg
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"LM.forward (training) is ported for the dense family only; "
+                f"the {cfg.family} family's forward and gradients are ROADMAP "
+                "A10's next item")
+        tokens = tokens.to(self.device).long()
+        B, Sq = tokens.shape
+        positions = torch.arange(Sq, device=self.device)[None, :].expand(B, Sq)
+        x = T.embed_tokens(params["embed"], tokens, self.act_dtype)
+
+        def block(lp, h):
+            return T.dense_block_forward(lp, h, cfg, rcfg, positions=positions,
+                                         kernels=self.kernels)[0]
+
+        remat = rcfg.remat == "block" and torch.is_grad_enabled()
+        for lp in params["blocks"]:
+            x = checkpoint(block, lp, x, use_reentrant=False) if remat else block(lp, x)
+        return self._logits(params, x)
+
+    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(mean cross-entropy of ``batch["tokens"]``'s logits against
+        ``batch["labels"]``, {"loss": the same})."""
+        logits = self.forward(params, batch["tokens"], frames=batch.get("frames"))
+        nll = ce_loss(logits, batch["labels"].to(self.device))
+        return nll, {"loss": nll}
 
     def _encode(self, params, frames: torch.Tensor) -> torch.Tensor:
         """encdec: the encoder over (B, Se, d_model) frames, in the

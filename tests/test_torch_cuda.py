@@ -559,3 +559,86 @@ def test_sample_tokens_on_the_card_equal_the_cpu_draw(cuda):
             sc = prng.gumbel(keys[b], (V,)) + lg[b].float() / max(float(temps[b]), 1e-6)
             gap = (sc[got[b]] - sc[want[b]]).abs().item()
             assert gap < 1e-5, f"row {b}: {int(got[b])} vs {int(want[b])}, gap {gap}"
+
+
+# -- training (no kernel of the port: flash backward and one train step) ------
+
+
+def _naive_attention(q, k, v, causal):
+    Sq, Skv, Dh = q.shape[1], k.shape[1], q.shape[-1]
+    s = torch.einsum("bqgrd,bkgd->bgrqk", q.float(), k.float()) * Dh ** -0.5
+    if causal:
+        keep = torch.arange(Skv, device=q.device)[None] <= torch.arange(Sq, device=q.device)[:, None]
+        s = s.masked_fill(~keep, float("-inf"))
+    return torch.einsum("bgrqk,bkgd->bqgrd", torch.softmax(s, -1), v.float()).to(q.dtype)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("S,qc", [(128, 1024), (640, 256)])
+def test_flash_function_matches_naive_and_sdpa(cuda, causal, S, qc):
+    """The flash Function's forward and backward against autograd through a
+    materialized softmax (f32: 1e-5 of the largest value) and against SDPA
+    with K/V repeated to every head (bf16: 2e-2)."""
+    import torch.nn.functional as F
+    from repro_torch.nn.attention import flash_attention
+    g = torch.Generator(device=cuda).manual_seed(0)
+    B, G, R, Dh = 2, 4, 8, 128
+    shapes = ((B, S, G, R, Dh), (B, S, G, Dh), (B, S, G, Dh), (B, S, G, R, Dh))
+    q, k, v, do = (torch.randn(s, generator=g, device=cuda) for s in shapes)
+    for dt, tol, oracle in ((torch.float32, 1e-5, "naive"), (torch.bfloat16, 2e-2, "sdpa")):
+        res = []
+        for fn in ("flash", oracle):
+            qq, kk, vv = (t.to(dt).clone().requires_grad_() for t in (q, k, v))
+            if fn == "flash":
+                o = flash_attention(qq, kk, vv, causal=causal, q_chunk=qc, kv_chunk=qc)
+            elif fn == "naive":
+                o = _naive_attention(qq, kk, vv, causal)
+            else:
+                rep = lambda t: t.repeat_interleave(R, dim=2).transpose(1, 2)
+                o = F.scaled_dot_product_attention(
+                    qq.reshape(B, S, G * R, Dh).transpose(1, 2), rep(kk), rep(vv),
+                    is_causal=causal).transpose(1, 2).reshape(B, S, G, R, Dh)
+            o.backward(do.to(dt))
+            res.append([o.detach(), qq.grad, kk.grad, vv.grad])
+        for name, a, b in zip(("out", "dq", "dk", "dv"), *res):
+            err = ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+            assert err <= tol, (dt, name, err)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """One train step of a 2-layer yi-9b-width-/8 model on the card and on
+    a CPU copy of the same state (f32): loss, grad norm and parameters."""
+    import dataclasses
+    from repro_torch.configs import ARCHS, RunConfig
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.launch.train import make_train_state, make_train_step
+    from repro_torch.nn.models import build_model
+    from repro_torch.optim import tree_leaves, tree_map
+    cfg = dataclasses.replace(ARCHS["yi-9b"], n_layers=2, d_model=512, n_heads=4,
+                              n_kv_heads=2, d_ff=1024, vocab_size=4000)
+    rcfg = RunConfig(weight_dtype="f32", activation_dtype="f32", learning_rate=1e-3,
+                     total_steps=10, warmup_steps=1, opt_state_quant="posit8")
+    batch = synthetic_batch(DataConfig(vocab_size=4000, seq_len=64, global_batch=4), 0)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = build_model(cfg, rcfg, device=dev)
+        if dev == "cuda":
+            state = make_train_state(model, 0)
+            host = lambda t: t.to("cpu", copy=True)
+            moment = lambda q: dataclasses.replace(q, codes=host(q.codes), scale=host(q.scale))
+            cpu_copy = {"params": tree_map(host, state["params"]),
+                        "opt": {"m": tree_map(moment, state["opt"]["m"]),
+                                "v": tree_map(moment, state["opt"]["v"]),
+                                "count": host(state["opt"]["count"])}}
+        else:
+            state = cpu_copy
+        state, m = make_train_step(model)(state, batch)
+        out[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                    [p.cpu() for p in tree_leaves(state["params"])])
+    (lc, gc, pc), (lh, gh, ph) = out["cuda"], out["cpu"]
+    assert abs(lc - lh) <= 1e-5 * abs(lh) and abs(gc - gh) <= 1e-4 * gh
+    for a, b in zip(pc, ph):
+        # one Adam step moves each entry by ~lr = 1e-3; posit8 code flips at
+        # rounding boundaries may move a few entries' steps
+        d = (a - b).abs()
+        assert (d > 3e-5).float().mean().item() <= 1e-3 and d.max().item() <= 5e-3
