@@ -100,7 +100,29 @@ Phases, one line each, any failure exits non-zero without the final line:
    to the uninterrupted run's bit for bit, after two uninterrupted runs
    show whether the card's step is deterministic. The in-process parts
    launch none of the port's kernels (the reference runs no Pallas kernel
-   in training).
+   in training);
+14. training the other families at full width, with posit8 moments and
+   the CLI's run configuration (batch 8 x 128, lr 1e-3, bf16, block
+   remat): (a) ``python -m repro_torch.launch.train --arch falcon-mamba-7b
+   --opt-quant posit8 --steps 5 --profile`` in a process of its own (64
+   mamba1 layers, 7.27 B parameters; the fields of phase 13 and its
+   profiled split); (b) the same with ``--arch zamba2-1.2b --steps 3`` (38
+   layers); (c) moonshot-v1-16b-a3b on its first 12 layers and (d)
+   whisper-medium at full depth (24 + 24, batches with frames drawn as the
+   serving CLI draws them) through ``make_train_step`` in this process:
+   finite losses, step ms, tokens/s, model-FLOP share, peak memory; (e) for
+   those four, at 2 layers and f32, ``LM.loss`` gradients on the card
+   against the same model's on the CPU (every leaf within 1e-4 of its
+   largest entry) and a falling loss on one batch at lr 1e-5; no kernel of
+   the port launched;
+15. nemotron-4-340b serving at full width (d_model 18432, 8 groups of 12
+   query rows, d_head 192, squared-ReLU MLP) on its first 2 layers, pofx8
+   weights, fxp8 KV cache, kernels on, greedy: the CLI's workload through
+   the dense engine, then the paged engine (16-token pages) on the same
+   weights; 13 pofx_matmul a forward, one kv_flash_decode (dense) or
+   kv_flash_paged_decode (paged) a layer and decode step, the paged
+   streams equal to the dense ones, and first-token logits of kernels
+   against the plain path at f32 within 1e-3 of the largest logit.
 
 Before torch is imported, the CUDA driver is asked to start in a process of
 its own (``wait_for_card``): a freshly booted host may refuse for a while
@@ -1238,17 +1260,24 @@ def rel_err(a, b) -> float:
     return ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
 
 
-def train_cli(torch, result):
-    """Phase 13 part 1: the training CLI in a process of its own (its own
-    CUDA context; this process's caches emptied first)."""
+def train_cli(torch, argv):
+    """The training CLI with ``argv`` in a process of its own (its own CUDA
+    context; this process's caches emptied first): finite losses and grad
+    norms, the median step of steps 1 on (the profiled last step left
+    out), tokens/s, the model-FLOP share (8 N T a step: forward, remat's
+    forward, backward; N the active parameters), peak memory and the
+    profile's split. Returns them."""
+    from statistics import median
+    from repro_torch.configs import ARCHS
+    arch, steps = argv[argv.index("--arch") + 1], int(argv[argv.index("--steps") + 1])
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"  this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; "
-        f"python -m repro_torch.launch.train {' '.join(TRAIN_ARGV)}")
+        f"python -m repro_torch.launch.train {' '.join(argv)}")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(ROOT / "src")] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *TRAIN_ARGV],
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", *argv],
                           cwd=ROOT, env=env, capture_output=True, text=True, timeout=900)
     wall = time.perf_counter() - t0
     for line in proc.stdout.splitlines():
@@ -1257,28 +1286,27 @@ def train_cli(torch, result):
     if proc.returncode:
         raise AssertionError(f"the training CLI exited {proc.returncode}:\n{proc.stderr[-4000:]}")
     run = json.loads(next(l for l in proc.stdout.splitlines() if l.startswith("train: "))[7:])
-    from repro_torch.configs import ARCHS
-    cfg = ARCHS["yi-9b"]
-    n_params = cfg.param_count()
+    cfg = ARCHS[arch]
+    n_params = cfg.active_param_count()
     losses, gnorms = run["loss"], run["grad_norm"]
-    if run["steps"] != list(range(5)) or not all(map(math.isfinite, losses + gnorms)):
+    if run["steps"] != list(range(steps)) or not all(map(math.isfinite, losses + gnorms)):
         raise AssertionError(f"training CLI: steps {run['steps']}, losses {losses}, "
                              f"grad norms {gnorms}")
-    step_s = sorted(run["step_s"][1:4])[1]
+    step_s = median(run["step_s"][1:steps - 1 if "--profile" in argv else steps])
     flops = 8 * n_params * run["tokens_per_step"]       # forward, remat's forward, backward
-    entry = {"argv": TRAIN_ARGV, "n_layers": cfg.n_layers, "params": n_params,
+    entry = {"argv": argv, "n_layers": cfg.n_layers, "params": n_params,
              "loss": losses, "grad_norm": gnorms, "step_s": run["step_s"],
              "median_step_ms": step_s * 1e3, "tokens_per_s": run["tokens_per_step"] / step_s,
              "model_flop_share": flops / step_s / BF16_PEAK,
              "peak_gib": run["peak_bytes"] / 2**30, "profile": run.get("profile"),
              "init_s": run["init_s"], "process_s": wall}
-    log(f"  yi-9b {cfg.n_layers} layers, {n_params / 1e9:.2f} B params, posit8 moments: "
-        f"step {entry['median_step_ms']:.1f} ms (median of steps 1-3), "
+    log(f"  {arch} {cfg.n_layers} layers, {n_params / 1e9:.3f} B params, posit8 moments: "
+        f"step {entry['median_step_ms']:.1f} ms (median of steps 1 on), "
         f"{entry['tokens_per_s']:.1f} tokens/s, model-FLOP share "
         f"{100 * entry['model_flop_share']:.2f} % of {BF16_PEAK / 1e12:.0f} TFLOP/s, peak "
         f"{entry['peak_gib']:.2f} GiB; losses {[round(x, 4) for x in losses]}; init "
         f"{run['init_s']:.1f} s, the process {wall:.1f} s")
-    result["train_cli"] = entry
+    return entry
 
 
 def phase_train(torch, result):
@@ -1295,8 +1323,7 @@ def phase_train(torch, result):
     from repro_torch.optim import tree_leaves
     from repro_torch.runtime import CheckpointManager
 
-    train_cli(torch, result)
-    entry = result["train_cli"]
+    entry = result["train_cli"] = train_cli(torch, TRAIN_ARGV)
     before = dict(LAUNCHES)
     base = ARCHS["yi-9b"]
     dc = DataConfig(vocab_size=base.vocab_size, seq_len=128, global_batch=8)
@@ -1440,10 +1467,259 @@ def phase_train(torch, result):
     torch.cuda.empty_cache()
 
 
+# phase 14: the other families' training at full width. (a) and (b) the
+# CLI in processes of their own (falcon-mamba-7b's last step profiled);
+# (c) moonshot on its first MOE_TRAIN_LAYERS layers and (d) whisper at full
+# depth in-process; (e) card against CPU gradients at ORACLE_LAYERS layers
+FALCON_TRAIN_ARGV = ["--arch", "falcon-mamba-7b", "--opt-quant", "posit8", "--steps", "5",
+                     "--log-every", "1", "--profile"]
+ZAMBA_TRAIN_ARGV = ["--arch", "zamba2-1.2b", "--opt-quant", "posit8", "--steps", "3",
+                    "--log-every", "1"]
+MOE_TRAIN_LAYERS, FAMILY_TRAIN_STEPS, ORACLE_LAYERS = 12, 3, 2
+ORACLE_ARCHS = ("falcon-mamba-7b", "zamba2-1.2b", "moonshot-v1-16b-a3b", "whisper-medium")
+CPU_GRAD_RTOL = 1e-4      # card vs CPU gradients, f32, of each leaf's largest entry
+
+
+def family_batch(torch, cfg, batch, seq, step):
+    """The CLI's synthetic batch of ``step``; encdec adds (B, seq, d_model)
+    frames drawn as the serving CLI draws them (``normal(PRNGKey(2))``)."""
+    from repro_torch.core import prng
+    from repro_torch.data import DataConfig, synthetic_batch
+    b = synthetic_batch(DataConfig(vocab_size=cfg.vocab_size, seq_len=seq,
+                                   global_batch=batch), step)
+    if cfg.family == "encdec":
+        b["frames"] = prng.normal(prng.PRNGKey(2), (batch, seq, cfg.d_model))
+    return b
+
+
+def train_in_process(torch, model, label, steps=FAMILY_TRAIN_STEPS, batch=8, seq=128):
+    """``make_train_state`` and ``steps`` of ``make_train_step`` on the
+    CLI's batches (8 x 128 tokens) with posit8 moments: finite losses, the
+    median step of steps 1 on, tokens/s, the model-FLOP share, peak
+    memory."""
+    from statistics import median
+    from repro_torch.launch.train import make_train_state, make_train_step
+    cfg = model.cfg
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = make_train_state(model, 0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    step = make_train_step(model)
+    losses, gnorms, step_s = [], [], []
+    for i in range(steps):
+        b = family_batch(torch, cfg, batch, seq, i)
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))          # waits for the step
+        step_s.append(time.perf_counter() - t0)
+        gnorms.append(float(m["grad_norm"]))
+    n_params = cfg.active_param_count()
+    med = median(step_s[1:])
+    entry = {"n_layers": cfg.n_layers, "params": n_params, "loss": losses,
+             "grad_norm": gnorms, "step_s": step_s, "median_step_ms": med * 1e3,
+             "tokens_per_s": batch * seq / med,
+             "model_flop_share": 8 * n_params * batch * seq / med / BF16_PEAK,
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30, "init_s": init_s}
+    log(f"  {label}: {cfg.n_layers} layers, {n_params / 1e9:.3f} B active params, posit8 "
+        f"moments: step {entry['median_step_ms']:.1f} ms (median of steps 1 on), "
+        f"{entry['tokens_per_s']:.1f} tokens/s, model-FLOP share "
+        f"{100 * entry['model_flop_share']:.2f} %, peak {entry['peak_gib']:.2f} GiB, init "
+        f"{init_s:.1f} s; losses {[round(x, 4) for x in losses]}")
+    del state
+    torch.cuda.empty_cache()
+    if not all(map(math.isfinite, losses + gnorms)):
+        raise AssertionError(f"{label}: non-finite losses {losses} or grad norms {gnorms}")
+    return entry
+
+
+def family_oracle(torch, arch):
+    """At ORACLE_LAYERS layers (encoder too), full width, f32: ``LM.loss``
+    gradients on the card against the same model's on the CPU from the
+    same parameters (B = 2, 64 tokens), every leaf within CPU_GRAD_RTOL of
+    its largest entry; then three steps on one batch (8 x 128) at lr 1e-5
+    with f32 moments, whose loss must fall."""
+    from repro_torch.configs import ARCHS, RunConfig
+    from repro_torch.core.policy import named_leaves
+    from repro_torch.launch.train import make_train_state, make_train_step, value_and_grad
+    from repro_torch.nn.models import build_model
+    from repro_torch.optim import tree_map
+    base = ARCHS[arch]
+    cfg = dataclasses.replace(base, n_layers=ORACLE_LAYERS,
+                              n_enc_layers=ORACLE_LAYERS if base.n_enc_layers else 0)
+    rcfg = RunConfig(weight_dtype="f32", activation_dtype="f32", learning_rate=1e-5,
+                     total_steps=10, warmup_steps=1, remat="block")
+    model = build_model(cfg, rcfg, device="cuda")
+    params = model.init(0)
+    names = [n for n, _ in named_leaves(params)]
+    batch = family_batch(torch, cfg, 2, 64, 0)
+    t0 = time.perf_counter()
+    loss_c, g_c = value_and_grad(model, params, batch)
+    g_c = [g.cpu() for g in g_c]
+    cpu = dataclasses.replace(model, device="cpu")
+    loss_h, g_h = value_and_grad(cpu, tree_map(lambda t: t.cpu(), params), batch)
+    errs = {}
+    for name, a, b in zip(names, g_c, g_h):
+        errs[name] = max(errs.get(name, 0.0), rel_err(a, b))
+    worst_leaf = max(errs, key=errs.get)
+    worst = errs[worst_leaf]
+    grad_s = time.perf_counter() - t0
+    del params, g_c, g_h
+    step = make_train_step(model)
+    state = make_train_state(model, 0)
+    one = family_batch(torch, cfg, 8, 128, 0)
+    losses = [float(step(state, one)[1]["loss"]) for _ in range(3)]
+    del state
+    torch.cuda.empty_cache()
+    log(f"  {arch} at {ORACLE_LAYERS} layers, f32: card vs CPU loss {float(loss_c):.6f} vs "
+        f"{float(loss_h):.6f}, gradients' max relative error {worst:.3g} ({worst_leaf}) "
+        f"over {len(errs)} leaves (bound {CPU_GRAD_RTOL}; {grad_s:.1f} s); one batch at "
+        f"lr 1e-5: losses {[round(x, 5) for x in losses]}")
+    entry = {"n_layers": ORACLE_LAYERS, "loss_card": float(loss_c), "loss_cpu": float(loss_h),
+             "max_rel_err": worst, "worst_leaf": worst_leaf, "per_leaf": errs,
+             "one_batch_losses": losses}
+    if not worst <= CPU_GRAD_RTOL:
+        raise AssertionError(f"{arch}: card gradients off the CPU's: {errs}")
+    if not (all(map(math.isfinite, losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"{arch}: the loss on one batch does not fall: {losses}")
+    return entry
+
+
+def phase_train_families(torch, result):
+    """Phase 14: training the moe, ssm, hybrid and encdec families at full
+    width (a-d), and their gradients on the card against the CPU's (e).
+    The in-process parts launch none of the port's kernels."""
+    from repro_torch.configs import ARCHS, RunConfig
+    from repro_torch.kernels import LAUNCHES
+    from repro_torch.nn.models import build_model
+    entry = result["train_families"] = {}
+    # (a) falcon-mamba-7b, full width and depth, the last step profiled;
+    # (b) zamba2-1.2b, full depth
+    entry["falcon-mamba-7b"] = train_cli(torch, FALCON_TRAIN_ARGV)
+    entry["zamba2-1.2b"] = train_cli(torch, ZAMBA_TRAIN_ARGV)
+    if entry["falcon-mamba-7b"]["n_layers"] != 64 or entry["zamba2-1.2b"]["n_layers"] != 38:
+        raise AssertionError("the CLI runs did not train every layer")
+    before = dict(LAUNCHES)
+    # the CLI's run configuration: lr 1e-3, posit8 moments, bf16, block remat
+    rcfg = RunConfig(learning_rate=1e-3, total_steps=FAMILY_TRAIN_STEPS, warmup_steps=1,
+                     opt_state_quant="posit8", remat="block")
+    # (c) moonshot-v1-16b-a3b at full width on its first 12 layers
+    cfg = dataclasses.replace(ARCHS["moonshot-v1-16b-a3b"], n_layers=MOE_TRAIN_LAYERS)
+    entry["moonshot-v1-16b-a3b"] = train_in_process(
+        torch, build_model(cfg, rcfg, device="cuda"), "moonshot-v1-16b-a3b")
+    # (d) whisper-medium at full width and depth, batches with frames
+    entry["whisper-medium"] = train_in_process(
+        torch, build_model(ARCHS["whisper-medium"], rcfg, device="cuda"), "whisper-medium")
+    # (e) card against CPU, and a falling loss, at 2 layers
+    entry["oracles"] = {arch: family_oracle(torch, arch) for arch in ORACLE_ARCHS}
+    after = dict(LAUNCHES)
+    log(f"  launches in the in-process parts: {({k: after[k] - before[k] for k in after})}")
+    if after != before:
+        raise AssertionError(f"training launched the port's kernels: {before} -> {after}")
+
+
+# phase 15: nemotron-4-340b (d_head 192) serving at full width on 2 layers
+NEMOTRON_LAYERS = 2
+NEMOTRON_LOGIT_RTOL = 1e-3     # kernels vs plain first-token logits at f32, of max |logit|
+
+
+def phase_nemotron(torch, result):
+    """Phase 15: nemotron-4-340b at full width (d_model 18432, 96 query
+    heads in 8 groups of 12, d_head 192, squared-ReLU MLP of 73728) on its
+    first 2 layers, pofx8 weights, an fxp8 KV cache, kernels on, greedy:
+    the CLI's workload (8 requests of 64 tokens, 32 new, 4 slots) through
+    the dense engine and then the paged one (16-token pages) on the same
+    weights. Launch counts (6 pofx_matmul a layer and the unembed a
+    forward; one flash-decode kernel a layer and decode step, at Dh =
+    192), identical streams, and first-token logits of kernels against
+    the plain path at f32 activations."""
+    from repro_torch.configs import ARCHS, RunConfig
+    from repro_torch.core.policy import QuantPolicy, parse_spec
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.ops import PLAIN
+    from repro_torch.launch.engine import ServeEngine
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.nn.models import build_model
+    cfg = dataclasses.replace(ARCHS["nemotron-4-340b"], n_layers=NEMOTRON_LAYERS)
+    model = build_model(cfg, RunConfig(), use_kernel=True, kv_spec=parse_spec("fxp8"))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = model.init(0, policy=QuantPolicy.from_string("pofx8"))
+    torch.cuda.synchronize()
+    init_s, init_peak = time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 2**30
+    resident = torch.cuda.memory_allocated() / 2**30
+    log(f"  {cfg.name}, {cfg.n_layers} layers at d_model {cfg.d_model}, d_head {cfg.d_head}, "
+        f"G = {cfg.n_kv_heads}, R = {cfg.n_heads // cfg.n_kv_heads}: pofx8 weights "
+        f"{resident:.2f} GiB, init {init_s:.1f} s, init peak {init_peak:.2f} GiB")
+    per_fwd = 6 * cfg.n_layers + 1
+    reset_launches()
+    eng, done, reqs = serve(torch, model, params)
+    counts, st = dict(LAUNCHES), eng.stats()
+    want = {"pofx_matmul": per_fwd * (st["prefill_sampled_tokens"] + st["decode_steps"]),
+            "kv_flash_decode": cfg.n_layers * st["decode_steps"],
+            "kv_flash_paged_decode": 0, "fxp_matmul": 0, "pofx_decode": 0}
+    n_prompt = sum(len(s.context) for s in done)
+    entry = {"n_layers": cfg.n_layers, "d_head": cfg.d_head, "weights_gib": resident,
+             "init_s": init_s, "init_peak_gib": init_peak, "launches": counts,
+             "decode_steps": st["decode_steps"],
+             "prefill_tok_s": n_prompt / eng.prefill_time,
+             "decode_tok_s": st["decode_tokens"] / eng.decode_time,
+             "streams": [s.out for s in done]}
+    log(f"  dense: prefill {entry['prefill_tok_s']:.1f} tok/s, decode "
+        f"{entry['decode_tok_s']:.1f} tok/s over {st['decode_steps']} steps; launches {counts}")
+    result["nemotron"] = entry
+    if counts != want or counts["kv_flash_decode"] <= 0:
+        raise AssertionError(f"nemotron launch counts {counts} != expected {want}")
+    for s in done:
+        if len(s.out) != 32 or not all(0 <= t < cfg.vocab_size for t in s.out):
+            raise AssertionError(f"nemotron rid {s.req.rid}: bad output {s.out}")
+    del eng
+    reset_launches()
+    peng = ServeEngine(model, params, n_slots=4, max_len=96, chunk=8, paged=True,
+                       page_size=16)
+    pdone = peng.run(make_requests(cfg.vocab_size, 8, 64, 32))
+    torch.cuda.synchronize()
+    pcounts, pst = dict(LAUNCHES), peng.stats()
+    peng._pager.check()
+    pwant = {"pofx_matmul": per_fwd * (pst["prefill_sampled_tokens"] + pst["decode_steps"]),
+             "kv_flash_paged_decode": cfg.n_layers * pst["decode_steps"],
+             "kv_flash_decode": 0, "fxp_matmul": 0, "pofx_decode": 0}
+    same_paged = sum(a.out == b.out for a, b in zip(pdone, done))
+    log(f"  paged (page 16): {same_paged}/8 streams identical to the dense ones; launches "
+        f"{pcounts}; decode {pst['decode_tok_per_s']:.2f} tok/s")
+    entry["paged"] = {"identical_to_dense": same_paged, "launches": pcounts,
+                      "decode_tok_s": pst["decode_tok_per_s"]}
+    del peng
+    if pcounts != pwant:
+        raise AssertionError(f"nemotron paged launch counts {pcounts} != expected {pwant}")
+    if same_paged != 8:
+        raise AssertionError("nemotron paged streams differ from the dense ones")
+    # first-token logits, kernels against the plain path, f32 activations
+    f32 = dataclasses.replace(model, rcfg=dataclasses.replace(model.rcfg,
+                                                              activation_dtype="f32"))
+    prompt = reqs[0].prompt
+    lk = first_logits(torch, f32, params, prompt)
+    lp = first_logits(torch, dataclasses.replace(f32, kernel_set=PLAIN), params, prompt)
+    rel = rel_err(lk, lp)
+    log(f"  first-token logits at f32, kernels vs plain path: max |diff| / max |logit| "
+        f"{rel:.3g} (bound {NEMOTRON_LOGIT_RTOL}), argmax {int(lk.argmax())} vs "
+        f"{int(lp.argmax())}; peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    entry["first_logit_rel_err"] = rel
+    entry["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del model, params, f32
+    torch.cuda.empty_cache()
+    if not (torch.isfinite(lk).all() and torch.isfinite(lp).all()) or rel > NEMOTRON_LOGIT_RTOL:
+        raise AssertionError(f"nemotron kernel logits off the plain path's: {rel}")
+    return counts
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="drive the port on one card")
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,12,13,14,15",
                     help="comma-separated phases after the build (default: all)")
     want = {int(p) for p in ap.parse_args(argv).phases.split(",")}
     state = wait_for_card()
@@ -1513,6 +1789,10 @@ def main(argv) -> int:
          lambda: result.__setitem__("encdec_counts", phase_encdec(torch, result))),
         ("phase 13: training, yi-9b full width",
          lambda: phase_train(torch, result)),
+        ("phase 14: training the moe, ssm, hybrid and encdec families, full width",
+         lambda: phase_train_families(torch, result)),
+        ("phase 15: nemotron-4-340b serving (d_head 192), full width, 2 layers",
+         lambda: result.__setitem__("nemotron_counts", phase_nemotron(torch, result))),
     ]
     for label, fn in phases:
         if int(label.split()[1].rstrip(":")) not in want:
@@ -1536,7 +1816,7 @@ def main(argv) -> int:
     if failed:
         log(f"FAILED: {failed}")
         return 1
-    if want != set(range(2, 14)):
+    if want != set(range(2, 16)):
         log(f"ran phases {sorted(want)} only: no result line")
         return 1
     main_counts = result["main_counts"]

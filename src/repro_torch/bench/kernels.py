@@ -36,7 +36,8 @@ size. The rows:
     pofx_matmul at whisper-medium's q/k/v/o (self and cross), wi, wo and
     unembed at m = 4 (decode, and the one-shot prefill's unembed) and m =
     256 (the one-shot prefill: 4 sequences x 64 positions, encoder and
-    decoder);
+    decoder); both flash-decode kernels (fxp8) at nemotron-4-340b's G = 8,
+    R = 12, Dh = 192 (two row groups of 8 a (b, g));
 (c) pofx_decode at the five yi-9b weight shapes, (N, ES) = (8, 2), and at
     the mlp shape with (9, 2).
 
@@ -399,6 +400,10 @@ def run(device="cuda", *, smoke: bool = False, timer: Optional[Timer] = None) ->
     for m in (4, 256):
         for k, n in WHISPER_SHAPES_POFX:
             bench.pofx_matmul_row(m, k, n, torch.bfloat16, f"m={m} k={k} n={n} x=bf16")
+    # nemotron-4-340b's attention: 8 groups of 12 query rows, Dh = 192
+    for S, pos_list in KV_SHAPES:
+        bench.kv_flash_decode_row("fxp8", S, pos_list, G=8, R=12, Dh=192)
+        bench.kv_flash_paged_decode_row("fxp8", S, pos_list, G=8, R=12, Dh=192)
     # (c) pofx_decode at the yi-9b weight shapes; at the mlp shape also with
     # N = 9, whose 256-byte table has two words a bank (N = 8: one)
     for k, n in SHAPES_POFX:

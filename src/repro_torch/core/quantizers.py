@@ -80,31 +80,67 @@ def _lut(spec: QuantSpec, device) -> torch.Tensor:
     return _lut_on(spec.N, spec.ES, spec.M, spec.rounding, torch.device(device))
 
 
+# elements a pass when a large leaf is quantized in slices of rows
+QUANT_CHUNK = 1 << 26
+
+
+def _code_dtype(spec: QuantSpec) -> torch.dtype:
+    if spec.kind == "fxp":
+        return torch.int8 if spec.M <= 8 else torch.int32
+    return spec.code_dtype()
+
+
+def _encode(wn: torch.Tensor, spec: QuantSpec) -> torch.Tensor:
+    """Normalized f32 values -> codes (elementwise)."""
+    if spec.kind == "fxp":
+        return _fxp.fxp_quantize(wn, spec.M, spec.F).to(_code_dtype(spec))
+    if spec.kind == "posit":
+        return _posit.posit_encode(wn, spec.N, spec.ES).to(_code_dtype(spec))
+    if spec.path == "via_fxp":
+        wn = _fxp.fxp_dequantize(_fxp.fxp_quantize(wn, spec.M, spec.M - 1),
+                                 spec.M - 1)
+    return _np_.norm_encode(wn, spec.N, spec.ES).to(_code_dtype(spec))
+
+
+def _quantize_rows(w: torch.Tensor, spec: QuantSpec,
+                   axis: Optional[int]) -> QuantizedTensor:
+    """``quantize`` in slices of at most ``QUANT_CHUNK`` elements along
+    axis 0, so that a large leaf's encode temporaries (int64 a weight) fit
+    beside it: the scale from the slices' largest magnitudes, then each
+    slice encoded. Every step is elementwise or a max, so the codes and
+    scale are the whole leaf's; a small leaf is one slice."""
+    rows = max(1, QUANT_CHUNK // max(1, w.numel() // max(1, w.shape[0])))
+    red = tuple(i for i in range(w.ndim) if axis is None or i != axis % w.ndim)
+    amax = None
+    for i in range(0, w.shape[0], rows):
+        a = w[i:i + rows].to(torch.float32).abs().amax(dim=red, keepdim=True)
+        amax = a if amax is None else torch.maximum(amax, a)
+    scale = _fxp.compute_scale(amax, spec.scale_mode, axis)
+    codes = torch.empty(w.shape, dtype=_code_dtype(spec), device=w.device)
+    for i in range(0, w.shape[0], rows):
+        codes[i:i + rows] = _encode(w[i:i + rows].to(torch.float32) / scale, spec)
+    return QuantizedTensor(codes, scale, spec)
+
+
 def quantize(w: torch.Tensor, spec: QuantSpec,
              axis: Optional[int] = None) -> QuantizedTensor:
-    """Quantize a float tensor into the storage format named by ``spec``."""
-    w = w.to(torch.float32)
+    """Quantize a float tensor into the storage format named by ``spec``.
+    A leaf of two or more axes whose scale does not vary along axis 0 is
+    quantized in slices of rows (``_quantize_rows``)."""
     if spec.kind in ("fp32", "bf16"):
+        w = w.to(torch.float32)
         dt = torch.float32 if spec.kind == "fp32" else torch.bfloat16
         one = torch.ones((1,) * max(w.ndim, 1), dtype=torch.float32,
                          device=w.device)
         return QuantizedTensor(w.to(dt), one, spec)
     if axis is None and spec.scale_mode.startswith("channel"):
         axis = -1  # convention: last axis is the output-channel axis
+    if (w.ndim >= 2 and spec.scale_mode != "none"
+            and (axis is None or axis % w.ndim != 0)):
+        return _quantize_rows(w, spec, axis)
+    w = w.to(torch.float32)
     scale = _fxp.compute_scale(w, spec.scale_mode, axis)
-    wn = w / scale
-    if spec.kind == "fxp":
-        codes = _fxp.fxp_quantize(wn, spec.M, spec.F)
-        dt = torch.int8 if spec.M <= 8 else torch.int32
-        return QuantizedTensor(codes.to(dt), scale, spec)
-    if spec.kind == "posit":
-        codes = _posit.posit_encode(wn, spec.N, spec.ES)
-        return QuantizedTensor(codes.to(spec.code_dtype()), scale, spec)
-    if spec.path == "via_fxp":
-        wn = _fxp.fxp_dequantize(_fxp.fxp_quantize(wn, spec.M, spec.M - 1),
-                                 spec.M - 1)
-    codes = _np_.norm_encode(wn, spec.N, spec.ES)
-    return QuantizedTensor(codes.to(spec.code_dtype()), scale, spec)
+    return QuantizedTensor(_encode(w / scale, spec), scale, spec)
 
 
 def _codes_to_values(codes: torch.Tensor, spec: QuantSpec) -> torch.Tensor:

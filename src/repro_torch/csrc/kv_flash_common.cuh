@@ -110,12 +110,16 @@ __device__ __forceinline__ float reduce8(float (&v)[RG], int lane) {
   return v[0] + __shfl_xor_sync(0xffffffffu, v[0], 1);
 }
 
-// N code bytes at p (aligned to N) -> their values: fxp (table ==
-// nullptr) as int8, exactly, by placing c ^ 0x80 in the mantissa of 2^23
-// (one PRMT and one FADD a value); pofx through the byte table.
+// N code bytes at p -> their values: fxp (table == nullptr) as int8,
+// exactly, by placing c ^ 0x80 in the mantissa of 2^23 (one PRMT and one
+// FADD a value); pofx through the byte table. p is aligned to N for N =
+// 1, 2, 4, 8, 16; at Dh = 192 (DPL 6) the scores read N = 12 bytes at
+// 4-byte alignment and P V reads N = 6 at 2-byte alignment, so those load
+// in 4- and 2-byte words.
 template <int N>
 __device__ __forceinline__ void dequant(const uint8_t* p, const float* table,
                                         float (&out)[N]) {
+  static_assert(N == 1 || (N % 2 == 0 && N <= 16), "dequant loads 1 or an even count <= 16");
   uint32_t w[(N + 3) / 4];
   if constexpr (N == 16) {
     const uint4 u = *reinterpret_cast<const uint4*>(p);
@@ -123,12 +127,17 @@ __device__ __forceinline__ void dequant(const uint8_t* p, const float* table,
   } else if constexpr (N == 8) {
     const uint2 u = *reinterpret_cast<const uint2*>(p);
     w[0] = u.x; w[1] = u.y;
-  } else if constexpr (N == 4) {
-    w[0] = *reinterpret_cast<const uint32_t*>(p);
-  } else if constexpr (N == 2) {
-    w[0] = *reinterpret_cast<const uint16_t*>(p);
-  } else {
+  } else if constexpr (N == 1) {
     w[0] = *p;
+  } else if constexpr (N % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < N / 4; ++i) w[i] = reinterpret_cast<const uint32_t*>(p)[i];
+  } else {
+#pragma unroll
+    for (int i = 0; i < (N + 3) / 4; ++i) w[i] = 0u;
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i)
+      w[i / 2] |= (uint32_t)reinterpret_cast<const uint16_t*>(p)[i] << (16 * (i % 2));
   }
 #pragma unroll
   for (int i = 0; i < N; ++i) {
@@ -450,8 +459,10 @@ int launch(const Params& P, int B, const Cache& cache, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// Dh = 32 * DPL for Dh in {32, 64, 128, 256}; anything else is refused, as
-// is a plan whose chunks are not whole tiles or do not cover S.
+// Dh = 32 * DPL for Dh in {32, 64, 128, 192, 256}; anything else is
+// refused, as is a plan whose chunks are not whole tiles or do not cover S.
+// At DPL 6 a code row is 12 16-byte copies (rows stay 16-byte aligned) and
+// the ring and its floats take 58240 bytes of shared memory.
 template <class Cache>
 int dispatch(const Params& P, int B, int Dh, const Cache& cache, void* stream) {
   if (P.R < 1 || P.R > 32 || B < 1 || P.G < 1 || P.S < 1 || P.L < TILE || P.L % TILE
@@ -461,6 +472,7 @@ int dispatch(const Params& P, int B, int Dh, const Cache& cache, void* stream) {
     case 32: return launch<1>(P, B, cache, stream);
     case 64: return launch<2>(P, B, cache, stream);
     case 128: return launch<4>(P, B, cache, stream);
+    case 192: return launch<6>(P, B, cache, stream);
     case 256: return launch<8>(P, B, cache, stream);
     default: return (int)cudaErrorInvalidValue;
   }

@@ -24,7 +24,7 @@ from repro_torch.core.quantizers import QuantSpec, _codes_to_values
 from . import LAUNCHES, require_cuda
 from .ref import kv_flash_decode_ref
 
-__all__ = ["kv_flash_decode", "kv_flash_decode_ref", "plan", "Plan"]
+__all__ = ["kv_flash_decode", "kv_flash_decode_ref", "plan", "Plan", "HEAD_DIMS"]
 
 # csrc/kv_flash_common.cuh's tile of positions; SMS is the H100's count of
 # SMs, and the split aims at TARGET_BLOCKS, two blocks a SM
@@ -33,6 +33,9 @@ TARGET_BLOCKS = 2 * SMS
 # S is rounded up to a multiple of ROUND before the chunk is chosen; a block
 # holds ROWS query rows (more rows take more blocks)
 ROUND, ROWS = 256, 8
+# the head dims the CUDA body is built for (32 x its values a lane; 192 is
+# nemotron-4-340b's) and the most query rows a group
+HEAD_DIMS, MAX_R = (32, 64, 128, 192, 256), 32
 
 
 class Plan(NamedTuple):
@@ -169,9 +172,9 @@ def kv_flash_decode(q: torch.Tensor, k_codes: torch.Tensor,
                          f"{tuple(q.shape)}")
     if k_codes.element_size() != 1 or v_codes.element_size() != 1:
         raise ValueError("kv_flash_decode wants byte-wide codes")
-    if Dh not in (32, 64, 128, 256) or R > 32:
-        raise ValueError(f"kv_flash_decode supports Dh in 32/64/128/256 and "
-                         f"R <= 32, got Dh={Dh}, R={R}")
+    if Dh not in HEAD_DIMS or R > MAX_R:
+        raise ValueError(f"kv_flash_decode supports Dh in {HEAD_DIMS} and "
+                         f"R <= {MAX_R}, got Dh={Dh}, R={R}")
     from .build import check, library
     qk, pos_b, pos_stride = _q_pos(q, pos, B)
     kc, vc = _aligned(k_codes), _aligned(v_codes)

@@ -20,7 +20,7 @@ import torch
 
 from repro_torch.core.quantizers import QuantSpec
 from . import LAUNCHES, require_cuda
-from .kv_flash_decode import _aligned, _launch_args, _q_pos
+from .kv_flash_decode import HEAD_DIMS, MAX_R, _aligned, _launch_args, _q_pos
 from .ref import kv_flash_paged_decode_ref
 
 __all__ = ["kv_flash_paged_decode", "kv_flash_paged_decode_ref"]
@@ -63,9 +63,9 @@ def kv_flash_paged_decode(q: torch.Tensor, k_pool: torch.Tensor,
                  v_scale, tables, pos)
     if k_pool.element_size() != 1 or v_pool.element_size() != 1:
         raise ValueError("kv_flash_paged_decode wants byte-wide codes")
-    if Dh not in (32, 64, 128, 256) or R > 32:
-        raise ValueError(f"kv_flash_paged_decode supports Dh in 32/64/128/256 "
-                         f"and R <= 32, got Dh={Dh}, R={R}")
+    if Dh not in HEAD_DIMS or R > MAX_R:
+        raise ValueError(f"kv_flash_paged_decode supports Dh in {HEAD_DIMS} "
+                         f"and R <= {MAX_R}, got Dh={Dh}, R={R}")
     from .build import check, library
     max_pages = tables.shape[1]
     qk, pos_b, pos_stride = _q_pos(q, pos, B)

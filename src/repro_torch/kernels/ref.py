@@ -28,17 +28,30 @@ def pofx_decode_ref(codes: torch.Tensor, N: int, ES: int,
     return decode_norm_to_fxp(codes.to(torch.int32), N, ES, M).to(torch.int8)
 
 
+# weights the plain pofx_matmul decodes at once: a larger matrix (nemotron-
+# 4-340b's 18432 x 73728 MLP and 18432-wide unembed) goes in column blocks
+REF_CHUNK = 1 << 29
+
+
 def pofx_matmul_ref(x: torch.Tensor, codes: torch.Tensor, scale: torch.Tensor,
                     N: int, ES: int, M: int = 8) -> torch.Tensor:
     """x (m, k) @ (decode(codes (k, n)) / 2^(M-1)) * scale (n,) -> f32.
 
     The decode goes through ``pofx_norm_lut``, which the tests hold equal
     to the bit-level ``decode_norm_to_fxp`` over every code; the table keeps
-    the plain version's memory at one int64 index per weight.
+    the plain version's memory at one int64 index per weight, and a matrix
+    of more than ``REF_CHUNK`` weights is decoded and multiplied in blocks
+    of whole columns.
     """
-    w = _codes_to_values(codes, QuantSpec(kind="pofx", N=N, ES=ES, M=M))
-    y = torch.matmul(x.to(torch.float32), w)
-    return y * scale.reshape(1, -1).to(torch.float32)
+    spec = QuantSpec(kind="pofx", N=N, ES=ES, M=M)
+    k, n = codes.shape
+    xf = x.to(torch.float32)
+    sc = scale.reshape(1, -1).to(torch.float32)
+    cols = max(1, REF_CHUNK // max(k, 1))
+    if n <= cols:
+        return torch.matmul(xf, _codes_to_values(codes, spec)) * sc
+    return torch.cat([torch.matmul(xf, _codes_to_values(codes[:, j:j + cols], spec))
+                      * sc[:, j:j + cols] for j in range(0, n, cols)], dim=1)
 
 
 def fxp_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

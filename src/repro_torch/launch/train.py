@@ -15,7 +15,11 @@ branch, which is the one ported.
 The CLI runs the reference's loop: data pipeline -> train step ->
 async checkpoints (auto-resume) -> straggler monitor, with the
 reference's flags and line formats, on ``--device`` (cuda by default;
-no fallback to the CPU). ``--smoke`` shrinks the arch so the loop runs on
+no fallback to the CPU), for every arch the reference takes. Like the
+reference's, its batches carry no encoder frames, so ``--arch
+whisper-medium`` stops at the first step's forward with the reference's
+assertion (the encdec family trains through ``make_train_step`` on
+batches with "frames"). ``--smoke`` shrinks the arch so the loop runs on
 a CPU:
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch yi-9b --smoke \\
@@ -100,7 +104,9 @@ def value_and_grad(model: LM, params, batch, mark=_nomark) -> Tuple[torch.Tensor
 def make_train_step(model: LM):
     """Returns train_step(state, batch, mark=None) -> (state, metrics). The
     state is updated in place and returned; ``batch`` holds "tokens" and
-    "labels" (numpy or tensors); ``mark(name)``, if given, is called where
+    "labels" (numpy or tensors), and for the encdec family "frames" (B,
+    Se, d_model); microbatches split every key of it along the batch;
+    ``mark(name)``, if given, is called where
     each phase ("forward", "backward", "optimizer") begins and at the
     "end"."""
     rcfg = model.rcfg

@@ -5,8 +5,8 @@ the reference serves (dense, moe, ssm, hybrid and encdec): ``init``
 (per-layer parameters, quantized leaf by leaf as they are made),
 ``init_cache``, ``prefill(length=, frames=)``, ``decode_step``, plus
 ``apply_policy``, ``kv_decode_bytes_per_token`` and ``build_model``; and
-the training surface of the dense family: ``forward`` (full-sequence
-logits, each block under ``torch.utils.checkpoint`` when
+the training surface of every family: ``forward`` (full-sequence logits,
+each of the reference's remat units under ``torch.utils.checkpoint`` when
 ``rcfg.remat == "block"`` and gradients are on), ``loss`` and
 ``ce_loss``. ``tie_embeddings`` drops ``unembed`` and reads the logits
 through the transposed embedding, as the reference does.
@@ -112,7 +112,7 @@ def _apply_rule(name: str, leaf: torch.Tensor, policy: Optional[QuantPolicy]):
         return leaf
     if spec.kind in ("fp32", "bf16"):
         return leaf.to(torch.float32 if spec.kind == "fp32" else torch.bfloat16)
-    return quantize(leaf.to(torch.float32), spec, axis=-1)
+    return quantize(leaf, spec, axis=-1)
 
 
 def apply_policy(params, policy):
@@ -207,8 +207,11 @@ class LM:
         def dense(name, in_dim, out_dims, scale=None, dtype=dt):
             scale = in_dim ** -0.5 if scale is None else scale
             w = torch.randn((in_dim, *out_dims), generator=gen, device=dev,
-                            dtype=torch.float32) * scale
-            return _apply_rule(name, w.to(dtype), policy)
+                            dtype=torch.float32)
+            # in place, and the f32 draw dropped before the rule runs: a
+            # 256000 x 18432 table (nemotron-4-340b) is 18.9 GB in f32
+            w = w.mul_(scale).to(dtype)
+            return _apply_rule(name, w, policy)
 
         def ones(name, n):
             return _apply_rule(name, torch.ones((n,), dtype=dt, device=dev),
@@ -493,35 +496,78 @@ class LM:
 
     # -- training -------------------------------------------------------------
 
+    def _remat(self):
+        """``fn(*args)``, under ``torch.utils.checkpoint`` when
+        ``rcfg.remat == "block"`` and gradients are on (the reference's
+        ``jax.checkpoint`` of its ``scan_blocks`` body): the activations
+        inside are recomputed in the backward."""
+        if self.rcfg.remat == "block" and torch.is_grad_enabled():
+            return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False)
+        return lambda fn, *args: fn(*args)
+
     def forward(self, params, tokens: torch.Tensor, *, frames=None) -> torch.Tensor:
-        """Full-sequence logits (B, S, padded vocab), dense family. Each
-        block is called with ``positions`` and no cache; with
-        ``rcfg.remat == "block"`` and gradients on, each runs under
-        ``torch.utils.checkpoint`` (its activations recomputed in the
-        backward, as the reference's ``jax.checkpoint`` in ``scan_blocks``)."""
+        """Full-sequence logits (B, S, padded vocab) for every family, each
+        block called with ``positions`` and no cache. The remat unit is the
+        reference's: a layer (dense, ssm; the encoder's and decoder's
+        layers), a group of ``moe_every`` layers (moe: its dense layers,
+        then its MoE layer), and for hybrid the shared block on its own at
+        each application and each mamba2 layer (the shared block's gradient
+        sums over its applications). encdec needs ``frames`` (B, Se,
+        d_model): without them it stops where the reference's forward
+        asserts, with its words."""
         cfg, rcfg = self.cfg, self.rcfg
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"LM.forward (training) is ported for the dense family only; "
-                f"the {cfg.family} family's forward and gradients are ROADMAP "
-                "A10's next item")
+        fam = cfg.family
+        if fam == "encdec" and frames is None:
+            raise AssertionError("encdec forward needs encoder frames")
         tokens = tokens.to(self.device).long()
         B, Sq = tokens.shape
         positions = torch.arange(Sq, device=self.device)[None, :].expand(B, Sq)
         x = T.embed_tokens(params["embed"], tokens, self.act_dtype)
+        run = self._remat()
+        kw = dict(positions=positions, kernels=self.kernels)
 
-        def block(lp, h):
-            return T.dense_block_forward(lp, h, cfg, rcfg, positions=positions,
-                                         kernels=self.kernels)[0]
+        def attn_block(lp, h):
+            return T.block_forward(lp, h, cfg, rcfg, **kw)[0]
 
-        remat = rcfg.remat == "block" and torch.is_grad_enabled()
-        for lp in params["blocks"]:
-            x = checkpoint(block, lp, x, use_reentrant=False) if remat else block(lp, x)
+        def mamba_block(lp, h):
+            return T.mamba_block_forward(lp, h, cfg, kernels=self.kernels,
+                                         variant="mamba1" if fam == "ssm" else "mamba2")[0]
+
+        def group(layers, h):
+            for lp in layers:
+                h = attn_block(lp, h)
+            return h
+
+        blocks = params["blocks"]
+        if fam in ("dense", "moe"):
+            k = cfg.moe_every if fam == "moe" else 1
+            for g in range(0, len(blocks), k):
+                x = run(group, blocks[g:g + k], x)
+        elif fam == "ssm":
+            for lp in blocks:
+                x = run(mamba_block, lp, x)
+        elif fam == "hybrid":
+            first = 0
+            for size in self._hybrid_chunks():
+                x = run(attn_block, params["shared"], x)
+                for lp in blocks[first:first + size]:
+                    x = run(mamba_block, lp, x)
+                first += size
+        else:                                   # encdec
+            xa = self._encode(params, frames)
+
+            def xblock(lp, h, xa):
+                return T.decoder_xblock_forward(lp, h, cfg, rcfg, xa=xa, **kw)[0]
+
+            for lp in blocks:
+                x = run(xblock, lp, x, xa)
         return self._logits(params, x)
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(mean cross-entropy of ``batch["tokens"]``'s logits against
-        ``batch["labels"]``, {"loss": the same})."""
+        ``batch["labels"]``, {"loss": the same}); encdec reads
+        ``batch["frames"]``. As the reference's, it adds no MoE router
+        loss (``moe.router_aux_loss`` is a function apart)."""
         logits = self.forward(params, batch["tokens"], frames=batch.get("frames"))
         nll = ce_loss(logits, batch["labels"].to(self.device))
         return nll, {"loss": nll}
@@ -529,14 +575,19 @@ class LM:
     def _encode(self, params, frames: torch.Tensor) -> torch.Tensor:
         """encdec: the encoder over (B, Se, d_model) frames, in the
         activation dtype; rotary over the frame positions, no causal mask,
-        then ``enc_ln``."""
+        then ``enc_ln``. Each layer is remat'd as the decoder's are."""
         cfg, rcfg = self.cfg, self.rcfg
         xa = frames.to(self.device).to(self.act_dtype)
         B, Se, _ = xa.shape
         positions = torch.arange(Se, device=self.device)[None, :].expand(B, Se)
+        run = self._remat()
+
+        def layer(lp, h):
+            return T.dense_block_forward(lp, h, cfg, rcfg, positions=positions,
+                                         causal=False, kernels=self.kernels)[0]
+
         for lp in params["enc_blocks"]:
-            xa, _ = T.dense_block_forward(lp, xa, cfg, rcfg, positions=positions,
-                                          causal=False, kernels=self.kernels)
+            xa = run(layer, lp, xa)
         return rmsnorm(xa, params["enc_ln"], cfg.norm_eps)
 
     def _write_cross(self, lp, xa: torch.Tensor, lc) -> None:

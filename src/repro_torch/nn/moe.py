@@ -1,7 +1,8 @@
 """Mixture-of-Experts: top-k router + sort-based capacity dispatch.
 
-Port of ``repro/nn/moe.py`` (``moe_forward`` and the shapes of
-``moe_init``; the auxiliary router loss is training and waits):
+Port of ``repro/nn/moe.py`` (``moe_forward``, the shapes of ``moe_init``
+and ``router_aux_loss``, which ``LM.loss`` does not add, as in the
+reference):
 
   1. router logits in f32 (the router weight is never quantized) -> softmax
      -> top-k ids and renormalised gates;
@@ -19,18 +20,22 @@ Every shape is fixed by (T, k, E, C): no ``nonzero``, no boolean-mask
 indexing, no ``.item()``, so a step adds no host wait. The combine does not
 scatter-add (float atomics on the card would change the sum order from run
 to run): the sorted contributions are put back in (token, choice) order, a
-permutation, and summed over the k choices.
+permutation, and summed over the k choices. In the backward, the dropped
+assignments' row E*C is cut off before the expert products and their
+gathers are masked, so their gradient is zero; the permutation's backward
+is a gather, with nothing to accumulate.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.ops import KernelSet
 from .layers import activation, is_gated, mlp_forward, mlp_shapes, param_value
 
-__all__ = ["moe_shapes", "moe_capacity", "moe_forward"]
+__all__ = ["moe_shapes", "moe_capacity", "moe_forward", "router_aux_loss"]
 
 
 def moe_shapes(cfg) -> dict:
@@ -99,3 +104,17 @@ def moe_forward(p: dict, x: torch.Tensor, cfg,
     if cfg.n_shared_experts:
         y = y + mlp_forward(p["shared"], xt, cfg.act, kernels=kernels)
     return y.reshape(B, S, d)
+
+
+def router_aux_loss(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:
+    """Switch-style load-balancing loss, E * sum_e f_e P_e: f_e the share
+    of the top-k choices that go to expert e, P_e its mean router
+    probability, over the B * S tokens of x (B, S, d)."""
+    T = x.shape[0] * x.shape[1]
+    E = cfg.n_experts
+    logits = torch.matmul(x.reshape(T, -1).to(torch.float32),
+                          param_value(p["router"], torch.float32))
+    probs = torch.softmax(logits, dim=-1)
+    topk_idx = torch.topk(probs, cfg.top_k, dim=-1).indices
+    frac = F.one_hot(topk_idx, E).to(torch.float32).mean(dim=(0, 1))
+    return E * torch.sum(frac * probs.mean(0))

@@ -10,7 +10,10 @@ over the whole sequence:
   chunks follow each other in a loop (the reference's ``lax.scan``).
 * Mamba2 (zamba2): one scalar A per head (SSD). Inside a chunk the decay
   mask L turns the recurrence into products, (C B^T * L) X plus the
-  incoming state; the state passes from chunk to chunk.
+  incoming state; the state passes from chunk to chunk. L's log decays
+  are summed within each segment, where the reference subtracts
+  cumulative sums: the same in exact arithmetic, closer in f32
+  (``_ssd_chunk``).
 
 Decode is the same code at S = 1 (one chunk of one step) against the
 carried state: {"conv": (B, K-1, conv_dim), "ssm": (B, ...)}, both f32.
@@ -252,19 +255,24 @@ def _ssd_chunk(x, dt, A, Bm, Cm, h0):
     c = x.shape[1]
     la = dt * A                                         # (B, c, nh), <= 0
     cum = torch.cumsum(la, dim=1)
-    # L[t, i] = exp(cum_t - cum_i) for i <= t, else 0; masked before the
-    # exp (the i > t entries are positive and would overflow)
-    Lm = cum[:, :, None, :] - cum[:, None, :, :]        # (B, t, i, nh)
+    # L[t, i] = exp(seg[t, i]) for i <= t, else 0, with seg[t, i] =
+    # sum_{i<j<=t} la_j summed within the segment. The reference takes
+    # cum_t - cum_i, the same sum in exact arithmetic; in f32 the
+    # difference of two cumulative sums of order 1e2-1e3 keeps only their
+    # last bits, and the backward's reverse cumsums amplify that in the
+    # gradients of dt_bias and A_log
+    ltri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device), -1)
+    seg = torch.cumsum(torch.where(ltri[None, :, :, None], la[:, :, None, :], 0.0), dim=1)
     tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device))
-    Lm = torch.exp(torch.where(tri[None, :, :, None], Lm,
-                               torch.full_like(Lm, -1e30)))
+    Lm = torch.exp(torch.where(tri[None, :, :, None], seg,
+                               torch.full_like(seg, -1e30)))  # (B, t, i, nh)
     CB = torch.einsum("bts,bis->bti", Cm, Bm)
     W = CB[..., None] * Lm                              # (B, t, i, nh)
     dx = dt[..., None] * x                              # (B, c, nh, dh)
     y = torch.einsum("btih,bihd->bthd", W, dx)
     decay0 = torch.exp(cum)
     y = y + torch.einsum("bts,bhds,bth->bthd", Cm, h0, decay0)
-    w_last = torch.exp(cum[:, -1:, :] - cum)            # (B, c, nh)
+    w_last = Lm[:, -1]                                  # (B, c, nh)
     h_last = (torch.exp(cum[:, -1])[:, :, None, None] * h0
               + torch.einsum("bih,bihd,bis->bhds", w_last, dx, Bm))
     return y, h_last

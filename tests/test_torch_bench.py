@@ -58,9 +58,12 @@ def test_full_rows_on_cpu_at_reduced_shapes(monkeypatch, capsys):
     # pofx_decode: 6 sweep rows, one (8, 2) row per weight shape, one (9, 2) row
     assert names.count("pofx_decode") == 6 + 2 + 1
     # flash decode: 2 specs x 2 S at G = 4, R = 8, and fxp8 x 2 S at G = 16,
-    # R = 1 (moonshot) and at G = 32, R = 1, Dh = 64 (zamba2)
-    assert names.count("kv_flash_decode") == 4 + 2 + 2
-    assert names.count("kv_flash_paged_decode") == 4 + 2 + 2
+    # R = 1 (moonshot), at G = 32, R = 1, Dh = 64 (zamba2) and at G = 8,
+    # R = 12, Dh = 192 (nemotron)
+    assert names.count("kv_flash_decode") == 4 + 2 + 2 + 2
+    assert names.count("kv_flash_paged_decode") == 4 + 2 + 2 + 2
+    nemotron_kv = [r for r in rows if "G=8 R=12" in r["shape"]]
+    assert len(nemotron_kv) == 4 and all("Dh=192" in r["shape"] for r in nemotron_kv)
     # pofx_matmul: 2 sweep rows, m = 4, 64 per yi-9b shape, m = 1 unembed,
     # m = 1, 4, 64 per moonshot shape, m = 4, 64 per ssm/hybrid shape,
     # m = 1 per ssm/hybrid unembed and m = 4, 256 per whisper shape

@@ -428,6 +428,37 @@ def test_kv_flash_decode_hybrid_geometry_dense_and_paged_match_plain(cuda, spec_
     _dense_and_paged_match_plain(cuda, 4, 32, 1, 64, spec_s, S)
 
 
+# nemotron-4-340b's attention: 8 groups of 12 query rows (two row groups of
+# 8 a (b, g)), Dh = 192 (12-byte score loads, 6-byte P V loads)
+@pytest.mark.parametrize("spec_s", ["fxp8", "pofx8es2"])
+@pytest.mark.parametrize("S", [96, 1000, 4096])
+def test_kv_flash_decode_dh192_geometry_dense_and_paged_match_plain(cuda, spec_s, S):
+    _dense_and_paged_match_plain(cuda, 4, 8, 12, 192, spec_s, S)
+
+
+@pytest.mark.parametrize("B,R", [(1, 1), (3, 5), (2, 32)])
+def test_kv_flash_decode_dh192_bf16_q_and_row_counts_match_plain(cuda, B, R):
+    spec = parse_spec("pofx6es1")
+    q, kc, ks, vc, vs = _kv_dense(cuda, spec, B, 2, R, 333, 192, seed=B * R)
+    pos = torch.tensor([333, 1, 200][:B], dtype=torch.int32, device=cuda)
+    for qq in (q, q.to(torch.bfloat16)):
+        torch.testing.assert_close(kv_flash_decode(qq, kc, ks, vc, vs, pos, spec),
+                                   kv_flash_decode_ref(qq, kc, ks, vc, vs, pos, spec),
+                                   rtol=1e-4, atol=1e-5)
+
+
+def test_flash_decode_wrappers_refuse_head_dims_not_built(cuda):
+    spec = parse_spec("fxp8")
+    q, kc, ks, vc, vs = _kv_dense(cuda, spec, 1, 2, 2, 64, 96, seed=0)
+    pos = torch.tensor([64], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="supports Dh"):
+        kv_flash_decode(q, kc, ks, vc, vs, pos, spec)
+    tables = torch.zeros(1, 4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="supports Dh"):
+        kv_flash_paged_decode(q, kc[0].reshape(4, 2, 16, 96), ks[0], vc[0].reshape(4, 2, 16, 96),
+                              vs[0], tables, pos, spec)
+
+
 def _dense_and_paged_match_plain(cuda, B, G, R, Dh, spec_s, S):
     spec = parse_spec(spec_s)
     q, kc, ks, vc, vs = _kv_dense(cuda, spec, B, G, R, S, Dh, seed=G * S + R)

@@ -264,3 +264,22 @@ def test_out_channel_scale_raises_where_reference_raises(scale_shape, codes_shap
         return
     got = out_channel_scale(torch.from_numpy(s), codes_shape)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_pofx_matmul_plain_in_column_blocks_equals_whole(monkeypatch):
+    """Past REF_CHUNK weights the plain version decodes and multiplies in
+    blocks of whole columns (nemotron's 18432 x 73728 MLP): the same f32
+    outputs, and the reference kernel's."""
+    from repro_torch.kernels import ref
+    rng = np.random.default_rng(5)
+    codes = rng.integers(0, 128, (64, 100)).astype(np.uint8)
+    scale = np.exp2(rng.integers(-2, 2, (100,))).astype(np.float32)
+    x = rng.standard_normal((5, 64)).astype(np.float32)
+    args = [torch.from_numpy(a) for a in (x, codes, scale)]
+    whole = ref.pofx_matmul_ref(*args, 8, 2)
+    monkeypatch.setattr(ref, "REF_CHUNK", 64 * 7)
+    blocks = ref.pofx_matmul_ref(*args, 8, 2)
+    assert torch.equal(blocks, whole)
+    want = np.asarray(j_pofx_matmul(jnp.asarray(x), jnp.asarray(codes), jnp.asarray(scale),
+                                    8, 2, interpret=True))
+    np.testing.assert_allclose(blocks.numpy(), want, rtol=1e-5, atol=1e-5)

@@ -143,3 +143,24 @@ def test_split_emulation_matches_plain_and_reference_kernel(spec_s, S, block_s):
     ref = np.asarray(j_kv_flash_decode(*map(jnp.asarray, arrays), jnp.asarray(pos), spec,
                                        block_s=block_s))
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("spec_s,S,block_s", [("fxp8", 96, 16), ("pofx8es2", 96, 32),
+                                              ("fxp8", 1000, 40)])
+def test_split_emulation_at_nemotron_geometry(spec_s, S, block_s):
+    """nemotron-4-340b's attention: G = 8 groups of R = 12 query rows (two
+    row groups of 8 in the kernel), Dh = 192; pos at 1, L, S - 1 and S."""
+    spec = SPECS[spec_s]
+    B, G, R, Dh = 4, 8, 12, 192
+    p = plan(B, G, S)
+    assert p.splits > 2
+    pos = np.array([1, p.chunk, S - 1, S], np.int32)
+    arrays = _inputs(spec, B, G, R, S, Dh, seed=S + 192)
+    q, kc, ks, vc, vs = (torch.from_numpy(a) for a in arrays)
+    got, neutral = split_emulation(q, kc, ks, vc, vs, torch.from_numpy(pos), tspec(spec), p)
+    assert neutral > 0
+    want = kv_flash_decode_ref(q, kc, ks, vc, vs, torch.from_numpy(pos), tspec(spec))
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+    ref = np.asarray(j_kv_flash_decode(*map(jnp.asarray, arrays), jnp.asarray(pos), spec,
+                                       block_s=block_s))
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-5)

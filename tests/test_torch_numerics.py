@@ -181,3 +181,26 @@ def test_validate_kv_spec_rules_match():
             tq.validate_kv_spec(_tspec(spec))
     with pytest.raises(ValueError, match="kv code path"):
         tq.kv_quantize(torch.ones(2, 2), tq.QuantSpec(kind="posit"), torch.ones(1))
+
+
+@pytest.mark.parametrize("spec", [tq.QuantSpec(kind="pofx", N=8, ES=2),
+                                  tq.QuantSpec(kind="pofx", N=6, ES=1, scale_mode="tensor_pow2"),
+                                  tq.QuantSpec(kind="fxp", M=8, F=7),
+                                  tq.QuantSpec(kind="posit", N=8, ES=2, scale_mode="channel")])
+@pytest.mark.parametrize("shape", [(300, 70), (7, 40, 30)])
+def test_quantize_in_row_slices_equals_whole_leaf_and_reference(spec, shape, monkeypatch):
+    """A leaf is quantized in slices of at most QUANT_CHUNK elements along
+    axis 0 (nemotron's 256000 x 18432 tables take many): codes and scale in
+    many slices equal those in one slice, and the reference's, bit for
+    bit; a bf16 leaf is read slice by slice."""
+    w = (np.random.default_rng(0).standard_normal(shape) * 0.3).astype(np.float32)
+    whole = tq.quantize(torch.from_numpy(w), spec, axis=-1)
+    monkeypatch.setattr(tq, "QUANT_CHUNK", 97)
+    sliced = tq.quantize(torch.from_numpy(w), spec, axis=-1)
+    assert torch.equal(sliced.codes, whole.codes) and torch.equal(sliced.scale, whole.scale)
+    assert sliced.codes.dtype == whole.codes.dtype
+    ref = jq.quantize(jnp.asarray(w), jq.QuantSpec(**dataclasses.asdict(spec)), axis=-1)
+    np.testing.assert_array_equal(sliced.codes.numpy(), np.asarray(ref.codes))
+    wb = torch.from_numpy(w).to(torch.bfloat16)
+    assert torch.equal(tq.quantize(wb, spec, axis=-1).codes,
+                       tq.quantize(wb.float(), spec, axis=-1).codes)

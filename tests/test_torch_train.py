@@ -1,4 +1,5 @@
-"""The port's training path against the reference's at the smoke size:
+"""The port's training path against the reference's at the smoke size,
+dense family (yi-9b; the other families: ``tests/test_torch_train_*.py``):
 ``ce_loss``, ``LM.forward``/``LM.loss`` and their gradients (flash
 backward, block remat, the embedding's scatter), three steps of
 ``make_train_step`` against the reference's jitted step, and the CLI.
@@ -113,14 +114,6 @@ def test_embedding_backward_adds_repeated_tokens():
     want = np.zeros((10, 4), np.float32)
     np.add.at(want, toks.numpy(), up.numpy())
     np.testing.assert_allclose(emb.grad.numpy(), want, rtol=1e-6, atol=1e-6)
-
-
-@pytest.mark.parametrize("arch", ["moonshot-v1-16b-a3b", "falcon-mamba-7b", "zamba2-1.2b",
-                                  "whisper-medium"])
-def test_other_families_refuse_training(arch):
-    model = build_model(smoke(ARCHS[arch]), RunConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        model.forward({}, torch.zeros((1, 4), dtype=torch.long))
 
 
 # -- three train steps against the reference's jitted step ---------------------
