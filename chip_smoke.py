@@ -123,6 +123,20 @@ Phases, one line each, any failure exits non-zero without the final line:
    kv_flash_paged_decode (paged) a layer and decode step, the paged
    streams equal to the dense ones, and first-token logits of kernels
    against the plain path at f32 within 1e-3 of the largest logit.
+16. tensor-parallel serving at tp = 2 (``phase_tp``): (a) the serving CLI
+   with MAIN_ARGV + ``--tp 2`` (yi-9b, 48 layers, bf16; two rank
+   processes, on one card over gloo, with a card a rank over NCCL): each
+   rank launches exactly the tp = 1 counts (337 pofx_matmul a forward, 48
+   kv_flash_decode a decode step); the backend, tok/s, weight GiB a rank
+   and the all-reduce's share of a decode step (a profile in each rank);
+   the streams equal to phase 3's are counted, not gated (at bf16 a sum
+   split over ranks may flip a token); (b) at yi-9b width, 4 layers, f32,
+   kernels on, fxp8 KV: tp = 2 greedy, sampled, paged and evict -> resume
+   streams equal tp = 1's; (c) moonshot on 2 layers and zamba2 on its
+   first 12 (two applications of the shared block) at f32, tp = 2 against
+   tp = 1, then moonshot at bf16 on 12 layers with the CLI's workload and
+   its launch counts a rank; (d) (b) again over NCCL where there is a card
+   a rank, else one line saying NCCL was not run.
 
 Before torch is imported, the CUDA driver is asked to start in a process of
 its own (``wait_for_card``): a freshly booted host may refuse for a while
@@ -204,13 +218,15 @@ def log(msg: str) -> None:
 
 
 def serve(torch, model, params, *, n_req=8, prompt_len=64, gen=32, slots=4, chunk=8,
-          watch=None, sampling=None):
+          watch=None, sampling=None, paged=False):
     """The engine over ``model`` serving the CLI's default workload (the
-    requests ``serve.main`` makes, greedy unless ``sampling`` is given);
-    ``watch(engine)`` sees the engine before it runs."""
+    requests ``serve.main`` makes, greedy unless ``sampling`` is given;
+    ``paged``: 16-token pages); ``watch(engine)`` sees the engine before it
+    runs."""
     from repro_torch.launch.engine import SamplingParams, ServeEngine
     from repro_torch.launch.serve import make_requests
-    eng = ServeEngine(model, params, n_slots=slots, max_len=prompt_len + gen, chunk=chunk)
+    eng = ServeEngine(model, params, n_slots=slots, max_len=prompt_len + gen, chunk=chunk,
+                      paged=paged, page_size=16)
     if watch is not None:
         watch(eng)
     reqs = make_requests(model.cfg.vocab_size, n_req, prompt_len, gen,
@@ -373,8 +389,9 @@ def profile_decode(torch, model, params, steps: int = 4, paged: bool = False,
             # work on the card: kernels, copies and sets (an aten op's own
             # device time is its kernels', and a region's is its span)
             dev_us = getattr(evt, "self_device_time_total", 0) or 0
+            # ("nccl:*" are NCCL's own ranges over its kernels, counted once)
             if evt.device_type == DeviceType.CUDA and evt.key not in (regions or {}) \
-                    and dev_us > 0:
+                    and not evt.key.startswith("nccl:") and dev_us > 0:
                 by_name[evt.key] = dev_us / 1e3 / steps
             host[evt.key] = evt.self_cpu_time_total / 1e3 / steps
             # host calls that wait for the card (the last one, after the
@@ -394,19 +411,27 @@ def profile_decode(torch, model, params, steps: int = 4, paged: bool = False,
                                 if e.name == label and e.device_type == DeviceType.CPU)
                      / 1e3 / steps
                      for label in regions or {}}
+        # and the host's span of each region, a step (a collective waits there)
+        region_host_ms = {label: sum(e.cpu_time_total for e in prof.events()
+                                     if e.name == label and e.device_type == DeviceType.CPU)
+                          / 1e3 / steps
+                          for label in regions or {}}
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
         top_host = sorted(host.items(), key=lambda kv: -kv[1])[:6]
         log(f"  decode step profile: wall {wall_ms:.2f} ms ({bare_ms:.2f} ms without the "
             f"profiler), device busy {busy:.2f} ms ({100 * (1 - busy / wall_ms):.1f}% idle), "
             f"attention {attn:.3f} ms, pofx_matmul {pofx:.3f} ms; host waits per step {syncs}")
         if region_ms:
-            log(f"  device ms a step inside {', '.join(f'{k} {v:.3f}' for k, v in region_ms.items())}")
+            log(f"  device ms a step inside {', '.join(f'{k} {v:.3f}' for k, v in region_ms.items())}"
+                f"; host ms a step inside "
+                f"{', '.join(f'{k} {v:.3f}' for k, v in region_host_ms.items())}")
         for name, ms in top:
             log(f"    {ms:8.3f} ms/step  {name[:90]}")
         for name, ms in top_host:
             log(f"    {ms:8.3f} ms/step host  {name[:84]}")
         return {"wall_ms": wall_ms, "bare_wall_ms": bare_ms, "device_busy_ms": busy,
                 "attention_ms": attn, "pofx_matmul_ms": pofx, "region_ms": region_ms,
+                "region_host_ms": region_host_ms,
                 "host_waits_per_step": syncs, "top": [[n, ms] for n, ms in top],
                 "top_host": [[n, ms] for n, ms in top_host]}
     except Exception:  # the profile is an aside: record why it is missing
@@ -1716,10 +1741,218 @@ def phase_nemotron(torch, result):
     return counts
 
 
+# phase 16: tensor-parallel serving, tp = 2. On a one-card machine both ranks
+# share cuda:0 over gloo (NCCL refuses two ranks on one device), so no speed-up
+# is claimed; (d) reruns (b) over NCCL where each rank has a card of its own.
+TP_ARGV = MAIN_ARGV + ["--tp", "2"]
+TP_IDENTITY_LAYERS = 4          # (b), yi-9b width, f32
+TP_MOE_LAYERS = 2               # (c), moonshot at f32
+TP_ZAMBA_LAYERS = 12            # (c), zamba2: two applications of the shared block
+TP_MOE_BF16_LAYERS = 12         # (c), moonshot at bf16, the CLI's workload
+
+
+def tp_weight_gib(params) -> float:
+    """GiB of a rank's parameters: codes and scales, or plain tensors."""
+    from repro_torch.core.policy import named_leaves
+    from repro_torch.core.quantizers import QuantizedTensor
+    n = 0
+    for _, leaf in named_leaves(params):
+        for t in ((leaf.codes, leaf.scale) if isinstance(leaf, QuantizedTensor) else (leaf,)):
+            n += t.numel() * t.element_size()
+    return n / 2**30
+
+
+def tp_cli_hook(run, ctx):
+    """Phase 16 (a)'s rank hook, in each rank after the CLI served: the
+    rank's weight GiB and a decode-step profile with the all-reduce
+    (``TPContext.psum``) in a ``record_function`` range. Every rank
+    profiles the same steps (the all-reduces pair up); rank 0 prints."""
+    import contextlib
+    import torch
+    from repro_torch.nn.sharding import TPContext
+    gib = tp_weight_gib(run.params)
+    out = open(os.devnull, "w") if ctx.rank else contextlib.nullcontext()
+    with out as sink, contextlib.redirect_stdout(sink or sys.stdout):
+        prof = profile_decode(torch, run.model, run.params,
+                              regions={"tp_all_reduce": (TPContext, "psum")})
+    return {"rank": ctx.rank, "weight_gib": gib, "profile": prof,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def tp_rank_serve(ctx, device, spec):
+    """Phase 16's rank side (in a rank process; at tp = 1 in this one): the
+    model of ``spec`` (arch, layers, activation dtype; pofx8 weights from
+    seed 1, cut to the rank's shard as they are drawn; an fxp8 KV cache;
+    kernels on) served through the engine with the CLI's workload for each
+    of ``spec["runs"]``: greedy, sampled (temperature 0.8, top-k 40), paged
+    (16-token pages), evict (sampled, rid 0 evicted after its first chunk
+    and resumed). Returns {run: {"streams", "launches", stats}}."""
+    import torch
+    from repro_torch.configs import ARCHS, RunConfig
+    from repro_torch.core.policy import QuantPolicy, parse_spec
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.engine import SamplingParams, ServeEngine
+    from repro_torch.launch.serve import make_requests
+    from repro_torch.nn.models import build_model
+    cfg = dataclasses.replace(ARCHS[spec["arch"]], n_layers=spec["layers"])
+    model = build_model(cfg, RunConfig(remat="none", activation_dtype=spec["act"]),
+                        device=device, use_kernel=True, kv_spec=parse_spec("fxp8"), tp=ctx)
+    params = model.init(1, policy=QuantPolicy.from_string("pofx8"))
+    sp = SamplingParams(**SAMPLING)
+    out = {"weight_gib": tp_weight_gib(params)}
+    for what in spec["runs"]:
+        reset_launches()
+        if what == "evict":
+            eng = ServeEngine(model, params, n_slots=4, max_len=96, chunk=8)
+            streams, _ = drive_paging(eng, make_requests(cfg.vocab_size, 8, 64, 32,
+                                                         sampling=sp), evict_rid=0)
+            streams = [streams[r] for r in sorted(streams)]
+            if eng._states[0].n_evictions != 1:
+                raise AssertionError("rid 0 was not evicted")
+        else:
+            eng, done, _ = serve(torch, model, params,
+                                 sampling=sp if what == "sampled" else None,
+                                 **({"paged": True} if what == "paged" else {}))
+            streams = [s.out for s in done]
+        torch.cuda.synchronize()
+        st = eng.stats()
+        out[what] = {"streams": streams, "launches": dict(LAUNCHES),
+                     "decode_tok_s": st["decode_tok_per_s"], "decode_steps": st["decode_steps"],
+                     "prefill_sampled": st["prefill_sampled_tokens"]}
+        del eng
+    return out
+
+
+def tp_compare(torch, spec, label, pool, want=None):
+    """``spec`` at tp = 1 in this process (unless ``want`` holds its runs)
+    and at tp = 2 in ``pool``: every rank's streams equal rank 0's, and
+    each run's streams equal tp = 1's; returns (tp = 1, rank results)."""
+    from repro_torch.nn.sharding import TPContext
+    one = want or tp_rank_serve(TPContext(), "cuda", spec)
+    torch.cuda.empty_cache()
+    ranks = pool.run(tp_rank_serve, spec)
+    same = {}
+    for what in spec["runs"]:
+        for r, res in enumerate(ranks):
+            if res[what]["streams"] != ranks[0][what]["streams"]:
+                raise AssertionError(f"{label} {what}: rank {r} parts from rank 0")
+        same[what] = sum(a == b for a, b in zip(ranks[0][what]["streams"], one[what]["streams"]))
+    log(f"  {label}: tp=2 streams identical to tp=1: "
+        + ", ".join(f"{w} {n}/{len(one[w]['streams'])}" for w, n in same.items())
+        + f"; launches a rank {[ranks[0][w]['launches'] for w in spec['runs']]}; "
+        f"weights {ranks[0]['weight_gib']:.3f} GiB a rank vs {one['weight_gib']:.3f} at tp=1")
+    for what, n in same.items():
+        if n != len(one[what]["streams"]):
+            raise AssertionError(f"{label} {what}: tp=2 streams differ from tp=1's")
+    return one, ranks
+
+
+def phase_tp(torch, result):
+    """Phase 16: tensor-parallel serving at tp = 2. (a) the serving CLI with
+    MAIN_ARGV + ``--tp 2`` (yi-9b, full width and depth, bf16): each rank
+    launches exactly the tp = 1 counts (337 pofx_matmul a forward, 48
+    kv_flash_decode a decode step), prints the backend, tok/s, weight GiB a
+    rank and the all-reduce's share of a decode step; the streams equal to
+    phase 3's are counted, not gated (at bf16 TP reorders sums, DESIGN.md
+    §9). (b) at 4 layers, f32, kernels on, fxp8 KV: tp = 2 greedy, sampled,
+    paged and evict -> resume streams equal tp = 1's. (c) moonshot on 2
+    layers and zamba2 on its first 12 at f32, tp = 2 against tp = 1; then
+    moonshot at bf16 on 12 layers with the CLI's workload, its launch
+    counts a rank. (d) (b) again over NCCL where there is a card a rank."""
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.launch.mesh import RankPool, pick_backend
+    entry = {}
+    # (a) the CLI
+    log(f"  repro_torch.launch.serve {' '.join(TP_ARGV)}")
+    t0 = time.perf_counter()
+    run = serve_cli.main(TP_ARGV, rank_hook=tp_cli_hook)
+    wall = time.perf_counter() - t0
+    st = run.stats
+    per_fwd = 7 * 48 + 1
+    want = {"pofx_matmul": per_fwd * (st["prefill_sampled_tokens"] + st["decode_steps"]),
+            "kv_flash_decode": 48 * st["decode_steps"], "kv_flash_paged_decode": 0,
+            "fxp_matmul": 0, "pofx_decode": 0}
+    n_prompt = sum(len(s.context) for s in run.done)
+    prof = run.rank_hooks[0]["profile"] or {}
+    ar_ms = prof.get("region_host_ms", {}).get("tp_all_reduce")
+    share = ar_ms / prof["wall_ms"] if ar_ms is not None and prof.get("wall_ms") else None
+    main = result.get("main_streams")
+    same_main = (sum(s.out == m for s, m in zip(run.done, main)) if main else None)
+    a = {"argv": TP_ARGV, "backend": run.backend, "tp": run.tp, "wall_s": wall,
+         "launches": run.rank_launches, "prefill_tok_s": n_prompt / st["prefill_time_s"],
+         "decode_tok_s": st["decode_tok_per_s"], "decode_steps": st["decode_steps"],
+         "weight_gib": [h["weight_gib"] for h in run.rank_hooks],
+         "peak_gib": [h["peak_gib"] for h in run.rank_hooks],
+         "decode_profile": prof or None, "all_reduce_ms_a_step": ar_ms,
+         "all_reduce_share": share, "identical_to_phase3": same_main,
+         "streams": [s.out for s in run.done]}
+    log(f"  tp=2 over {run.backend}: prefill {a['prefill_tok_s']:.1f} tok/s, decode "
+        f"{a['decode_tok_s']:.1f} tok/s, weights "
+        f"{', '.join(f'{g:.2f}' for g in a['weight_gib'])} GiB a rank, peak "
+        f"{', '.join(f'{g:.2f}' for g in a['peak_gib'])} GiB a rank; all-reduce "
+        + (f"{ar_ms:.2f} ms of a {prof['wall_ms']:.2f} ms decode step ({100 * share:.1f}%)"
+           if share is not None else "not measured")
+        + f"; streams equal to phase 3's: "
+        + (f"{same_main}/8 (bf16: counted, not gated)" if main else "phase 3 not run"))
+    log(f"  launches a rank: {run.rank_launches}")
+    entry["cli"] = a
+    result["tp"] = entry
+    for r, counts in enumerate(run.rank_launches):
+        if counts != want:
+            raise AssertionError(f"tp rank {r} launch counts {counts} != expected {want}")
+    if len(run.done) != 8 or any(len(s.out) != 32 for s in run.done):
+        raise AssertionError("tp=2 CLI: bad outputs")
+    if run.backend != pick_backend(2, "cuda"):
+        raise AssertionError(f"tp=2 CLI ran over {run.backend}")
+    del run
+    # (b), (c): one pool of two ranks for every comparison
+    ident = {"arch": "yi-9b", "layers": TP_IDENTITY_LAYERS, "act": "f32",
+             "runs": ["greedy", "sampled", "paged", "evict"]}
+    with RankPool(2, "cuda") as pool:
+        log(f"  ranks over {pool.backend}")
+        one, _ = tp_compare(torch, ident, f"yi-9b {TP_IDENTITY_LAYERS} layers f32", pool)
+        entry["identity_4l"] = {"backend": pool.backend, "tp1": one}
+        tp_compare(torch, {"arch": "moonshot-v1-16b-a3b", "layers": TP_MOE_LAYERS,
+                           "act": "f32", "runs": ["greedy"]},
+                   f"moonshot {TP_MOE_LAYERS} layers f32", pool)
+        tp_compare(torch, {"arch": "zamba2-1.2b", "layers": TP_ZAMBA_LAYERS,
+                           "act": "f32", "runs": ["greedy"]},
+                   f"zamba2 {TP_ZAMBA_LAYERS} layers f32", pool)
+        moe = pool.run(tp_rank_serve, {"arch": "moonshot-v1-16b-a3b",
+                                       "layers": TP_MOE_BF16_LAYERS, "act": "bf16",
+                                       "runs": ["greedy"]})
+        g = [res["greedy"] for res in moe]
+        mwant = {"pofx_matmul": (7 * TP_MOE_BF16_LAYERS + 1)
+                 * (g[0]["prefill_sampled"] + g[0]["decode_steps"]),
+                 "kv_flash_decode": TP_MOE_BF16_LAYERS * g[0]["decode_steps"],
+                 "kv_flash_paged_decode": 0, "fxp_matmul": 0, "pofx_decode": 0}
+        log(f"  moonshot {TP_MOE_BF16_LAYERS} layers bf16: decode "
+            f"{g[0]['decode_tok_s']:.2f} tok/s; launches a rank {[x['launches'] for x in g]}; "
+            f"weights {moe[0]['weight_gib']:.2f} GiB a rank")
+        entry["moe_bf16"] = {"layers": TP_MOE_BF16_LAYERS, "decode_tok_s": g[0]["decode_tok_s"],
+                             "launches": [x["launches"] for x in g],
+                             "weight_gib": moe[0]["weight_gib"]}
+        if any(x["launches"] != mwant for x in g) or g[0]["streams"] != g[1]["streams"]:
+            raise AssertionError(f"moonshot bf16 tp=2: launches {[x['launches'] for x in g]} "
+                                 f"!= {mwant}, or the ranks' streams differ")
+    # (d) NCCL, one card a rank
+    if torch.cuda.device_count() >= 2:
+        with RankPool(2, "cuda") as pool:
+            if pool.backend != "nccl":
+                raise AssertionError(f"two cards, but the ranks took {pool.backend}")
+            tp_compare(torch, ident, f"NCCL: yi-9b {TP_IDENTITY_LAYERS} layers f32", pool,
+                       want=one)
+        entry["nccl"] = "ran"
+    else:
+        log(f"  NCCL not run: {torch.cuda.device_count()} card(s), it needs one a rank")
+        entry["nccl"] = "not run"
+    torch.cuda.empty_cache()
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="drive the port on one card")
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,12,13,14,15",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases after the build (default: all)")
     want = {int(p) for p in ap.parse_args(argv).phases.split(",")}
     state = wait_for_card()
@@ -1793,6 +2026,8 @@ def main(argv) -> int:
          lambda: phase_train_families(torch, result)),
         ("phase 15: nemotron-4-340b serving (d_head 192), full width, 2 layers",
          lambda: result.__setitem__("nemotron_counts", phase_nemotron(torch, result))),
+        ("phase 16: tensor-parallel serving, tp=2",
+         lambda: phase_tp(torch, result)),
     ]
     for label, fn in phases:
         if int(label.split()[1].rstrip(":")) not in want:
@@ -1816,7 +2051,7 @@ def main(argv) -> int:
     if failed:
         log(f"FAILED: {failed}")
         return 1
-    if want != set(range(2, 16)):
+    if want != set(range(2, 17)):
         log(f"ran phases {sorted(want)} only: no result line")
         return 1
     main_counts = result["main_counts"]

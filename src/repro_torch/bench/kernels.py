@@ -37,7 +37,10 @@ size. The rows:
     unembed at m = 4 (decode, and the one-shot prefill's unembed) and m =
     256 (the one-shot prefill: 4 sequences x 64 positions, encoder and
     decoder); both flash-decode kernels (fxp8) at nemotron-4-340b's G = 8,
-    R = 12, Dh = 192 (two row groups of 8 a (b, g));
+    R = 12, Dh = 192 (two row groups of 8 a (b, g)); and at the shapes a
+    rank serves at tensor parallelism tp = 2: pofx_matmul at m = 4 and 64 on
+    yi-9b's, moonshot's and zamba2's weight shards (``TP2_SHAPES_POFX``) and
+    both flash-decode kernels (fxp8) at yi-9b's G = 2, R = 8;
 (c) pofx_decode at the five yi-9b weight shapes, (N, ES) = (8, 2), and at
     the mlp shape with (9, 2).
 
@@ -75,7 +78,7 @@ from repro_torch.kernels.ref import gather_pages
 from .common import Timer, bound_ms, nvidia_smi, write_csv
 
 __all__ = ["SHAPES_POFX", "MOE_SHAPES_POFX", "SSM_SHAPES_POFX",
-           "WHISPER_SHAPES_POFX", "POFX_SPECS", "run", "main"]
+           "WHISPER_SHAPES_POFX", "TP2_SHAPES_POFX", "POFX_SPECS", "run", "main"]
 
 # yi-9b weight shapes (k, n): q/o, k/v, gate/up, down, unembed
 SHAPES_POFX = [(4096, 4096), (4096, 512), (4096, 11008), (11008, 4096), (4096, 64000)]
@@ -93,6 +96,12 @@ SSM_UNEMBEDS = [(4096, 65024), (2048, 32000)]
 # whisper-medium's kernel shapes (k, n): q/k/v/o (self and cross), wi, wo,
 # the unembed (vocab 51865 padded to 51968)
 WHISPER_SHAPES_POFX = [(1024, 1024), (1024, 4096), (4096, 1024), (1024, 51968)]
+# a rank's weight shards at tp = 2 (k, n): yi-9b's q, k/v, attention o (k
+# halved), gate/up and down; moonshot's q/k/v, o and shared experts' gate/up
+# and down (zamba2's q/k/v and o are moonshot's, its wi and wo yi-9b's
+# attention o and q)
+TP2_SHAPES_POFX = [(4096, 2048), (4096, 256), (2048, 4096), (4096, 5504), (5504, 4096),
+                   (2048, 1024), (1024, 2048), (2048, 1408), (1408, 2048)]
 POFX_SPECS = [(N, ES) for N in (6, 7, 8) for ES in (1, 2, 3)]
 # every (N, ES, M) pofx_decode accepts
 DECODE_PARAMS = [(N, ES, M) for N in range(3, 10) for ES in range(5) for M in range(1, 9)]
@@ -404,6 +413,13 @@ def run(device="cuda", *, smoke: bool = False, timer: Optional[Timer] = None) ->
     for S, pos_list in KV_SHAPES:
         bench.kv_flash_decode_row("fxp8", S, pos_list, G=8, R=12, Dh=192)
         bench.kv_flash_paged_decode_row("fxp8", S, pos_list, G=8, R=12, Dh=192)
+    # tp = 2: a rank's weight shards, and yi-9b's 2 kv groups a rank
+    for m in (4, 64):
+        for k, n in TP2_SHAPES_POFX:
+            bench.pofx_matmul_row(m, k, n, torch.bfloat16, f"m={m} k={k} n={n} x=bf16 tp2")
+    for S, pos_list in KV_SHAPES:
+        bench.kv_flash_decode_row("fxp8", S, pos_list, G=2, R=8)
+        bench.kv_flash_paged_decode_row("fxp8", S, pos_list, G=2, R=8)
     # (c) pofx_decode at the yi-9b weight shapes; at the mlp shape also with
     # N = 9, whose 256-byte table has two words a bank (N = 8: one)
     for k, n in SHAPES_POFX:

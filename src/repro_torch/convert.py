@@ -31,6 +31,11 @@ unstacks such a scale's size-1 layer axes back onto each layer, and
 moments as {"codes", "scale", "spec"} leaves) into the port's. bfloat16
 tensors leave as 2-byte void arrays holding their bits (the form the
 reference's ``np.save`` round-trips them through).
+
+``rank_params_from_numpy`` is the tensor-parallel form: the same tree cut
+to one rank's shard (``nn.sharding.shard_policy_params`` over the rank
+model's ``logical()``), so the tp = N port serves the reference's tp = 1
+weights.
 """
 from __future__ import annotations
 
@@ -42,9 +47,9 @@ import torch
 from repro_torch.core.policy import format_spec, parse_spec
 from repro_torch.core.quantizers import QuantSpec, QuantizedTensor
 
-__all__ = ["params_from_numpy", "params_to_numpy", "reference_layout",
-           "reference_structure", "tensor_from_numpy", "tensor_to_numpy",
-           "train_state_from_numpy"]
+__all__ = ["params_from_numpy", "params_to_numpy", "rank_params_from_numpy",
+           "reference_layout", "reference_structure", "tensor_from_numpy",
+           "tensor_to_numpy", "train_state_from_numpy"]
 
 _STACKED = ("blocks", "enc_blocks")
 
@@ -118,6 +123,16 @@ def params_from_numpy(tree: Dict[str, Any], *, device) -> Dict[str, Any]:
     ``blocks``/``enc_blocks`` at any depth (a train state's moments too)
     are unstacked."""
     return _convert(tree, device)
+
+
+def rank_params_from_numpy(tree: Dict[str, Any], model) -> Dict[str, Any]:
+    """The reference's parameter tree (numpy) -> the shard that ``model``
+    (one rank's LM: its ``tp`` context and device) serves: the whole tree
+    converted, then every leaf cut to the rank's slice of codes and
+    scale."""
+    from repro_torch.nn.sharding import shard_policy_params
+    full = params_from_numpy(tree, device=model.device)
+    return shard_policy_params(full, model.logical(), model.tp)
 
 
 def train_state_from_numpy(tree: Dict[str, Any], *, device) -> Dict[str, Any]:

@@ -29,7 +29,8 @@ from .quantizers import (QuantSpec, QuantizedTensor, storage_bits,
 
 __all__ = ["parse_spec", "format_spec", "QuantPolicy", "PRESETS", "KV_RULE",
            "parse_kv_spec", "storage_report", "named_leaves", "layer_prefixes",
-           "add_policy_arg", "add_kv_quant_arg", "resolve_kv_spec"]
+           "add_policy_arg", "add_kv_quant_arg", "resolve_kv_spec",
+           "validate_scale_sharding"]
 
 # Reserved rule name: "kv=<spec>" configures the decode KV-cache format and
 # never participates in parameter path matching.
@@ -267,6 +268,47 @@ def storage_report(params, policy: Optional[QuantPolicy] = None) -> str:
                  f"{total_bits/8/2**20:9.2f}MiB  {bpw:5.2f} b/w  "
                  f"(vs fp32 {32/bpw:.1f}x, vs bf16 {16/bpw:.1f}x smaller)")
     return "\n".join(lines)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel sharding validity (DESIGN.md §9)
+# ---------------------------------------------------------------------------
+
+
+def validate_scale_sharding(name: str, codes_shape, scale_shape, codes_spec):
+    """How the scale of a QuantizedTensor whose codes shard as
+    ``codes_spec`` (one mesh-axis name or None per codes dim, trailing Nones
+    optional) shards: a tuple with, for each scale dim, the axis it splits
+    along with its codes, or None where it replicates.
+
+    A quantized leaf may shard along an axis only if its scale is congruent
+    there: broadcast (size 1) or exactly per-channel along the sharded axis
+    (the codes dim's size). A scale that varies along the sharded axis at
+    another granularity cannot split with its codes and raises. Scales align
+    against codes like NumPy broadcasting (trailing dims), so a lower-rank
+    scale replicates over the missing leading dims.
+    """
+    spec = tuple(codes_spec) + (None,) * (len(codes_shape) - len(codes_spec))
+    if len(scale_shape) > len(codes_shape):
+        raise ValueError(
+            f"cannot shard quantized leaf {name!r}: scale rank "
+            f"{len(scale_shape)} exceeds codes rank {len(codes_shape)}")
+    off = len(codes_shape) - len(scale_shape)
+    out = []
+    for j, sdim in enumerate(scale_shape):
+        i = j + off
+        axis = spec[i]
+        if axis is None or sdim == 1:
+            out.append(None)
+        elif sdim == codes_shape[i]:
+            out.append(axis)            # per-channel scale shards with codes
+        else:
+            raise ValueError(
+                f"cannot shard quantized leaf {name!r} along dim {i}: the "
+                f"per-channel scale has size {sdim} there but the codes "
+                f"have {codes_shape[i]} — the scale axis must match the "
+                f"sharded axis exactly (or broadcast with size 1)")
+    return tuple(out)
 
 
 # ---------------------------------------------------------------------------

@@ -40,6 +40,13 @@ Port of ``repro/launch/engine.py`` (dense cache, single device):
   sequence's pages in the index and drop its references, so a resume
   re-attaches the surviving pages and re-prefills one token. Token
   streams are the dense engine's.
+* **Tensor parallelism.** Over a rank's model (``build_model(...,
+  tp=TPContext)``) each rank runs its own engine on its shard with the same
+  requests, keys and call order; the all-reduces inside the model give
+  every rank the same logits, so the host scheduler, replicated, never
+  sees the rank count. Every first token and every chunk's tokens are
+  checked equal to rank 0's (``TPContext.check_equal``): a rank that
+  diverges raises on every rank instead of hanging.
 """
 from __future__ import annotations
 
@@ -143,6 +150,9 @@ class ServeEngine:
                 f"need n_slots >= 1 and chunk >= 1, got {n_slots}/{chunk}")
         self.model, self.params = model, params
         self.device = model.device
+        # tensor parallelism: only the agreement checks see the context
+        tp = getattr(model, "tp", None)
+        self._tp = tp if tp is not None and tp.size > 1 else None
         self.n_slots, self.max_len = int(n_slots), int(max_len)
         self.eos_id = eos_id
         self.pad_id = int(pad_id)
@@ -336,6 +346,8 @@ class ServeEngine:
         self._keys[slot] = key
         tok0 = int(tok0[0])                          # synchronises
         self.prefill_time += time.perf_counter() - t0
+        if self._tp is not None:
+            self._tp.check_equal(f"request {rid}'s first token", tok0)
 
         self._slot_rid[slot] = rid
         st.slot = slot
@@ -451,6 +463,8 @@ class ServeEngine:
                            topk_any=bool((topks > 0).any()))
         toks = toks.cpu().numpy()                    # synchronises
         self.decode_time += time.perf_counter() - t0
+        if self._tp is not None:
+            self._tp.check_equal("a decode chunk's tokens", toks)
         self.decode_steps += steps
         self.clock += steps
 

@@ -1,9 +1,9 @@
 """Serving CLI: continuous-batching quantized serving on the card.
 
 Port of ``repro/launch/serve.py`` (engine path, dense or paged cache, and
-the one-shot ``--legacy`` loop; every family; tensor parallelism is a
-later slice). Weights are post-training-quantized per a QuantPolicy as
-they are drawn, served by the continuous-batching engine; ``--use-kernel`` routes every quantized
+the one-shot ``--legacy`` loop; every family; tensor parallelism).
+Weights are post-training-quantized per a QuantPolicy as they are drawn,
+served by the continuous-batching engine; ``--use-kernel`` routes every quantized
 matmul through the hand-written PoFx/FxP kernels and, with ``--kv-quant``,
 decode attention through the flash-decode kernel (``--paged``: the paged
 flash-decode kernel over a page pool with prefix sharing):
@@ -37,14 +37,31 @@ reference) and refuses ``--paged``:
 (the kernels' plain versions). ``--temperature``/``--top-k`` sample every
 request (greedy by default) and draw the reference's streams. ``--gen`` counts tokens generated per
 request: the first from the prefill logits, ``gen-1`` from decode steps.
+``--tp N`` serves tensor-parallel (DESIGN.md §9): N rank processes
+(``launch.mesh.RankPool``; rank r on ``cuda:(r % device_count)``, or on the
+CPU under ``--device cpu``), each holding its shard of the attention heads,
+the MLP hidden, the experts and the KV cache's heads, with one all-reduce
+after each row-sharded projection over gloo (the CPU, or ranks sharing a
+card) or NCCL (a card a rank). Each rank runs the engine with the same
+requests; rank 0 prints, its header gains ``tp=N`` and the backend.
+``--tp`` with ``--legacy`` or encdec is refused, as in the reference:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu --tp 2
+
 ``main`` returns what it served (a ``ServeRun``: the engine and its
 requests, or the one-shot loop's ``LegacyRun``), so a calling script can
-read the engine's stats or the loop's tokens and reuse the model.
+read the engine's stats or the loop's tokens and reuse the model. Under
+``--tp`` it returns rank 0's requests, streams and stats (no model or
+engine: they live in the rank processes), every rank's kernel launch counts
+and, given ``rank_hook(run, ctx)``, what the hook returned in each rank.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import os
+import sys
 import time
 from typing import Any, List, Optional
 
@@ -56,9 +73,12 @@ from repro_torch.core import prng
 from repro_torch.core.policy import (QuantPolicy, add_kv_quant_arg,
                                      add_policy_arg, format_spec,
                                      resolve_kv_spec, storage_report)
+from repro_torch.kernels import LAUNCHES, reset_launches
 from repro_torch.launch.engine import (Request, RequestState, SamplingParams,
                                       ServeEngine)
+from repro_torch.launch.mesh import RankPool
 from repro_torch.nn.models import build_model, kv_decode_bytes_per_token
+from repro_torch.nn.sharding import TPContext
 
 
 @dataclasses.dataclass
@@ -77,12 +97,21 @@ class LegacyRun:
 
 @dataclasses.dataclass
 class ServeRun:
+    """What ``main`` served. Under ``--tp`` (``tp`` > 1) it is rank 0's:
+    ``model``, ``params`` and ``engine`` are None, ``stats`` is the engine's,
+    ``rank_launches`` holds each rank's kernel launch counts and
+    ``rank_hooks`` what ``rank_hook`` returned in each rank."""
     model: Any
     params: Any
     engine: Optional[ServeEngine]
     requests: List[Request]
     done: List[RequestState]
     legacy: Optional[LegacyRun] = None
+    stats: Optional[dict] = None
+    tp: int = 1
+    backend: Optional[str] = None
+    rank_launches: Optional[List[dict]] = None
+    rank_hooks: Optional[list] = None
 
 
 def make_requests(vocab: int, n: int, prompt_len: int, gen: int,
@@ -162,7 +191,7 @@ def _legacy_main(args, cfg, model, params) -> LegacyRun:
     return LegacyRun(prompts, frames, gen, logits, t_prefill, t_decode)
 
 
-def main(argv=None) -> ServeRun:
+def _parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", default="yi-9b", choices=sorted(ARCHS))
@@ -202,18 +231,81 @@ def main(argv=None) -> ServeRun:
     ap.add_argument("--n-pages", type=int, default=0,
                     help="page pool size (--paged; 0 = dense-equivalent "
                          "capacity + headroom)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor-parallel devices (1-D 'tp' mesh): shards "
+                         "attention heads / MLP hidden / experts and the KV "
+                         "cache's head axis over N devices; greedy outputs "
+                         "are token-identical to --tp 1 (DESIGN.md §9; CPU: "
+                         "set XLA_FLAGS=--xla_force_host_platform_"
+                         "device_count=N)")
     ap.add_argument("--legacy", action="store_true",
                     help="one-shot fixed-batch greedy loop (no engine)")
-    args = ap.parse_args(argv)
+    return ap
 
-    cfg = ARCHS[args.arch]
-    if args.smoke:
-        cfg = smoke_cfg(cfg)
+
+def main(argv=None, rank_hook=None) -> ServeRun:
+    """Serve per the CLI's flags (``argv``, default ``sys.argv[1:]``).
+    ``rank_hook(run, ctx)``, a module-level function, runs in every rank
+    after a ``--tp`` run (its ``ServeRun`` with the model, engine and the
+    rank's ``TPContext``) and its picklable result comes back in
+    ``rank_hooks``."""
+    ap = _parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
+    args = ap.parse_args(argv)
+    cfg = _config(args)
     legacy = args.legacy or cfg.family == "encdec"
+    if args.tp > 1 and legacy:
+        ap.error("--tp needs the engine path (not --legacy / encdec)")
     if args.paged and legacy:
         ap.error("--paged needs the engine path (not --legacy / encdec)")
     if args.paged and cfg.family not in ("dense", "moe"):
         ap.error(f"--paged supports dense/moe families, not {cfg.family}")
+    P, G = args.prompt_len, args.gen
+    if not legacy and ((args.requests or 2 * args.batch) < 1 or G < 1 or P < 1):
+        ap.error("--requests/--gen/--prompt-len must be >= 1")
+    if args.tp > 1:
+        return _main_tp(argv, args, rank_hook)
+    return _serve(args, cfg, legacy)
+
+
+def _config(args):
+    cfg = ARCHS[args.arch]
+    return smoke_cfg(cfg) if args.smoke else cfg
+
+
+def _serve_rank(ctx: TPContext, device: str, argv, rank_hook):
+    """One rank of a ``--tp`` run: serve on ``device`` with the rank's
+    shard (rank 0 prints); returns (rank 0's ServeRun without the model,
+    params and engine, or None; the rank's launch counts; the hook's
+    result)."""
+    args = _parser().parse_args(argv)
+    cfg = _config(args)
+    args.device = device
+    reset_launches()
+    if ctx.rank:
+        with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+            run = _serve(args, cfg, False, tp=ctx)
+    else:
+        run = _serve(args, cfg, False, tp=ctx)
+    launches = dict(LAUNCHES)
+    hooked = rank_hook(run, ctx) if rank_hook is not None else None
+    if ctx.rank:
+        return None, launches, hooked
+    return dataclasses.replace(run, model=None, params=None, engine=None), launches, hooked
+
+
+def _main_tp(argv, args, rank_hook) -> ServeRun:
+    """``--tp N``: the ranks in processes of their own; rank 0's run back."""
+    threads = max(1, (os.cpu_count() or 1) // args.tp) if args.device == "cpu" else 0
+    with RankPool(args.tp, args.device, threads=threads) as pool:
+        res = pool.run(_serve_rank, argv, rank_hook)
+    run = res[0][0]
+    return dataclasses.replace(run, rank_launches=[r[1] for r in res],
+                               rank_hooks=[r[2] for r in res])
+
+
+def _serve(args, cfg, legacy: bool, tp: Optional[TPContext] = None) -> ServeRun:
+    """The CLI's serving body, on one device (one rank's, given ``tp``)."""
     rcfg = RunConfig(remat="none")
     policy = QuantPolicy.from_string(args.quant)
     kv_spec = resolve_kv_spec(args.kv_quant, policy)
@@ -222,12 +314,17 @@ def main(argv=None) -> ServeRun:
               "one-shot path; serving with a bf16 cache)")
         kv_spec = None
     model = build_model(cfg, rcfg, device=args.device,
-                        use_kernel=args.use_kernel, kv_spec=kv_spec)
+                        use_kernel=args.use_kernel, kv_spec=kv_spec, tp=tp)
     params = model.init(0, policy=policy)
+    tp_size = model.tp.size
     print(f"[{args.arch} quant={policy.to_string()} "
           f"kv={format_spec(kv_spec) if kv_spec else 'bf16'} "
           f"kernel={'cuda' if args.use_kernel else 'torch-lut'} "
-          f"device={model.device}]")
+          f"device={model.device}"
+          f"{f' tp={tp_size} backend={model.tp.backend}' if tp_size > 1 else ''}]")
+    if tp_size > 1:
+        print(f"  (rank 0's shard of {tp_size}: heads, MLP hidden, experts and "
+              f"KV heads split; embed, unembed, norms, router, mixers replicated)")
     print(storage_report(params, policy))
     ctx_len = args.prompt_len + args.gen
     kv_q = kv_decode_bytes_per_token(cfg, ctx_len, kv_spec)
@@ -259,8 +356,6 @@ def main(argv=None) -> ServeRun:
 
     P, G = args.prompt_len, args.gen
     n_req = args.requests or 2 * args.batch
-    if n_req < 1 or G < 1 or P < 1:
-        ap.error("--requests/--gen/--prompt-len must be >= 1")
     engine = ServeEngine(
         model, params, n_slots=args.batch, max_len=P + G,
         eos_id=args.eos_id if args.eos_id >= 0 else None,
@@ -300,7 +395,8 @@ def main(argv=None) -> ServeRun:
     s0 = done[0]
     print(f"sample rid=0 ({len(s0.out)} tokens, {s0.finish_reason}):",
           s0.out[:16], "..." if len(s0.out) > 16 else "")
-    return ServeRun(model, params, engine, requests, done)
+    return ServeRun(model, params, engine, requests, done, stats=stats,
+                    tp=tp_size, backend=model.tp.backend if tp_size > 1 else None)
 
 
 if __name__ == "__main__":

@@ -29,7 +29,14 @@ Port of the dense, single-device paths of ``repro/nn/attention.py``:
   from the encoder states ``xa`` (non-causal flash attention over them),
   or at decode from a static cross cache that is read and never written.
 
-Tensor-parallel modes are a later slice.
+Tensor parallelism (DESIGN.md §9): a rank holds H/tp query heads and G/tp
+kv groups of wq/wk/wv (head counts come from the weight leaves, not the
+config) and the matching rows of wo; every path returns through
+``_out_proj``, whose ``tp.psum`` is the attention block's one all-reduce.
+``attn_tp_mode`` is the reference's mode table; serving TP admits only a
+tp that divides the kv heads (``nn.sharding``'s strict specs raise
+otherwise), so the reference's training-only "rep"/"expand" layouts are
+not served.
 """
 from __future__ import annotations
 
@@ -43,6 +50,39 @@ from repro_torch.kernels.ref import gather_pages
 from .layers import apply_rotary, matmul_param, rmsnorm, rotary_cos_sin
 
 NEG_INF = -1e30
+
+
+def attn_tp_mode(n_heads: int, n_kv_heads: int, tp: int) -> str:
+    """The reference's TP strategy for (H, G, tp):
+
+    kv      G % tp == 0: shard the kv-head axis (zero redundancy)
+    rep     R % tp == 0: shard the rep axis, replicate k/v per group
+    expand  H % tp == 0: repeat k/v to H heads and shard the full head axis
+    none    nothing divides: replicated attention
+    """
+    if tp <= 1:
+        return "kv"
+    if n_kv_heads % tp == 0:
+        return "kv"
+    if n_kv_heads and (n_heads // n_kv_heads) % tp == 0:
+        return "rep"
+    if n_heads % tp == 0:
+        return "expand"
+    return "none"
+
+
+def attn_logical(cfg) -> dict:
+    """Logical axes of the attention weights (``nn.sharding``'s rules)."""
+    p = {
+        "wq": ("p_embed", "heads", "head_dim"),
+        "wk": ("p_embed", "kv_heads", "head_dim"),
+        "wv": ("p_embed", "kv_heads", "head_dim"),
+        "wo": ("mlp", "p_embed"),  # (H*Dh, d): row dim always tp-divisible
+    }
+    if cfg.qk_norm:
+        p["q_norm"] = ("p_unsharded",)
+        p["k_norm"] = ("p_unsharded",)
+    return p
 
 
 def _divisor_chunk(total: int, want: int) -> int:
@@ -274,7 +314,7 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
                  kv_scales: Optional[dict] = None,
                  pages: Optional[torch.Tensor] = None,
                  page_size: Optional[int] = None,
-                 paged_prefill: Optional[dict] = None):
+                 paged_prefill: Optional[dict] = None, tp=None):
     """Full attention layer. Returns (y, new_kv).
 
     Decode (``cache`` given, one token): ``cache`` is the layer's
@@ -293,6 +333,9 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
 
     Cross-attention: ``xa`` (B, Se, d) encoder states, or a ``cache``
     holding "k_static", "v_static" and "len" (``_cross_attn``).
+
+    ``tp`` (an ``nn.sharding.TPContext``) all-reduces the output projection
+    of a rank's heads.
     """
     B, Sq, _ = x.shape
     Dh = cfg.d_head
@@ -304,7 +347,7 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
     if xa is not None or (cache is not None and "k_static" in cache):
         y, new_kv = _cross_attn(p, q, cfg, rcfg, xa=xa, cache=cache, kernels=kernels)
-        return _out_proj(p, y, x, kernels), new_kv
+        return _out_proj(p, y, x, kernels, tp), new_kv
     cos, sin = rotary_cos_sin(positions, Dh, cfg.rope_theta)
     q = apply_rotary(q.reshape(B, Sq, H, Dh), cos, sin).reshape(B, Sq, G, R, Dh)
     k = matmul_param(x, p["wk"], kernels=kernels).reshape(B, Sq, G, Dh)
@@ -397,11 +440,15 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
             new_kv = {"k": k, "v": v}
         y = flash_attention(q, k, v, causal=causal, q_chunk=rcfg.attn_q_chunk,
                             kv_chunk=rcfg.attn_kv_chunk)
-    return _out_proj(p, y, x, kernels), new_kv
+    return _out_proj(p, y, x, kernels, tp), new_kv
 
 
 def _out_proj(p: dict, y: torch.Tensor, x: torch.Tensor,
-              kernels: Optional[KernelSet]) -> torch.Tensor:
-    """Heads (B, Sq, G, R, Dh) -> (B, Sq, H * Dh) in x's dtype, through wo."""
+              kernels: Optional[KernelSet], tp=None) -> torch.Tensor:
+    """Heads (B, Sq, G, R, Dh) -> (B, Sq, H * Dh) in x's dtype, through wo.
+    Under tensor parallelism wo is row-sharded (the rank's heads): the
+    partial products are summed over the ranks here, the attention block's
+    one all-reduce."""
     y = y.reshape(*x.shape[:2], -1).to(x.dtype)
-    return matmul_param(y, p["wo"], kernels=kernels)
+    out = matmul_param(y, p["wo"], kernels=kernels)
+    return out if tp is None else tp.psum(out)

@@ -87,15 +87,28 @@ def is_gated(act: str) -> bool:
 
 
 def mlp_forward(p: dict, x: torch.Tensor, act: str,
-                kernels: Optional[KernelSet] = None) -> torch.Tensor:
-    """Gated (silu/gelu: wg, wu, wo) or plain (relu2/gelu_plain: wi, wo) MLP."""
+                kernels: Optional[KernelSet] = None, tp=None) -> torch.Tensor:
+    """Gated (silu/gelu: wg, wu, wo) or plain (relu2/gelu_plain: wi, wo) MLP.
+    Under tensor parallelism (``tp``, an ``nn.sharding.TPContext``) the
+    up-projections are column-sharded and the down-projection row-sharded
+    over the rank's d_ff: its partial products are all-reduced, the block's
+    one MLP collective."""
     fn = activation(act)
     if is_gated(act):
         h = fn(matmul_param(x, p["wg"], kernels=kernels)) \
             * matmul_param(x, p["wu"], kernels=kernels)
     else:
         h = fn(matmul_param(x, p["wi"], kernels=kernels))
-    return matmul_param(h, p["wo"], kernels=kernels)
+    out = matmul_param(h, p["wo"], kernels=kernels)
+    return out if tp is None else tp.psum(out)
+
+
+def mlp_logical(act: str) -> dict:
+    """Logical axes of the MLP weights (``nn.sharding``'s rules)."""
+    if is_gated(act):
+        return {"wg": ("p_embed", "mlp"), "wu": ("p_embed", "mlp"),
+                "wo": ("mlp", "p_embed")}
+    return {"wi": ("p_embed", "mlp"), "wo": ("mlp", "p_embed")}
 
 
 def mlp_shapes(d_model: int, d_ff: int, act: str) -> dict:

@@ -44,6 +44,18 @@ block tables, "kv": {"k", "v": (L, n_pages, G, ps, Dh)[, "k_scale",
 
 Everything runs on ``device`` ("cuda" unless the caller asks otherwise);
 asking for CUDA without a card raises.
+
+Tensor parallelism (``build_model(..., tp=TPContext)``, DESIGN.md §9): the
+LM is one rank's model. ``init`` draws every full leaf from the one
+generator on every rank (so the generator advances alike), quantizes the
+whole leaf, keeps the rank's slice of codes and scale
+(``nn.sharding.shard_leaf``) and drops the rest before the next draw: a
+row-sharded leaf's per-column scales reduce over the rows that get
+sharded, so quantizing a shard would give other scales, and slicing after
+quantizing keeps each shard equal, bit for bit, to the tp = 1 leaf's. The
+caches hold ``n_kv_heads // tp`` heads of codes and static scales.
+``logical()`` names every leaf's axes; a tp that does not divide them
+raises the reference's error when the model is built.
 """
 from __future__ import annotations
 
@@ -61,9 +73,10 @@ from repro_torch.core.quantizers import (QuantSpec, kv_code_dtype, quantize,
 from repro_torch.kernels.ops import KERNELS, KernelSet
 from . import ssm
 from . import transformer as T
-from .attention import attn_shapes
-from .layers import matmul_param, mlp_shapes, param_value, rmsnorm
-from .moe import moe_shapes
+from .attention import attn_logical, attn_shapes
+from .layers import matmul_param, mlp_logical, mlp_shapes, param_value, rmsnorm
+from .moe import moe_logical, moe_shapes
+from .sharding import TPContext, check_tp_shapes, shard_leaf
 
 __all__ = ["LM", "build_model", "apply_policy", "ce_loss",
            "kv_decode_bytes_per_token", "resolve_device"]
@@ -153,10 +166,21 @@ class LM:
     # PLAIN (their plain PyTorch versions: a reference run of the same
     # datapath on the card) or a mix of the two.
     kernel_set: KernelSet = KERNELS
+    # this rank's tensor-parallel context (the default: tp = 1)
+    tp: TPContext = dataclasses.field(default_factory=TPContext)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.kv_spec = validate_kv_spec(self.kv_spec)
+        if self.tp.size > 1:
+            if self.cfg.family == "encdec":
+                raise ValueError("--tp needs the engine path (not --legacy / encdec)")
+            check_tp_shapes(self.param_shapes(), self.logical(), self.tp)
+
+    @property
+    def n_kv_heads_local(self) -> int:
+        """The kv heads a rank holds: its shard of the cache's head axis."""
+        return self.cfg.n_kv_heads // self.tp.size
 
     @property
     def kernels(self) -> Optional[KernelSet]:
@@ -186,6 +210,66 @@ class LM:
         k, L = self.cfg.attn_every, self.cfg.n_layers
         return [min(k, L - done) for done in range(0, L, k)]
 
+    # -- logical axes ---------------------------------------------------------
+
+    def logical(self) -> Dict[str, Any]:
+        """Logical-axis tree of the parameters (same structure as ``init``'s
+        tree, one entry per layer of ``blocks``): the names ``nn.sharding``'s
+        tensor-parallel rules map."""
+        cfg = self.cfg
+        out: Dict[str, Any] = {"embed": ("vocab", "p_embed"), "ln_f": ("p_unsharded",)}
+        if not cfg.tie_embeddings:
+            out["unembed"] = ("p_embed", "vocab")
+        fam = cfg.family
+        if fam in ("ssm", "hybrid"):
+            out["blocks"] = [T.mamba_block_logical(cfg) for _ in range(cfg.n_layers)]
+            if fam == "hybrid":
+                out["shared"] = T.dense_block_logical(cfg)
+        elif fam == "dense":
+            out["blocks"] = [T.dense_block_logical(cfg) for _ in range(cfg.n_layers)]
+        elif fam == "encdec":
+            out["enc_blocks"] = [T.encdec_block_logical(cfg)
+                                 for _ in range(cfg.n_enc_layers)]
+            out["enc_ln"] = ("p_unsharded",)
+            out["blocks"] = [T.encdec_block_logical(cfg, cross=True)
+                             for _ in range(cfg.n_layers)]
+        else:
+            out["blocks"] = [T.moe_block_logical(cfg) if (i + 1) % cfg.moe_every == 0
+                             else T.dense_block_logical(cfg)
+                             for i in range(self.n_groups * cfg.moe_every)]
+        return out
+
+    def param_shapes(self) -> Dict[str, Any]:
+        """The tp = 1 shapes of the leaves that a tensor-parallel rule can
+        shard (attention, MLP, MoE experts), in ``logical()``'s structure;
+        the replicated leaves are left out (a mamba layer is an empty
+        dict). The encdec family, which serves no tensor parallelism, has
+        none."""
+        cfg = self.cfg
+
+        def shapes(table):
+            return {n: (i, *o) for n, (i, o) in table.items()}
+
+        def block(moe):
+            b = {"attn": shapes(attn_shapes(cfg))}
+            if not moe:
+                b["mlp"] = shapes(mlp_shapes(cfg.d_model, cfg.d_ff, cfg.act))
+                return b
+            m = moe_shapes(cfg)
+            b["moe"] = dict(m["experts"])
+            if "shared" in m:
+                b["moe"]["shared"] = shapes(m["shared"])
+            return b
+
+        if cfg.family in ("ssm", "hybrid"):
+            out: Dict[str, Any] = {"blocks": [{} for _ in range(cfg.n_layers)]}
+            if cfg.family == "hybrid":
+                out["shared"] = block(False)
+            return out
+        moe_every = cfg.moe_every if cfg.family == "moe" else 1
+        return {"blocks": [block(cfg.family == "moe" and (i + 1) % moe_every == 0)
+                           for i in range(self.n_groups * moe_every)]}
+
     # -- init -----------------------------------------------------------------
 
     def init(self, seed: int = 0, policy=None) -> Dict[str, Any]:
@@ -197,6 +281,8 @@ class LM:
         pofx8 codes but ~35 GB of f32; moonshot-v1-16b-a3b ~29 GB of codes,
         its largest draw one (64, 2048, 1408) expert leaf). The draws cannot
         reproduce ``jax.random``; tests pass weights across with ``convert``.
+        Under tensor parallelism each leaf that a rule shards is quantized
+        whole and cut to the rank's shard before the next draw.
         """
         if isinstance(policy, str):
             policy = QuantPolicy.from_string(policy)
@@ -204,21 +290,24 @@ class LM:
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         V, d = cfg.padded_vocab, cfg.d_model
 
-        def dense(name, in_dim, out_dims, scale=None, dtype=dt):
+        def dense(name, in_dim, out_dims, scale=None, dtype=dt, axes=None):
             scale = in_dim ** -0.5 if scale is None else scale
             w = torch.randn((in_dim, *out_dims), generator=gen, device=dev,
                             dtype=torch.float32)
             # in place, and the f32 draw dropped before the rule runs: a
             # 256000 x 18432 table (nemotron-4-340b) is 18.9 GB in f32
             w = w.mul_(scale).to(dtype)
-            return _apply_rule(name, w, policy)
+            w = _apply_rule(name, w, policy)
+            return w if axes is None else shard_leaf(w, axes, self.tp, name)
 
         def ones(name, n):
             return _apply_rule(name, torch.ones((n,), dtype=dt, device=dev),
                                policy)
 
         def attn(pre):
-            a = {n: dense(f"{pre}{n}", i, o) for n, (i, o) in attn_shapes(cfg).items()}
+            ax = attn_logical(cfg)
+            a = {n: dense(f"{pre}{n}", i, o, axes=ax[n])
+                 for n, (i, o) in attn_shapes(cfg).items()}
             if cfg.qk_norm:
                 a["q_norm"] = ones(f"{pre}q_norm", cfg.d_head)
                 a["k_norm"] = ones(f"{pre}k_norm", cfg.d_head)
@@ -230,8 +319,9 @@ class LM:
             if cross:
                 blk["ln_x"] = ones(f"{pre}ln_x", d)
                 blk["xattn"] = attn(f"{pre}xattn/")
+            mlp_ax = mlp_logical(cfg.act)
             if not moe:
-                blk["mlp"] = {n: dense(f"{pre}mlp/{n}", i, o)
+                blk["mlp"] = {n: dense(f"{pre}mlp/{n}", i, o, axes=mlp_ax[n])
                               for n, (i, o) in mlp_shapes(d, cfg.d_ff, cfg.act).items()}
                 return blk
             shapes = moe_shapes(cfg)
@@ -239,10 +329,11 @@ class LM:
             # each (E, in, out) expert leaf is drawn and quantized whole
             m = {"router": dense(f"{pre}moe/router", d, (cfg.n_experts,),
                                  dtype=torch.float32)}
-            m.update({n: dense(f"{pre}moe/{n}", E, (i, o), scale=i ** -0.5)
+            mx = moe_logical(cfg)
+            m.update({n: dense(f"{pre}moe/{n}", E, (i, o), scale=i ** -0.5, axes=mx[n])
                       for n, (E, i, o) in shapes["experts"].items()})
             if "shared" in shapes:
-                m["shared"] = {n: dense(f"{pre}moe/shared/{n}", i, o)
+                m["shared"] = {n: dense(f"{pre}moe/shared/{n}", i, o, axes=mlp_ax[n])
                                for n, (i, o) in shapes["shared"].items()}
             blk["moe"] = m
             return blk
@@ -282,8 +373,9 @@ class LM:
     def _kv_cache(self, batch: int, max_len: int, kv_spec: Optional[QuantSpec],
                   n_layers: int) -> Dict[str, torch.Tensor]:
         cfg, dev = self.cfg, self.device
-        shape = (n_layers, batch, cfg.n_kv_heads, max_len, cfg.d_head)
-        sshape = (n_layers, batch, cfg.n_kv_heads, 1, cfg.d_head)
+        G = self.n_kv_heads_local
+        shape = (n_layers, batch, G, max_len, cfg.d_head)
+        sshape = (n_layers, batch, G, 1, cfg.d_head)
         if kv_spec is not None:
             cdt = kv_code_dtype(kv_spec)
             return {"k": torch.zeros(shape, dtype=cdt, device=dev),
@@ -331,7 +423,7 @@ class LM:
         ones, global across pages: pages are shareable between requests only
         because every page quantizes under the same grid (paging.py)."""
         cfg, dev = self.cfg, self.device
-        L, G, Dh = cfg.n_layers, cfg.n_kv_heads, cfg.d_head
+        L, G, Dh = cfg.n_layers, self.n_kv_heads_local, cfg.d_head
         shape = (L, n_pages, G, page_size, Dh)
         if spec is not None:
             cdt = kv_code_dtype(spec)
@@ -408,7 +500,7 @@ class LM:
                   "prefix_len": prefix_len, "page_size": ps}
             x, _ = T.block_forward(lp, x, cfg, rcfg, positions=positions,
                                    kernels=self.kernels, kv_spec=self.kv_spec,
-                                   paged_prefill=pp)
+                                   paged_prefill=pp, tp=self.tp)
         length = int(length)
         logits = self._logits(params, x[:, length - 1])
         cache["pos"][int(slot)] = prefix_len + length
@@ -527,7 +619,7 @@ class LM:
         kw = dict(positions=positions, kernels=self.kernels)
 
         def attn_block(lp, h):
-            return T.block_forward(lp, h, cfg, rcfg, **kw)[0]
+            return T.block_forward(lp, h, cfg, rcfg, tp=self.tp, **kw)[0]
 
         def mamba_block(lp, h):
             return T.mamba_block_forward(lp, h, cfg, kernels=self.kernels,
@@ -643,7 +735,7 @@ class LM:
                           if quant else None)
                 x, kv = T.block_forward(lp, x, cfg, rcfg, positions=positions,
                                         kernels=self.kernels, kv_spec=self.kv_spec,
-                                        kv_scales=scales)
+                                        kv_scales=scales, tp=self.tp)
             for name in ("k", "v"):
                 dst = lc[name]
                 dst[:, :, :Sq] = kv[name].transpose(1, 2).to(dst.dtype)
@@ -696,7 +788,7 @@ class LM:
                                                 kernels=self.kernels)[0]
             return T.block_forward(lp, x, cfg, rcfg, positions=positions,
                                    cache=lc, cache_pos=pos, kernels=self.kernels,
-                                   kv_spec=self.kv_spec, **paged)[0]
+                                   kv_spec=self.kv_spec, tp=self.tp, **paged)[0]
 
         x = self._layers(params, x, cache, attn)
         return dict(cache, pos=pos + 1), self._logits(params, x[:, 0])
@@ -725,6 +817,8 @@ def kv_decode_bytes_per_token(cfg: ModelConfig, context_len: int,
 
 def build_model(cfg: ModelConfig, rcfg: RunConfig, *, device="cuda",
                 use_kernel: bool = False, kv_spec=None,
-                kernel_set: KernelSet = KERNELS) -> LM:
+                kernel_set: KernelSet = KERNELS,
+                tp: Optional[TPContext] = None) -> LM:
+    """The model (one rank's, given a TPContext ``tp`` of size > 1)."""
     return LM(cfg, rcfg, device=device, use_kernel=use_kernel,
-              kv_spec=kv_spec, kernel_set=kernel_set)
+              kv_spec=kv_spec, kernel_set=kernel_set, tp=tp or TPContext())

@@ -33,9 +33,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ops import KernelSet
-from .layers import activation, is_gated, mlp_forward, mlp_shapes, param_value
+from .layers import (activation, is_gated, mlp_forward, mlp_logical, mlp_shapes,
+                     param_value)
 
-__all__ = ["moe_shapes", "moe_capacity", "moe_forward", "router_aux_loss"]
+__all__ = ["moe_shapes", "moe_logical", "moe_capacity", "moe_forward",
+           "router_aux_loss"]
 
 
 def moe_shapes(cfg) -> dict:
@@ -50,6 +52,20 @@ def moe_shapes(cfg) -> dict:
     return out
 
 
+def moe_logical(cfg) -> dict:
+    """Logical axes of one MoE layer's weights: experts split along E under
+    tensor parallelism, the router replicates."""
+    p = {"router": ("p_unsharded", "p_unsharded")}
+    if is_gated(cfg.act):
+        p.update(wg=("experts", "p_embed", None), wu=("experts", "p_embed", None),
+                 wo=("experts", None, "p_embed"))
+    else:
+        p.update(wi=("experts", "p_embed", None), wo=("experts", None, "p_embed"))
+    if cfg.n_shared_experts:
+        p["shared"] = mlp_logical(cfg.act)
+    return p
+
+
 def moe_capacity(T: int, S: int, cfg) -> int:
     """Tokens each expert takes: drop-free T*k at decode (S == 1), else the
     capacity factor's share, rounded as Python rounds (half to even)."""
@@ -58,8 +74,16 @@ def moe_capacity(T: int, S: int, cfg) -> int:
 
 
 def moe_forward(p: dict, x: torch.Tensor, cfg,
-                kernels: Optional[KernelSet] = None) -> torch.Tensor:
-    """x (B, S, d) -> (B, S, d)."""
+                kernels: Optional[KernelSet] = None, tp=None) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d).
+
+    Under tensor parallelism (``tp``) the expert leaves hold the rank's
+    E_loc = E / tp experts, from e0 = rank * E_loc. Routing and dispatch
+    run over the global expert ids on every rank; the rank computes its
+    experts' rows of the dispatch, scatters them into a zero global (E*C,
+    d) layout, combines as at tp = 1 and all-reduces the combine. The
+    shared experts add in after that all-reduce (``mlp_forward`` reduces
+    their own down-projection)."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
@@ -85,14 +109,24 @@ def moe_forward(p: dict, x: torch.Tensor, cfg,
     disp = torch.zeros((E * C + 1, d), dtype=x.dtype, device=dev)
     disp[slot] = xt[token_of] * keep[:, None].to(x.dtype)
     disp = disp[:-1].reshape(E, C, d)
-    # 5. expert FFNs, batched over E
+    # 5. expert FFNs, batched over the rank's experts
+    E_loc = p["wo"].shape[0]
+    e0 = tp.rank * E_loc if E_loc != E else 0
+    disp_e = disp[e0:e0 + E_loc]
     fn = activation(cfg.act)
     if is_gated(cfg.act):
-        h = fn(torch.bmm(disp, param_value(p["wg"], x.dtype))) \
-            * torch.bmm(disp, param_value(p["wu"], x.dtype))
+        h = fn(torch.bmm(disp_e, param_value(p["wg"], x.dtype))) \
+            * torch.bmm(disp_e, param_value(p["wu"], x.dtype))
     else:
-        h = fn(torch.bmm(disp, param_value(p["wi"], x.dtype)))
-    out_flat = torch.bmm(h, param_value(p["wo"], x.dtype)).reshape(E * C, d)
+        h = fn(torch.bmm(disp_e, param_value(p["wi"], x.dtype)))
+    out_e = torch.bmm(h, param_value(p["wo"], x.dtype))
+    if E_loc != E:
+        # the other ranks' experts' rows stay zero; the all-reduce below
+        # sums the disjoint partials into the full mixture
+        full = torch.zeros((E, C, d), dtype=out_e.dtype, device=dev)
+        full[e0:e0 + E_loc] = out_e
+        out_e = full
+    out_flat = out_e.reshape(E * C, d)
     # 6. gather back, weight, and combine in (token, choice) order
     gathered = torch.where(keep[:, None], out_flat[slot.clamp(0, E * C - 1)],
                            torch.zeros((), dtype=out_flat.dtype, device=dev))
@@ -101,8 +135,10 @@ def moe_forward(p: dict, x: torch.Tensor, cfg,
     unsorted = torch.empty_like(contrib)
     unsorted[order] = contrib
     y = unsorted.reshape(T, k, d).sum(dim=1)
+    if E_loc != E:
+        y = tp.psum(y)       # the MoE block's one expert-combine collective
     if cfg.n_shared_experts:
-        y = y + mlp_forward(p["shared"], xt, cfg.act, kernels=kernels)
+        y = y + mlp_forward(p["shared"], xt, cfg.act, kernels=kernels, tp=tp)
     return y.reshape(B, S, d)
 
 

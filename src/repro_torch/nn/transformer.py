@@ -12,7 +12,11 @@ loop over per-layer parameter dicts):
            "xattn") between the self-attention and the MLP
 
 ``block_forward`` calls the block that a layer's parameters name (an
-"moe" entry makes it an MoE block).
+"moe" entry makes it an MoE block). ``*_block_logical`` give a layer's
+logical axes (``LM.logical``, read by ``nn.sharding``); ``tp`` (an
+``nn.sharding.TPContext``) reaches the attention, MLP and MoE all-reduces.
+A mamba block takes no ``tp``: it serves replicated under tensor
+parallelism, as the reference's does.
 """
 from __future__ import annotations
 
@@ -22,10 +26,45 @@ import torch
 
 from repro_torch.core.quantizers import QuantizedTensor, dequantize
 from repro_torch.kernels.ops import KernelSet
-from .attention import attn_forward
-from .layers import Param, mlp_forward, rmsnorm
-from .moe import moe_forward
+from .attention import attn_forward, attn_logical
+from .layers import Param, mlp_forward, mlp_logical, rmsnorm
+from .moe import moe_forward, moe_logical
 from . import ssm
+
+
+def dense_block_logical(cfg) -> dict:
+    return {"ln1": ("p_unsharded",), "attn": attn_logical(cfg),
+            "ln2": ("p_unsharded",), "mlp": mlp_logical(cfg.act)}
+
+
+def moe_block_logical(cfg) -> dict:
+    return {"ln1": ("p_unsharded",), "attn": attn_logical(cfg),
+            "ln2": ("p_unsharded",), "moe": moe_logical(cfg)}
+
+
+def encdec_block_logical(cfg, cross: bool = False) -> dict:
+    p = dense_block_logical(cfg)
+    if cross:
+        p["ln_x"] = ("p_unsharded",)
+        p["xattn"] = attn_logical(cfg)
+    return p
+
+
+def mamba_block_logical(cfg) -> dict:
+    """A mamba layer's axes: its channel dims name no tensor-parallel rule,
+    so the mixer replicates (the reference's mamba{1,2}_logical)."""
+    if cfg.family == "ssm":
+        mix = {"in_proj": ("p_embed", "d_inner"), "conv_w": ("conv", "d_inner"),
+               "conv_b": ("d_inner",), "x_proj": ("d_inner_r", "p_unsharded"),
+               "dt_proj": ("p_unsharded", "d_inner"), "dt_bias": ("d_inner",),
+               "A_log": ("d_inner", "state"), "D": ("d_inner",),
+               "out_proj": ("d_inner_r", "p_embed")}
+    else:
+        mix = {"in_proj": ("p_embed", "d_inner2"), "conv_w": ("conv", "d_inner2"),
+               "conv_b": ("d_inner2",), "A_log": ("heads_r",), "dt_bias": ("heads_r",),
+               "D": ("heads_r",), "norm_w": ("d_inner",),
+               "out_proj": ("d_inner_r", "p_embed")}
+    return {"ln": ("p_unsharded",), "mix": mix}
 
 
 def _attn_residual(p, x, cfg, rcfg, **attn_kw):
@@ -35,21 +74,21 @@ def _attn_residual(p, x, cfg, rcfg, **attn_kw):
 
 
 def dense_block_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
-                        kernels: Optional[KernelSet] = None, **attn_kw):
+                        kernels: Optional[KernelSet] = None, tp=None, **attn_kw):
     """``attn_kw`` goes to ``attn_forward`` (positions, the dense or paged
     cache, paged prefill, KV format and scales)."""
-    x, new_kv = _attn_residual(p, x, cfg, rcfg, kernels=kernels, **attn_kw)
+    x, new_kv = _attn_residual(p, x, cfg, rcfg, kernels=kernels, tp=tp, **attn_kw)
     x = x + mlp_forward(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.act,
-                        kernels=kernels)
+                        kernels=kernels, tp=tp)
     return x, new_kv
 
 
 def moe_block_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
-                      kernels: Optional[KernelSet] = None, **attn_kw):
+                      kernels: Optional[KernelSet] = None, tp=None, **attn_kw):
     """Attention as in ``dense_block_forward``, then the MoE FFN."""
-    x, new_kv = _attn_residual(p, x, cfg, rcfg, kernels=kernels, **attn_kw)
+    x, new_kv = _attn_residual(p, x, cfg, rcfg, kernels=kernels, tp=tp, **attn_kw)
     x = x + moe_forward(p["moe"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg,
-                        kernels=kernels)
+                        kernels=kernels, tp=tp)
     return x, new_kv
 
 

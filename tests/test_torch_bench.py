@@ -19,13 +19,24 @@ from repro_torch.bench import common, kernels
 ROOT = Path(__file__).resolve().parent.parent
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch on one thread for the module: the CPU rows are tiny, and under
+    the suite's parallel workers a thread a core in every worker only
+    oversubscribes the CPU."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _read(path):
     with open(path, newline="") as f:
         return list(csv.DictReader(f))
 
 
 def test_cpu_smoke_run_rows_all_exact(tmp_path):
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
     res = subprocess.run([sys.executable, "-m", "repro_torch.bench.kernels", "--smoke",
                           "--device", "cpu", "--out", str(tmp_path)],
                          capture_output=True, text=True, env=env, timeout=300)
@@ -53,21 +64,26 @@ def test_full_rows_on_cpu_at_reduced_shapes(monkeypatch, capsys):
     monkeypatch.setattr(kernels, "SSM_SHAPES_POFX", [(64, 40), (32, 72)])
     monkeypatch.setattr(kernels, "SSM_UNEMBEDS", [(64, 40)])
     monkeypatch.setattr(kernels, "WHISPER_SHAPES_POFX", [(32, 40)])
+    monkeypatch.setattr(kernels, "TP2_SHAPES_POFX", [(48, 40)])
     rows = kernels.run("cpu")
     names = [r["name"] for r in rows]
     # pofx_decode: 6 sweep rows, one (8, 2) row per weight shape, one (9, 2) row
     assert names.count("pofx_decode") == 6 + 2 + 1
     # flash decode: 2 specs x 2 S at G = 4, R = 8, and fxp8 x 2 S at G = 16,
-    # R = 1 (moonshot), at G = 32, R = 1, Dh = 64 (zamba2) and at G = 8,
-    # R = 12, Dh = 192 (nemotron)
-    assert names.count("kv_flash_decode") == 4 + 2 + 2 + 2
-    assert names.count("kv_flash_paged_decode") == 4 + 2 + 2 + 2
+    # R = 1 (moonshot), at G = 32, R = 1, Dh = 64 (zamba2), at G = 8,
+    # R = 12, Dh = 192 (nemotron) and at G = 2, R = 8 (yi-9b at tp = 2)
+    assert names.count("kv_flash_decode") == 4 + 2 + 2 + 2 + 2
+    assert names.count("kv_flash_paged_decode") == 4 + 2 + 2 + 2 + 2
+    assert sum("G=2 R=8" in r["shape"] for r in rows) == 4
     nemotron_kv = [r for r in rows if "G=8 R=12" in r["shape"]]
     assert len(nemotron_kv) == 4 and all("Dh=192" in r["shape"] for r in nemotron_kv)
     # pofx_matmul: 2 sweep rows, m = 4, 64 per yi-9b shape, m = 1 unembed,
     # m = 1, 4, 64 per moonshot shape, m = 4, 64 per ssm/hybrid shape,
-    # m = 1 per ssm/hybrid unembed and m = 4, 256 per whisper shape
-    assert names.count("pofx_matmul") == 2 + 4 + 1 + 3 + 4 + 1 + 2
+    # m = 1 per ssm/hybrid unembed, m = 4, 256 per whisper shape and m = 4,
+    # 64 per tp = 2 shard shape
+    assert names.count("pofx_matmul") == 2 + 4 + 1 + 3 + 4 + 1 + 2 + 2
+    assert [r["shape"] for r in rows if r["shape"].endswith("tp2")] == [
+        "m=4 k=48 n=40 x=bf16 tp2", "m=64 k=48 n=40 x=bf16 tp2"]
     assert sum(r["shape"] == "m=256 k=32 n=40 x=bf16" for r in rows) == 1
     assert sum("G=16 R=1" in r["shape"] for r in rows) == 4
     zamba_kv = [r for r in rows if "G=32 R=1" in r["shape"]]

@@ -38,6 +38,7 @@ from repro_torch.kernels.ops import KERNELS, PLAIN
 from repro_torch.nn.models import apply_policy, build_model
 from repro_torch.nn.moe import moe_capacity, moe_forward
 from torch_bridge import _jax_params, pair, port_leaves, reference_leaves, to_numpy_tree
+from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
 
 MOE_ARCHS = ["moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b"]
 MIXED = "attn/*=pofx8es2,mlp/*=fxp8f7,*=bf16"

@@ -27,6 +27,7 @@ from repro_torch.data import (DataConfig, TokenFileReader, synthetic_batch,
                               synthetic_batches, write_token_file)
 from repro_torch.runtime import CheckpointManager, StepTimeMonitor
 from torch_bridge import _jax_params, to_numpy_tree
+from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
 
 # -- numpy posit codec ---------------------------------------------------------
 

@@ -38,6 +38,7 @@ from repro_torch.core.quantizers import QuantizedTensor
 from repro_torch.nn import ssm
 from repro_torch.nn.models import apply_policy, build_model
 from torch_bridge import _jax_params, pair, port_leaves, reference_leaves, to_numpy_tree
+from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
 
 SSM_ARCHS = ["falcon-mamba-7b", "zamba2-1.2b"]
 MIXED = "attn/*=pofx8es2,mlp/*=fxp8f7,*=bf16"

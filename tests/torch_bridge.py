@@ -15,6 +15,7 @@ import math
 
 import jax
 import numpy as np
+import pytest
 
 from repro.configs import ARCHS as J_ARCHS, RunConfig as JRunConfig, smoke as j_smoke
 from repro.core.policy import format_spec as j_format_spec
@@ -129,6 +130,16 @@ def one_thread():
         yield
     finally:
         torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def torch_one_thread():
+    """``one_thread`` for a whole test module, autouse once the module
+    imports it: under the suite's parallel workers torch's default pool
+    (a thread a core in every worker) oversubscribes the CPU many times
+    over, and the smoke-size tensors gain nothing from it."""
+    with one_thread():
+        yield
 
 
 def train_models(arch, **rkw):
