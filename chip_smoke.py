@@ -137,6 +137,28 @@ Phases, one line each, any failure exits non-zero without the final line:
    tp = 1, then moonshot at bf16 on 12 layers with the CLI's workload and
    its launch counts a rank; (d) (b) again over NCCL where there is a card
    a rank, else one line saying NCCL was not run.
+17. training the dense family across ranks (``phase_grid_train``): (a)
+   yi-9b at full width on 2 layers, f32 weights and activations, posit8
+   moments, lr 1e-5, the CLI's 8 x 128 tokens, block remat: three steps
+   at tp = 1 in this process (its state freed after), then the same from
+   the same seed on the (data 2, model 2) grid, four rank processes
+   (``RankPool(grids=)``, over gloo when they share the card, NCCL with a
+   card each): every step's loss and grad norm within 1e-4 of tp = 1's;
+   every parameter within 1e-4 of its leaf's largest entry wherever its m
+   and v codes equalled tp = 1's after every step, and 99.9 % of each
+   leaf within 0.03 lr; the moment scales equal, each moment code parting
+   from tp = 1's by one step (or as +1 / -1 about zero), at most 0.1 % of
+   them apart after the last step; then (pod 2, model 2) with
+   ``grad_compression="posit8_ef"``: finite losses and the first step's
+   compressed gradient mean equal, bit for bit, to the port's
+   ``posit_compressed_mean`` on the CPU over the pods' gradients (every
+   leaf's first 2^18 elements, the scale from the whole leaf); step ms
+   (bare steps), tokens/s, peak GiB a rank and the collectives' share of
+   step 1 (host time in the ``TPContext`` collectives, the card
+   synchronized around each, in that step alone); (b) where there are
+   four cards, full-depth yi-9b on (data 2, model 2) over NCCL with the
+   train CLI's workload (bf16, posit8 moments, 5 steps), else one line
+   saying (b) was not run.
 
 Before torch is imported, the CUDA driver is asked to start in a process of
 its own (``wait_for_card``): a freshly booted host may refuse for a while
@@ -1949,10 +1971,452 @@ def phase_tp(torch, result):
     torch.cuda.empty_cache()
 
 
+# phase 17: training the dense family across ranks. (a) on the card that the
+# run has: yi-9b at full width on GRID_LAYERS layers (at 4 the whole script
+# came too near its time limit), f32, three steps at tp = 1 in this process,
+# then on the (data 2, model 2) grid and on the (pod 2, model 2) grid with
+# posit8_ef, four rank processes over gloo; (b) where there are four cards,
+# full-depth yi-9b on (data 2, model 2) over NCCL with the train CLI's
+# workload.
+GRID_LAYERS = 2
+GRID_STEPS = 3
+GRID_TIMED_STEP = 1             # the step whose collectives are timed (its wall time is not kept)
+GRID_RTOL = 1e-4                # losses and grad norms (relative), params (of the leaf's largest)
+GRID_CODE_SHARE = 1e-3          # the share of moment codes that may differ from tp = 1's
+GRID_RUN = dict(weight_dtype="f32", activation_dtype="f32", learning_rate=1e-5,
+                total_steps=GRID_STEPS, warmup_steps=1, remat="block", opt_state_quant="posit8")
+GRID_NCCL_RUN = dict(learning_rate=1e-3, total_steps=5, warmup_steps=1, remat="block",
+                     opt_state_quant="posit8")
+GRID_CHECK_ELEMS = 1 << 18      # (pod) the first elements of each leaf checked on the CPU
+
+
+def timed_collectives():
+    """Host seconds inside the TPContext collectives of this process, by
+    kind, while ``acc["on"]`` (into ``acc["s"]``): the card is synchronized
+    before and after each, so a collective's time is its own, but the step
+    loses its overlap of launches, so only GRID_TIMED_STEP runs so and no
+    step time is taken from it. A measurement harness: it patches the class
+    in this process only. Returns the accumulator."""
+    import torch
+    from repro_torch.nn.sharding import TPContext
+    acc = {"on": False, "s": {}}
+    for name in ("all_reduce", "all_gather", "reduce_scatter", "psum"):
+        orig = getattr(TPContext, name)
+
+        def wrap(self, *a, _orig=orig, _name=name, **k):
+            if self.size == 1 or not acc["on"]:
+                return _orig(self, *a, **k)
+            if torch.cuda.is_available():
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = _orig(self, *a, **k)
+            if out.is_cuda:
+                torch.cuda.synchronize()
+            acc["s"][_name] = acc["s"].get(_name, 0.0) + time.perf_counter() - t0
+            return out
+        setattr(TPContext, name, wrap)
+    return acc
+
+
+def grid_pod_check(torch, model, grid, probe, names):
+    """(pod branch, step 1) The port's ``posit_compressed_mean`` on the CPU
+    over the pods' gradients gathered through the host groups: for every
+    leaf (``names``: its reference leaf), its first GRID_CHECK_ELEMS
+    elements, scaled by the largest magnitude of the whole reference leaf
+    (its layers and its shards, taken on the CPU), equal the card's
+    compressed mean bit for bit. Returns the elements checked."""
+    from repro_torch.launch.train import leaf_groups
+    from repro_torch.runtime.compression import posit_compressed_mean
+    shards = dict(zip(names, (s.host() for s in leaf_groups(model))))
+    pod = grid.axis("pod").host()
+    grads, means = probe["pod_grads"], probe["mean_grads"]
+    amax = {}
+    for g, n in zip(grads, names):
+        a = g.float().abs().amax()
+        amax[n] = a if n not in amax else torch.maximum(amax[n], a)
+    amax = {n: shards[n].all_reduce(a, "max") for n, a in amax.items()}
+    checked = 0
+    for i, (g, m, n) in enumerate(zip(grads, means, names)):
+        k = min(g.numel(), GRID_CHECK_ELEMS)
+        got, _ = posit_compressed_mean(g.reshape(-1)[:k], pod, residual=torch.zeros(k),
+                                       amax=amax[n])
+        if not torch.equal(got, m.reshape(-1)[:k]):
+            bad = (got != m.reshape(-1)[:k]).sum().item()
+            raise AssertionError(f"rank {grid.rank}: leaf {i} ({n}): {bad} of {k} entries of "
+                                 "the card's compressed mean differ from the CPU's")
+        checked += k
+    return checked
+
+
+def grid_train_rank(grid, device, spec):
+    """Phase 17's rank side (``grid`` None: tp = 1 in this process): yi-9b
+    on ``spec["layers"]`` layers with ``spec["run"]``, the state drawn from
+    seed 0 (each rank its shard), ``spec["steps"]`` steps on the train CLI's
+    batches (8 x 128 tokens), each timed; with ``spec["check_pod"]`` the
+    first step's compressed mean checked on the CPU (``grid_pod_check``).
+    Returns the metrics, step seconds, the collectives' seconds a kind in
+    step GRID_TIMED_STEP (``timed_collectives``), peak GiB, state GiB and
+    (``spec["state"]``) the parameters after the last step and the posit8
+    moment codes after every step, as numpy arrays (a rank's as files in
+    its ``state_dir``)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import ARCHS, RunConfig
+    from repro_torch.convert import tensor_to_numpy
+    from repro_torch.core.policy import named_leaves
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.launch.train import make_train_state, make_train_step
+    from repro_torch.nn.models import build_model
+    from repro_torch.optim import tree_leaves
+    cfg = dataclasses.replace(ARCHS["yi-9b"], n_layers=spec["layers"], **spec.get("over", {}))
+    model = build_model(cfg, RunConfig(**spec["run"]), device=device, grid=grid)
+    acc = timed_collectives() if grid is not None else None
+    cuda = model.device.type == "cuda"
+    sync = torch.cuda.synchronize if cuda else (lambda: None)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = make_train_state(model, 0)
+    sync()
+    params0 = ([tensor_to_numpy(p) for p in tree_leaves(state["params"])]
+               if spec.get("state") == "initial" else None)
+    out = {"init_s": time.perf_counter() - t0, "loss": [], "grad_norm": [], "step_s": [],
+           "collective_s": {}, "state_gib": sum(
+               t.numel() * t.element_size() for leaf in tree_leaves(state["params"])
+               + tree_leaves(state["opt"]["m"]) + tree_leaves(state["opt"]["v"])
+               for t in ((leaf.codes, leaf.scale) if hasattr(leaf, "codes") else (leaf,))) / 2**30}
+    # the parameters after the last step and the moment codes after every
+    # step: tp = 1's in this process, a rank's gigabytes through files (the
+    # page cache), not the pool's queue
+    out["arrays"], out["scales"] = {}, []
+    state_dir = Path(spec.get("state_dir", ".")) / f"r{grid.rank if grid else 0}"
+
+    def keep(tag, trees):
+        for k, ts in trees.items():
+            if grid is None:
+                out["arrays"][k + tag] = [tensor_to_numpy(t) for t in ts]
+                continue
+            state_dir.mkdir(parents=True, exist_ok=True)
+            for i, t in enumerate(ts):
+                np.save(state_dir / f"{k}{tag}_{i}.npy", tensor_to_numpy(t))
+
+    step = make_train_step(model, grid)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=8)
+    for s in range(spec["steps"]):
+        probe = {} if spec.get("check_pod") and s == 0 else None
+        timed = acc is not None and s == GRID_TIMED_STEP
+        if timed:
+            acc["on"] = True
+        sync()
+        t0 = time.perf_counter()
+        state, m = step(state, synthetic_batch(dc, s), probe=probe)
+        out["loss"].append(float(m["loss"]))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        sync()
+        out["step_s"].append(time.perf_counter() - t0)
+        if timed:
+            acc["on"] = False
+            out["collective_s"] = dict(acc["s"])
+        if spec.get("state"):
+            keep(f"s{s}", {k: [q.codes for q in tree_leaves(state["opt"][k])] for k in "mv"})
+            out["scales"].append([[float(q.scale.reshape(-1)[0]) for q in
+                                   tree_leaves(state["opt"][k])] for k in "mv"])
+        if probe is not None:
+            t1 = time.perf_counter()
+            names = [n for n, _ in named_leaves(state["params"])]
+            out["pod_checked"] = grid_pod_check(torch, model, grid, probe, names)
+            out["pod_check_s"] = time.perf_counter() - t1
+            del probe
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30 if cuda else 0.0
+    if spec.get("state"):
+        keep("", {"p": tree_leaves(state["params"])})
+        if grid is None:
+            out["arrays"]["p0"] = params0
+        else:
+            out["state_dir"] = str(state_dir)
+    del state
+    if cuda:
+        torch.cuda.empty_cache()
+    return out
+
+
+def grid_compare(torch, one, ranks, lay, device, lr):
+    """The grid's parameters after the last step and its posit8 moment
+    codes after every step (each rank's in the files of its ``state_dir``)
+    against tp = 1's, on ``device``; every rank's moment scales must be
+    tp = 1's after every step. Returns counts over every leaf:
+
+    * "param_max_rel_err", "param_max_lr": the largest difference, over its
+      leaf's largest entry and in lr; "param_off_share": the largest share
+      of a leaf's entries more than 0.03 lr apart;
+    * "params_off": entries more than GRID_RTOL of their leaf's largest
+      entry apart; "params_off_coded_alike" those of them whose m and v
+      codes equal tp = 1's after every step (AdamW's step reads the
+      moments, so with moments coded alike the two runs differ only by
+      their gradients' rounding); "off_max_lr" and "off_coded_alike_max_lr"
+      the largest of each in lr;
+    * "flips": moment codes that part from tp = 1's at a step after being
+      equal at every step before (at a rounding boundary of the code grid),
+      "flips_over_one_step" those more than one step apart (in the int8
+      order of posit codes, which is their values' order) and of these
+      "flips_across_zero" the pairs +-1 (the two codes next to zero: a
+      moment that cancels to rounding noise takes the noise's sign);
+    * after the last step: "codes", "codes_differing", "codes_over_one_step"
+      (an entry parted at an earlier step drifts further in code space as
+      the moment's average carries the difference into smaller values,
+      where a code step is finer); "code_max_diff_of_scale": the largest
+      difference of two differing codes' values in units of their scale;
+    * "examples": the worst few entries of each kind."""
+    import numpy as np
+    from repro_torch.core.posit import posit_decode
+    from repro_torch.launch.train import spec_leaves
+
+    def dev(a):
+        return torch.from_numpy(np.asarray(a)).to(device)
+
+    def gathered(key, i, sp):
+        return lay.grid.unshard([dev(np.load(Path(r["state_dir"]) / f"{key}_{i}.npy"))
+                                 for r in ranks], sp)
+
+    out = dict(param_max_rel_err=0.0, param_max_lr=0.0, param_off_share=0.0, params_off=0,
+               params_off_coded_alike=0, off_max_lr=0.0, off_coded_alike_max_lr=0.0, flips=0,
+               flips_over_one_step=0, flips_across_zero=0, codes=0, codes_differing=0, codes_over_one_step=0,
+               code_max_diff_of_scale=0.0,
+               examples={"off_coded_alike": [], "flips_over_one_step": [], "over_one_step": []})
+    mine = one["arrays"]
+    last = GRID_STEPS - 1
+
+    def example(kind, i, mask, **cols):
+        ex = out["examples"][kind]
+        idx = torch.nonzero(mask.reshape(-1)).reshape(-1)
+        for j in idx.tolist()[:3 - len(ex)]:
+            ex.append({"leaf": i, "index": j, **{k: v.reshape(-1)[j].item()
+                                                 for k, v in cols.items()}})
+
+    for i, sp in enumerate(spec_leaves(lay)):
+        apart = None
+        for k, key in enumerate(("m", "v")):
+            parted = prev = None
+            for s in range(GRID_STEPS):
+                if any(r["scales"][s][k][i] != one["scales"][s][k][i] for r in ranks):
+                    raise AssertionError(f"leaf {i}: a rank's {key} scale after step {s} is "
+                                         "not tp=1's")
+                gc, wc = gathered(f"{key}s{s}", i, sp), dev(mine[f"{key}s{s}"][i])
+                a, b = gc.view(torch.int8).int(), wc.view(torch.int8).int()
+                diff = a != b
+                fresh = diff if parted is None else diff & ~parted
+                over = fresh & ((a - b).abs() > 1)
+                out["flips"] += int(fresh.sum())
+                out["flips_over_one_step"] += int(over.sum())
+                out["flips_across_zero"] += int((over & (a.abs() <= 1) & (b.abs() <= 1)).sum())
+                if over.any():
+                    example("flips_over_one_step", i, over, step=torch.full_like(a, s),
+                            grid=a, tp1=b, before=a if prev is None else prev)
+                parted = diff if parted is None else parted | diff
+                prev = b
+                if s == last:
+                    out["codes_differing"] += int(diff.sum())
+                    out["codes"] += diff.numel()
+                    far = (a - b).abs() > 1
+                    out["codes_over_one_step"] += int(far.sum())
+                    if far.any():
+                        example("over_one_step", i, far, grid=a, tp1=b)
+                    if diff.any():
+                        out["code_max_diff_of_scale"] = max(out["code_max_diff_of_scale"], (
+                            posit_decode(gc[diff], 8, 2)
+                            - posit_decode(wc[diff], 8, 2)).abs().max().item())
+            apart = parted if apart is None else apart | parted
+        got, want, p0 = gathered("p", i, sp), dev(mine["p"][i]), dev(mine["p0"][i])
+        d = (got - want).abs()
+        top = want.abs().max().clamp_min(1e-30)
+        out["param_max_rel_err"] = max(out["param_max_rel_err"], (d.max() / top).item())
+        out["param_max_lr"] = max(out["param_max_lr"], d.max().item() / lr)
+        out["param_off_share"] = max(out["param_off_share"], (d > 0.03 * lr).float().mean().item())
+        off = d > GRID_RTOL * top
+        alike = off & ~apart
+        out["params_off"] += int(off.sum())
+        out["params_off_coded_alike"] += int(alike.sum())
+        if off.any():
+            out["off_max_lr"] = max(out["off_max_lr"], d[off].max().item() / lr)
+        if alike.any():
+            out["off_coded_alike_max_lr"] = max(out["off_coded_alike_max_lr"],
+                                                d[alike].max().item() / lr)
+            example("off_coded_alike", i, alike, want=want, got=got, p0=p0)
+    return out
+
+
+def grid_summary(label, ranks, n_params, tokens):
+    """One line (and a dict) of a grid run from its ranks' results: the
+    median of the steps after the first but GRID_TIMED_STEP, tokens/s, the
+    model-FLOP share of the ranks' cards and peak GiB a rank from it; the
+    collectives' share of step GRID_TIMED_STEP, whose collectives ran with
+    the card synchronized around each."""
+    from statistics import median
+    r0 = ranks[0]
+    bare = [t for s, t in enumerate(r0["step_s"]) if s not in (0, GRID_TIMED_STEP)]
+    step_s = median(bare)
+    timed_s = r0["step_s"][GRID_TIMED_STEP]
+    share = sum(r0["collective_s"].values()) / timed_s
+    flops = 8 * n_params * tokens
+    entry = {"median_step_ms": step_s * 1e3, "tokens_per_s": tokens / step_s,
+             "model_flop_share": flops / step_s / (BF16_PEAK * len(ranks)),
+             "peak_gib": [r["peak_gib"] for r in ranks],
+             "state_gib": [r["state_gib"] for r in ranks],
+             "timed_step_ms": timed_s * 1e3, "collective_share": share,
+             "collective_ms": {k: v * 1e3 for k, v in r0["collective_s"].items()},
+             "loss": r0["loss"], "grad_norm": r0["grad_norm"], "step_s": r0["step_s"],
+             "init_s": r0["init_s"]}
+    log(f"  {label}: step {entry['median_step_ms']:.1f} ms (median of steps "
+        f"{[s for s in range(len(r0['step_s'])) if s not in (0, GRID_TIMED_STEP)]}), "
+        f"{entry['tokens_per_s']:.1f} tokens/s, model-FLOP share "
+        f"{100 * entry['model_flop_share']:.3f} % of {len(ranks)} x {BF16_PEAK / 1e12:.0f} "
+        f"TFLOP/s, peak {max(entry['peak_gib']):.2f} GiB a rank (state "
+        f"{max(entry['state_gib']):.2f}); collectives {100 * share:.1f} % of step "
+        f"{GRID_TIMED_STEP} ({entry['timed_step_ms']:.1f} ms with the card synchronized "
+        f"around each: "
+        f"{', '.join(f'{k} {v:.1f} ms' for k, v in sorted(entry['collective_ms'].items()))}); "
+        f"losses {[round(x, 5) for x in r0['loss']]}")
+    return entry
+
+
+def phase_grid_train(torch, result, device="cuda", over=None):
+    """Phase 17: training the dense family across ranks. (a) yi-9b at full
+    width on GRID_LAYERS layers, f32 weights and activations, posit8 moments,
+    lr 1e-5, 8 x 128 tokens, block remat: GRID_STEPS steps at tp = 1 in this
+    process (its state freed after), then the same from the same seed on the
+    (data 2, model 2) grid, four rank processes (over gloo on one card, NCCL
+    with a card each): every step's loss and grad norm within GRID_RTOL of
+    tp = 1's; the parameters after the last step (``grid_compare``) within
+    0.03 lr of tp = 1's on all but 0.1 % of each leaf's entries, and within
+    GRID_RTOL of the leaf's largest entry wherever the entry's m and v codes
+    equalled tp = 1's after every step (a moment coded a step apart changes
+    Adam's step m / sqrt(v), by a factor of 4 at the bottom of the posit8
+    range, where a code step is a factor of 16); the moment scales equal and
+    the codes after the last step apart on at most GRID_CODE_SHARE of the
+    entries, by more than one code step only across zero (a first moment
+    whose gradient is rounding noise takes its sign from the noise); then
+    (pod 2, model 2) with posit8_ef: finite losses and the first step's
+    compressed mean equal to the port's on the CPU (``grid_pod_check``).
+    (b) with four cards: full-depth yi-9b on (data 2, model 2) over NCCL
+    with the train CLI's workload (bf16, posit8 moments, 5 steps). Every
+    part runs before a failed check fails the phase."""
+    from repro_torch.configs import ARCHS, RunConfig
+    from repro_torch.launch.mesh import RankPool, grid_layout, pick_backend
+    from repro_torch.nn.models import build_model
+    from repro_torch.nn.sharding import GridContext
+    entry = {}
+    result["grid"] = entry
+    over = over or {}
+    cfg = dataclasses.replace(ARCHS["yi-9b"], n_layers=GRID_LAYERS, **over)
+    n_params, tokens = cfg.param_count(), 8 * 128
+    state_dir = ROOT / "build" / "phase17_state"
+    spec = {"layers": GRID_LAYERS, "run": GRID_RUN, "steps": GRID_STEPS, "state": True,
+            "over": over, "state_dir": str(state_dir)}
+    t_phase = time.perf_counter()
+    one = grid_train_rank(None, device, dict(spec, state="initial"))
+    log(f"  tp=1 ({time.perf_counter() - t_phase:.0f} s): {n_params / 1e9:.3f} B params, steps "
+        f"{[round(t * 1e3, 1) for t in one['step_s']]} ms, peak {one['peak_gib']:.2f} GiB; "
+        f"losses {[round(x, 5) for x in one['loss']]}")
+    entry["tp1"] = {k: one[k] for k in ("loss", "grad_norm", "step_s", "peak_gib", "state_gib")}
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    grids = [(1, 2, 2), (2, 1, 2)]
+    with RankPool(4, device, grids=grids) as pool:
+        if pool.backend != pick_backend(4, device):
+            raise AssertionError(f"the grid took {pool.backend}")
+        log(f"  4 ranks over {pool.backend} on {torch.cuda.device_count()} card(s) "
+            f"({time.perf_counter() - t_phase:.0f} s)")
+        ranks = pool.run(grid_train_rank, spec, grid=(1, 2, 2))
+        log(f"  (data 2, model 2) ran ({time.perf_counter() - t_phase:.0f} s)")
+        a = grid_summary("(data 2, model 2)", ranks, n_params, tokens)
+        a["backend"] = pool.backend
+        entry["data2_model2"] = a
+        failed = []
+        for what in ("loss", "grad_norm"):
+            for s, (x, y) in enumerate(zip(ranks[0][what], one[what])):
+                if not abs(x - y) <= GRID_RTOL * abs(y):
+                    failed.append(f"(data 2, model 2) step {s} {what} {x} vs tp=1 {y}")
+        lay = build_model(cfg, RunConfig(**GRID_RUN), device="cpu",
+                          grid=GridContext(*grid_layout(1, 2, 2)))
+        try:
+            cmp = grid_compare(torch, one, ranks, lay, device, GRID_RUN["learning_rate"])
+        finally:
+            shutil.rmtree(state_dir, ignore_errors=True)
+        if device == "cuda":
+            torch.cuda.empty_cache()            # the ranks' pod run needs the card
+        a.update(cmp)
+        log(f"  (data 2, model 2) vs tp=1 ({time.perf_counter() - t_phase:.0f} s): losses and "
+            f"grad norms within {GRID_RTOL}: {not failed}; params: the largest difference "
+            f"{cmp['param_max_rel_err']:.3g} of its leaf's largest entry "
+            f"({cmp['param_max_lr']:.2f} lr), at most {100 * cmp['param_off_share']:.4f} % of a "
+            f"leaf's entries past 0.03 lr; {cmp['params_off']} entries past {GRID_RTOL} of their "
+            f"leaf's largest (up to {cmp['off_max_lr']:.2f} lr), {cmp['params_off_coded_alike']} "
+            f"of them with m and v coded as tp=1's after every step (up to "
+            f"{cmp['off_coded_alike_max_lr']:.2f} lr); moment codes: {cmp['flips']} flips, "
+            f"{cmp['flips_over_one_step']} of them more than one step ("
+            f"{cmp['flips_across_zero']} of these +-1); after the last step "
+            f"{cmp['codes_differing']} of {cmp['codes']} differ, {cmp['codes_over_one_step']} "
+            f"by more than one step, the values by at most "
+            f"{cmp['code_max_diff_of_scale']:.3g} of their scale")
+        for kind, rows in cmp["examples"].items():
+            for row in rows:
+                log(f"    {kind}: {row}")
+        if cmp["param_off_share"] > 1e-3:
+            failed.append("(data 2, model 2): more than 0.1 % of a leaf's parameters more "
+                          "than 0.03 lr off tp=1's")
+        if cmp["params_off_coded_alike"]:
+            failed.append(f"(data 2, model 2): {cmp['params_off_coded_alike']} parameters past "
+                          f"{GRID_RTOL} of their leaf's largest entry off tp=1's with every "
+                          "moment code equal to tp=1's")
+        if cmp["codes_differing"] > GRID_CODE_SHARE * cmp["codes"]:
+            failed.append("the moment codes part from tp=1's on more than "
+                          f"{100 * GRID_CODE_SHARE} % of entries")
+        if cmp["flips_over_one_step"] != cmp["flips_across_zero"]:
+            failed.append(f"{cmp['flips_over_one_step'] - cmp['flips_across_zero']} moment "
+                          "codes parted from tp=1's by more than one step, not as +-1")
+        if cmp["code_max_diff_of_scale"] > 2.0 ** -4:
+            failed.append("a moment's value parted from tp=1's by more than one code step "
+                          "at the top of the range")
+        del ranks, one
+        pod_spec = dict(spec, run=dict(GRID_RUN, grad_compression="posit8_ef"), state=False,
+                        check_pod=True)
+        ranks = pool.run(grid_train_rank, pod_spec, grid=(2, 1, 2))
+        log(f"  (pod 2, model 2) ran ({time.perf_counter() - t_phase:.0f} s)")
+        b = grid_summary("(pod 2, model 2) posit8_ef", ranks, n_params, tokens)
+        b["pod_checked"] = [r["pod_checked"] for r in ranks]
+        b["pod_check_s"] = max(r["pod_check_s"] for r in ranks)
+        entry["pod2_model2"] = b
+        if not all(map(math.isfinite, ranks[0]["loss"] + ranks[0]["grad_norm"])):
+            failed.append(f"(pod 2, model 2): losses {ranks[0]['loss']}")
+        log(f"  (pod 2, model 2): the first step's compressed mean equals the CPU's on "
+            f"{sum(b['pod_checked'])} entries over the 4 ranks (checked in "
+            f"{b['pod_check_s']:.1f} s)")
+    # (b) four cards, NCCL, full depth
+    if device == "cuda" and torch.cuda.device_count() >= 4:
+        full = ARCHS["yi-9b"]
+        nccl_spec = {"layers": full.n_layers, "run": GRID_NCCL_RUN, "steps": 5}
+        with RankPool(4, "cuda", grids=[(1, 2, 2)]) as pool:
+            if pool.backend != "nccl":
+                raise AssertionError(f"four cards, but the ranks took {pool.backend}")
+            ranks = pool.run(grid_train_rank, nccl_spec, grid=(1, 2, 2))
+        c = grid_summary(f"NCCL (data 2, model 2), yi-9b {full.n_layers} layers, bf16",
+                         ranks, full.param_count(), tokens)
+        if not all(map(math.isfinite, ranks[0]["loss"] + ranks[0]["grad_norm"])):
+            failed.append(f"NCCL grid: losses {ranks[0]['loss']}")
+        entry["nccl_full_depth"] = c
+    else:
+        log(f"  (b) not run: {torch.cuda.device_count()} card(s); full depth over NCCL "
+            "needs four")
+        entry["nccl_full_depth"] = "not run"
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="drive the port on one card")
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
                     help="comma-separated phases after the build (default: all)")
     want = {int(p) for p in ap.parse_args(argv).phases.split(",")}
     state = wait_for_card()
@@ -2028,6 +2492,8 @@ def main(argv) -> int:
          lambda: result.__setitem__("nemotron_counts", phase_nemotron(torch, result))),
         ("phase 16: tensor-parallel serving, tp=2",
          lambda: phase_tp(torch, result)),
+        ("phase 17: training the dense family on (pod, data, model) grids",
+         lambda: phase_grid_train(torch, result)),
     ]
     for label, fn in phases:
         if int(label.split()[1].rstrip(":")) not in want:
@@ -2051,7 +2517,7 @@ def main(argv) -> int:
     if failed:
         log(f"FAILED: {failed}")
         return 1
-    if want != set(range(2, 17)):
+    if want != set(range(2, 18)):
         log(f"ran phases {sorted(want)} only: no result line")
         return 1
     main_counts = result["main_counts"]

@@ -35,7 +35,11 @@ reference's ``np.save`` round-trips them through).
 ``rank_params_from_numpy`` is the tensor-parallel form: the same tree cut
 to one rank's shard (``nn.sharding.shard_policy_params`` over the rank
 model's ``logical()``), so the tp = N port serves the reference's tp = 1
-weights.
+weights. On a training grid, ``rank_train_state_from_numpy`` cuts the
+reference's train state to one rank's shard (``launch.train.
+state_shardings``: moments like their parameter, a posit8 scale whole),
+and ``gather_train_state`` puts every rank's shards back together into the
+reference's numpy layout.
 """
 from __future__ import annotations
 
@@ -47,9 +51,10 @@ import torch
 from repro_torch.core.policy import format_spec, parse_spec
 from repro_torch.core.quantizers import QuantSpec, QuantizedTensor
 
-__all__ = ["params_from_numpy", "params_to_numpy", "rank_params_from_numpy",
-           "reference_layout", "reference_structure", "tensor_from_numpy",
-           "tensor_to_numpy", "train_state_from_numpy"]
+__all__ = ["gather_train_state", "params_from_numpy", "params_to_numpy",
+           "rank_params_from_numpy", "rank_train_state_from_numpy", "reference_layout",
+           "reference_structure", "tensor_from_numpy", "tensor_to_numpy",
+           "train_state_from_numpy"]
 
 _STACKED = ("blocks", "enc_blocks")
 
@@ -143,6 +148,51 @@ def train_state_from_numpy(tree: Dict[str, Any], *, device) -> Dict[str, Any]:
         raise ValueError(f"not a train state: keys {sorted(tree)}, "
                          f"opt {sorted(tree.get('opt', {}))}")
     return params_from_numpy(tree, device=device)
+
+
+def _zip_map(fn, spec, *trees):
+    """``fn(spec leaf, *tree leaves)`` over trees of one structure (dicts and
+    the ``blocks`` lists; a spec leaf is a tuple or a QuantizedTensor)."""
+    if isinstance(trees[0], dict):
+        return {k: _zip_map(fn, spec[k], *(t[k] for t in trees)) for k in trees[0]}
+    if isinstance(trees[0], list):
+        return [_zip_map(fn, sp, *ts) for sp, *ts in zip(spec, *trees)]
+    return fn(spec, *trees)
+
+
+def rank_train_state_from_numpy(tree: Dict[str, Any], model) -> Dict[str, Any]:
+    """The reference's train state (numpy) -> the shard that ``model`` (one
+    rank's LM on a training grid) holds, on its device."""
+    from repro_torch.launch.train import state_shardings
+    grid, dev = model.grid, model.device
+
+    def one(spec, leaf):
+        if isinstance(leaf, QuantizedTensor):
+            return QuantizedTensor(grid.shard(leaf.codes, spec.codes).to(dev),
+                                   leaf.scale.to(dev), leaf.spec)
+        return grid.shard(leaf, spec).to(dev)
+
+    return _zip_map(one, state_shardings(model), train_state_from_numpy(tree, device="cpu"))
+
+
+def gather_train_state(states: List[Dict[str, Any]], model) -> Dict[str, Any]:
+    """Every rank's train state (``states[r]`` rank r's; tensors, or numpy
+    arrays in the same structure) -> the whole state in the reference's
+    numpy layout (``params_to_numpy``). A posit8 moment's scale must be the
+    same on every rank."""
+    from repro_torch.launch.train import state_shardings
+    grid = model.grid
+
+    def one(spec, *leaves):
+        if isinstance(leaves[0], QuantizedTensor):
+            scales = [_host(q.scale) for q in leaves]
+            if any(not np.array_equal(sc, scales[0]) for sc in scales):
+                raise ValueError("a posit8 moment's scale differs between ranks")
+            return QuantizedTensor(grid.unshard([_host(q.codes) for q in leaves], spec.codes),
+                                   scales[0], leaves[0].spec)
+        return grid.unshard([_host(t) for t in leaves], spec)
+
+    return params_to_numpy(_zip_map(one, state_shardings(model), *states[:grid.size]))
 
 
 # -- the way back: the reference's stacked layout -------------------------

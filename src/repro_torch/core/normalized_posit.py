@@ -11,10 +11,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .posit import posit_decode_np, posit_encode, posit_encode_np
+from .posit import (posit_decode, posit_decode_np, posit_encode, posit_encode_arith,
+                    posit_encode_np)
 
-__all__ = ["norm_expand", "norm_compress", "norm_encode", "norm_encode_np",
-           "norm_decode_np", "pack_bits", "unpack_bits"]
+__all__ = ["norm_expand", "norm_compress", "norm_encode", "norm_encode_arith",
+           "norm_encode_np", "norm_decode", "norm_decode_np", "pack_bits", "unpack_bits"]
 
 
 def norm_expand(codes: torch.Tensor, N: int) -> torch.Tensor:
@@ -43,6 +44,17 @@ def _signed_clamp(codes: torch.Tensor, N: int) -> torch.Tensor:
 
 def norm_encode(x: torch.Tensor, N: int, ES: int) -> torch.Tensor:
     return norm_compress(_signed_clamp(posit_encode(x, N, ES), N), N)
+
+
+def norm_encode_arith(x: torch.Tensor, N: int, ES: int) -> torch.Tensor:
+    """Gather-free normalized-posit encode (``posit.posit_encode_arith``'s
+    bit-arithmetic rounding): the gradient transport's encoder."""
+    return norm_compress(_signed_clamp(posit_encode_arith(x, N, ES), N), N)
+
+
+def norm_decode(codes: torch.Tensor, N: int, ES: int) -> torch.Tensor:
+    """(N-1)-bit normalized codes -> float32 values."""
+    return posit_decode(norm_expand(codes, N), N, ES)
 
 
 def norm_encode_np(x, N: int, ES: int) -> np.ndarray:

@@ -16,12 +16,23 @@ import numpy as np
 import torch
 
 __all__ = ["NAR", "posit_decode", "posit_decode_np", "posit_encode",
-           "posit_encode_np", "posit_value_table"]
+           "posit_encode_arith", "posit_encode_np", "posit_max", "posit_min_pos",
+           "posit_value_table"]
 
 
 def NAR(N: int) -> int:
     """The Not-a-Real code for an N-bit posit (1 followed by zeros)."""
     return 1 << (N - 1)
+
+
+def posit_max(N: int, ES: int) -> float:
+    """Largest positive posit value."""
+    return float(posit_value_table(N, ES)[-1])
+
+
+def posit_min_pos(N: int, ES: int) -> float:
+    """Smallest positive posit value."""
+    return float(posit_value_table(N, ES)[1])
 
 
 def _check_config(N: int, ES: int) -> None:
@@ -141,3 +152,48 @@ def posit_encode_np(x, N: int, ES: int, allow_zero: bool = True) -> np.ndarray:
     xt = torch.from_numpy(np.asarray(x, dtype=np.float64))
     table = torch.from_numpy(posit_value_table(N, ES))
     return _encode(xt, table, N, allow_zero).numpy()
+
+
+def posit_encode_arith(x: torch.Tensor, N: int, ES: int) -> torch.Tensor:
+    """Gather-free posit encode: lane-wise bit arithmetic on the float32
+    bits, round to nearest even in code space (the integer carry out of the
+    kept bits is the correct posit rounding, carries into the regime
+    included). The reference's transport encoder: it agrees with the table
+    encoder (``posit_encode``) to one code except that ties at regime
+    boundaries may round the other way; its bits are kept here. int32
+    codes, NaN -> NaR, zero -> 0, |x| >= maxpos -> maxpos, |x| < minpos / 2
+    -> 0 and below minpos at least minpos."""
+    _check_config(N, ES)
+    i32 = torch.int32
+    xf = x.to(torch.float32)
+    bits = xf.view(i32)
+    a_bits = bits & 0x7FFFFFFF
+    a = a_bits.view(torch.float32)
+    e = ((a_bits >> 23) & 0xFF) - 127                    # floor(log2 a)
+    frac23 = a_bits & 0x7FFFFF
+    k = e >> ES                                          # floor division
+    exp_f = e - k * (1 << ES)                            # in [0, 2^ES)
+    k_c = k.clamp(-(N - 2), N - 2)
+    # regime: k >= 0 -> (k+1) ones then 0 (length k+2); k < 0 -> (-k-1)
+    # zeros then 1 (length -k+1)
+    r_len = torch.where(k_c >= 0, k_c + 2, 1 - k_c)
+    two = torch.full_like(k_c, 2)
+    regime = torch.where(k_c >= 0, (two << (k_c + 1).clamp(0, 30)) - 2, 1)
+    w = (N - 1 - r_len).clamp(0, N - 1)                  # tail bits kept
+    tail = (exp_f << 23) | frac23                        # ES+23 bits
+    shift_r = (ES + 23 - w).clamp(0, 31)
+    body = (regime << w) | (tail >> shift_r)
+    rbit = torch.where(shift_r > 0, (tail >> (shift_r - 1).clamp(0, 31)) & 1, 0)
+    one = torch.ones_like(shift_r)
+    sticky = (shift_r > 1) & ((tail & ((one << (shift_r - 1).clamp(0, 31)) - 1)) != 0)
+    lsb = body & 1
+    body = body + (rbit & (sticky | (lsb == 1)).to(i32))
+    maxpos_code = (1 << (N - 1)) - 1
+    body = body.clamp(0, maxpos_code)
+    # below minpos: the nearer of {0, minpos}
+    minpos = posit_min_pos(N, ES)
+    body = torch.where(a < minpos / 2, 0, torch.where(a < minpos, body.clamp_min(1), body))
+    body = torch.where(a >= posit_max(N, ES), maxpos_code, body)
+    code = torch.where(bits < 0, (-body) & ((1 << N) - 1), body)
+    code = torch.where(a == 0, 0, code)
+    return torch.where(torch.isnan(xf), NAR(N), code).to(i32)

@@ -1,6 +1,8 @@
-"""Tensor-parallel process groups: one OS process per rank.
+"""Process groups for tensor-parallel serving and for training grids: one
+OS process per rank.
 
-Port of ``repro/launch/mesh.py::make_tp_mesh`` (DESIGN.md §9). The
+Port of ``repro/launch/mesh.py`` (``make_tp_mesh``, DESIGN.md §9;
+``make_host_mesh`` and ``make_production_mesh``). The
 reference serves tensor-parallel inside one process over a 1-D ("tp",)
 device mesh; here each rank is a process of its own, joined through
 ``torch.distributed``:
@@ -18,21 +20,34 @@ device mesh; here each rank is a process of its own, joined through
   queue per rank and collecting each rank's result; every process is
   joined with a timeout when the pool closes. The serving CLI's ``--tp``
   runs one call; the tests keep one pool for a module.
+* ``make_host_mesh(data, model, pod)`` joins the process to a training
+  grid of ``pod * data * model`` ranks and returns its
+  ``nn.sharding.GridContext``: the reference's axis names and shape
+  ((data, model), with "pod" in front when there is more than one pod), the
+  rank's coordinates (row-major) and a group for every set of axes that
+  the training step reads (``grid_groups``). ``make_production_mesh`` reports the reference's
+  production shape ((16, 16), or (2, 16, 16) multi-pod) and joins it only
+  in a world of that many ranks. ``RankPool(..., grids=[(pod, data,
+  model), ...])`` builds each grid over its first ranks, and ``run(fn,
+  grid=...)`` calls ``fn(grid_context, device, ...)`` in them.
 """
 from __future__ import annotations
 
 import datetime
+import itertools
+import math
 import queue as queue_mod
 import socket
 import time
 import traceback
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.nn.sharding import TPContext
+from repro_torch.nn.sharding import GRID_AXES, GridContext, TPContext
 
-__all__ = ["make_tp_mesh", "pick_backend", "rank_device", "RankPool"]
+__all__ = ["make_tp_mesh", "make_host_mesh", "make_production_mesh", "grid_layout",
+           "grid_groups", "GRID_SETS", "pick_backend", "rank_device", "RankPool"]
 
 # seconds a collective waits for the other ranks before it fails (the ranks
 # draw their models side by side, so they reach the first one together)
@@ -76,6 +91,103 @@ def make_tp_mesh(tp: int, *, rank: int = 0, init_method: Optional[str] = None,
                      backend=backend)
 
 
+def grid_layout(pod: int = 1, data: int = 1, model: int = 1) -> Tuple[Tuple[int, ...], Tuple[str, ...]]:
+    """The reference's mesh shape and axis names for a (pod, data, model)
+    grid: (data, model), with "pod" in front when pod > 1."""
+    if min(pod, data, model) < 1:
+        raise ValueError(f"grid sizes must be >= 1, got pod={pod} data={data} model={model}")
+    if pod > 1:
+        return (pod, data, model), GRID_AXES
+    return (data, model), ("data", "model")
+
+
+# the sets of axes the training step takes a group over: model (Megatron's
+# all-reduces, the logits), data (FSDP), pod (the compressed mean), (pod,
+# data) (the loss and gradient means) and (data, model) (a leaf sharded
+# over both: its norms and posit8 maxima)
+GRID_SETS = (("model",), ("data",), ("pod",), ("pod", "data"), ("data", "model"))
+
+
+def grid_groups(shape, names, rank: int, backend: str, timeout_s: float = GROUP_TIMEOUT_S
+                ) -> Dict[Tuple[str, ...], TPContext]:
+    """A TPContext for every set of GRID_SETS, less its axes of one rank
+    (keyed by what is left, empty sets dropped): the ranks that share this
+    rank's coordinates on the other axes. Under NCCL each group has a gloo
+    twin for host-side checks (``TPContext.host``). Every process of the
+    world takes part in making every group, in one order (ranks past the
+    grid's size too); a rank outside the grid gets {}."""
+    import torch.distributed as dist
+    timeout = datetime.timedelta(seconds=timeout_s)
+    sizes = dict(zip(names, shape))
+    keys = []
+    for s in GRID_SETS:
+        key = tuple(a for a in GRID_AXES if a in s and sizes.get(a, 1) > 1)
+        if key and key not in keys:
+            keys.append(key)
+    n = math.prod(shape)
+    out: Dict[Tuple[str, ...], TPContext] = {}
+    for sub in keys:
+        others = [a for a in names if a not in sub]
+        for fixed in itertools.product(*(range(sizes[a]) for a in others)):
+            ranks = []
+            for vary in itertools.product(*(range(sizes[a]) for a in sub)):
+                c = {**dict(zip(others, fixed)), **dict(zip(sub, vary))}
+                r = 0
+                for a in names:
+                    r = r * sizes[a] + c[a]
+                ranks.append(r)
+            group = dist.new_group(ranks, backend=backend, timeout=timeout)
+            host = group if backend == "gloo" else dist.new_group(
+                ranks, backend="gloo", timeout=timeout)
+            if rank < n and rank in ranks:
+                out[sub] = TPContext(rank=ranks.index(rank), size=len(ranks), group=group,
+                                     host_group=host, backend=backend)
+    return out
+
+
+def make_host_mesh(data: int = 1, model: int = 1, pod: int = 1, *, rank: int = 0,
+                   init_method: Optional[str] = None, device: str = "cpu",
+                   timeout_s: float = GROUP_TIMEOUT_S) -> GridContext:
+    """Join this process to a training grid of ``pod * data * model`` ranks
+    as ``rank`` and return its GridContext (one rank: the layout, no group).
+    ``init_method`` is the rendezvous address (``tcp://127.0.0.1:<port>``);
+    the backend is ``pick_backend``'s."""
+    shape, names = grid_layout(pod, data, model)
+    world = math.prod(shape)
+    if world == 1:
+        return GridContext(shape, names)
+    import torch.distributed as dist
+    backend = pick_backend(world, device)
+    dist.init_process_group(backend, init_method=init_method, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=timeout_s))
+    return GridContext(shape, names, rank, grid_groups(shape, names, rank, backend, timeout_s),
+                       backend)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> GridContext:
+    """The reference's production mesh: (16, 16) as ("data", "model"), or
+    (2, 16, 16) with "pod" in front. In a world of exactly that many ranks
+    (``torch.distributed`` initialized) the grid is joined; otherwise its
+    layout alone is returned (rank 0's coordinates, no group), for the
+    shape and the specs."""
+    shape, names = grid_layout(2 if multi_pod else 1, 16, 16)
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        world = dist.get_world_size()
+        if world != math.prod(shape):
+            raise ValueError(f"the production mesh {shape} needs {math.prod(shape)} "
+                             f"ranks, the world has {world}")
+        rank, backend = dist.get_rank(), dist.get_backend()
+        return GridContext(shape, names, rank, grid_groups(shape, names, rank, backend),
+                           backend)
+    return GridContext(shape, names)
+
+
+def _norm_grid(grid) -> Tuple[int, int, int]:
+    pod, data, model = grid
+    return int(pod), int(data), int(model)
+
+
 def _free_port() -> int:
     with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
         s.bind(("127.0.0.1", 0))
@@ -83,10 +195,12 @@ def _free_port() -> int:
 
 
 def _rank_loop(rank: int, tp: int, init_method: str, device: str, threads: int,
-               timeout_s: float, sizes: Sequence[int], inbox, outbox) -> None:
-    """A rank's process: join the group, then run each (fn, size, args)
-    from ``inbox`` with the context of the first ``size`` ranks and put
-    (rank, ok, result or traceback) on ``outbox``; None ends it."""
+               timeout_s: float, sizes: Sequence[int], grids, inbox, outbox) -> None:
+    """A rank's process: join the group and make the subgroups and grids,
+    then run each (fn, key, args) from ``inbox`` with the context of the
+    first ``key`` ranks (an int) or of the grid ``key`` (a (pod, data,
+    model) tuple) and put (rank, ok, result or traceback) on ``outbox``;
+    None ends it."""
     try:
         if threads:
             torch.set_num_threads(threads)
@@ -108,6 +222,11 @@ def _rank_loop(rank: int, tp: int, init_method: str, device: str, threads: int,
             if rank < size:
                 ctxs[size] = TPContext(rank=rank, size=size, group=group,
                                        host_group=host, backend=backend)
+        for grid in grids:
+            shape, names = grid_layout(*grid)
+            groups = grid_groups(shape, names, rank, backend, timeout_s)
+            if rank < math.prod(shape):
+                ctxs[grid] = GridContext(shape, names, rank, groups, backend)
         outbox.put((rank, True, "ready"))
     except Exception:
         outbox.put((rank, False, traceback.format_exc()))
@@ -117,9 +236,9 @@ def _rank_loop(rank: int, tp: int, init_method: str, device: str, threads: int,
             job = inbox.get()
             if job is None:
                 break
-            fn, size, args, kwargs = job
+            fn, key, args, kwargs = job
             try:
-                res = fn(ctxs[size], dev, *args, **kwargs)
+                res = fn(ctxs[key], dev, *args, **kwargs)
                 outbox.put((rank, True, res))
             except Exception:
                 outbox.put((rank, False, traceback.format_exc()))
@@ -139,17 +258,25 @@ def _drain(q) -> None:
 
 class RankPool:
     """``tp`` spawned rank processes in one group (and, for each of
-    ``sizes``, a subgroup of its first ranks). ``run(fn, *args, size=)``
-    calls ``fn(ctx, device, *args)`` in ranks 0..size-1 and returns their
-    results in rank order; a rank that raises makes ``run`` raise with its
-    traceback. ``fn`` and its arguments must pickle (a module-level
-    function). Use as a context manager, or call ``close``."""
+    ``sizes``, a subgroup of its first ranks; for each (pod, data, model)
+    of ``grids``, that training grid over its first ranks). ``run(fn,
+    *args, size=)`` calls ``fn(ctx, device, *args)`` in ranks 0..size-1 and
+    returns their results in rank order; ``run(fn, *args, grid=(pod, data,
+    model))`` calls ``fn(grid_context, device, *args)`` in the grid's
+    ranks. A rank that raises makes ``run`` raise with its traceback.
+    ``fn`` and its arguments must pickle (a module-level function). Use as
+    a context manager, or call ``close``."""
 
     def __init__(self, tp: int, device: str = "cpu", *, threads: int = 0,
-                 sizes: Sequence[int] = (), timeout_s: float = GROUP_TIMEOUT_S):
+                 sizes: Sequence[int] = (), grids: Sequence[Tuple[int, int, int]] = (),
+                 timeout_s: float = GROUP_TIMEOUT_S):
         import multiprocessing as mp
         if tp < 1:
             raise ValueError(f"tp must be >= 1, got {tp}")
+        grids = tuple(_norm_grid(g) for g in grids)
+        for g in grids:
+            if math.prod(g) > tp:
+                raise ValueError(f"grid {g} needs {math.prod(g)} ranks, the pool has {tp}")
         self.tp, self.device, self.timeout_s = tp, device, timeout_s
         self.backend = pick_backend(tp, device)
         ctx = mp.get_context("spawn")
@@ -158,7 +285,7 @@ class RankPool:
         init = f"tcp://127.0.0.1:{_free_port()}"
         self._procs = [ctx.Process(target=_rank_loop, daemon=True,
                                    args=(r, tp, init, device, threads, timeout_s,
-                                         tuple(sizes), self._inboxes[r], self._outbox))
+                                         tuple(sizes), grids, self._inboxes[r], self._outbox))
                        for r in range(tp)]
         for p in self._procs:
             p.start()
@@ -198,10 +325,16 @@ class RankPool:
                 + "\n".join(f"--- rank {r} ---\n{t}" for r, t in sorted(errors.items())))
         return [got[r] for r in sorted(want)]
 
-    def run(self, fn: Callable, *args, size: Optional[int] = None, **kwargs) -> List[Any]:
-        size = size or self.tp
+    def run(self, fn: Callable, *args, size: Optional[int] = None,
+            grid: Optional[Tuple[int, int, int]] = None, **kwargs) -> List[Any]:
+        key = size or self.tp
+        if grid is not None:
+            key = _norm_grid(grid)
+            size = math.prod(key)
+        else:
+            size = key
         for r in range(size):
-            self._inboxes[r].put((fn, size, args, kwargs))
+            self._inboxes[r].put((fn, key, args, kwargs))
         return self._collect(range(size), getattr(fn, "__name__", "call"))
 
     def close(self) -> None:

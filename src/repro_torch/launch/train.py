@@ -1,16 +1,30 @@
 """The training step and its command-line loop.
 
-Port of ``repro/launch/train.py`` for one device. ``make_train_step``
+Port of ``repro/launch/train.py``. ``make_train_step(model, mesh)``
 assembles the step:
 
   microbatch gradient accumulation (f32 accumulators)
+  -> optional posit8-compressed cross-pod gradient mean
   -> global-norm clip + AdamW (optionally posit8-compressed moments)
 
 and updates the state IN PLACE (the reference jits its step with the
-state donated). The reference's posit8-compressed cross-pod gradient
-mean needs a mesh with a "pod" axis, as do its sharding trees: they wait
-for tensor parallelism. Without a mesh the reference runs the plain
-branch, which is the one ported.
+state donated). On one device it runs the reference's plain branch. On a
+training grid (a model built with ``grid=``, a ``launch.mesh.
+make_host_mesh`` context; the dense family) each rank holds its shard of
+the state (``state_shardings``: moments like their parameter, a posit8
+scale and the count replicated, ``ef`` like the parameters) and takes the
+rows of the batch at its (pod, data) coordinate (``batch_shardings``);
+every rank is given the whole batch. Plain branch: the rank's gradients
+(FSDP's reduce-scatter sums a data-sharded leaf's over the data ranks in
+the backward), then the sum over the batch group of what is not summed
+yet, over the batch ranks. Pod branch (``grad_compression`` "posit8" or
+"posit8_ef" and a mesh with a "pod" axis): the mean over the pod's data
+ranks, then ``runtime.compression.compressed_grad_transform`` over the pod
+group (error feedback in ``state["ef"]`` under "posit8_ef"), then the
+update. The loss is the mean over the batch ranks. ``make_train_state``
+on a grid draws the tp = 1 state leaf by leaf and keeps the rank's shard.
+The CLI has no mesh flag, as the reference's has none; the tests and
+``chip_smoke.py`` drive grids through ``launch.mesh.RankPool``.
 
 The CLI runs the reference's loop: data pipeline -> train step ->
 async checkpoints (auto-resume) -> straggler monitor, with the
@@ -38,17 +52,26 @@ from __future__ import annotations
 import argparse
 import json
 import time
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
 
 from repro_torch.configs import ARCHS, RunConfig, smoke as smoke_cfg
+from repro_torch.core.policy import named_leaves
+from repro_torch.core.quantizers import QuantizedTensor
 from repro_torch.nn.models import LM, build_model
+from repro_torch.nn.sharding import TPContext, map_with_logical
 from repro_torch.optim import (OptConfig, apply_updates, init_opt_state,
                                tree_leaves, tree_map)
+from repro_torch.optim.adamw import _POSIT8
+from repro_torch.runtime.compression import compressed_grad_transform
 
 __all__ = ["make_train_state", "make_train_step", "opt_config_from_run",
+           "state_shardings", "batch_shardings", "shard_batch", "spec_leaves", "leaf_groups",
            "value_and_grad"]
+
+# elements a bucket of one gradient all-reduce (f32: 256 MiB)
+BUCKET = 1 << 26
 
 PHASES = ("forward", "backward", "optimizer")
 
@@ -76,6 +99,56 @@ def make_train_state(model: LM, seed: int = 0) -> Dict[str, Any]:
     return state
 
 
+def state_shardings(model: LM) -> Dict[str, Any]:
+    """The spec of every leaf of the train state on the model's grid (each
+    dim's mesh axis or None): params as ``model.specs()``; the moments like
+    their parameter, a posit8 moment's codes so and its scale replicated; the
+    count replicated; ``ef`` like the parameters."""
+    p = model.specs()
+    rcfg = model.rcfg
+
+    def like_params(quant):
+        if quant != "posit8":
+            return p
+        return map_with_logical(lambda name, s, ax: QuantizedTensor(s, (None,) * len(s), _POSIT8),
+                                p, model.logical())
+
+    quant = opt_config_from_run(rcfg).quant
+    out = {"params": p, "opt": {"m": like_params(quant), "v": like_params(quant),
+                                "count": ()}}
+    if rcfg.grad_compression == "posit8_ef":
+        out["ef"] = p
+    return out
+
+
+def batch_shardings(model: LM, batch) -> Dict[str, Tuple]:
+    """Each batch leaf's spec: its rows over ("pod", "data"), the rest
+    whole (rows that the batch ranks do not divide replicate)."""
+    grid = model.grid
+    return {k: grid.spec(("batch",) + (None,) * (len(v.shape) - 1), tuple(v.shape))
+            for k, v in batch.items()}
+
+
+def shard_batch(model: LM, batch) -> Dict[str, torch.Tensor]:
+    """The rows of ``batch`` at this rank's (pod, data) coordinate."""
+    specs = batch_shardings(model, batch)
+    return {k: model.grid.shard(v, specs[k]) for k, v in batch.items()}
+
+
+def spec_leaves(model: LM) -> List[Tuple]:
+    """Each parameter leaf's spec, in ``tree_leaves`` order."""
+    out: List[Tuple] = []
+    map_with_logical(lambda name, spec, ax: out.append(spec), model.specs(), model.logical())
+    return out
+
+
+def leaf_groups(model: LM) -> List[TPContext]:
+    """For each parameter leaf (``tree_leaves`` order), the group of ranks
+    its shards lie on (TPContext() where it is whole)."""
+    grid = model.grid
+    return [grid.axis(*grid.shard_axes(s)) for s in spec_leaves(model)]
+
+
 def _on_device(batch, device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
@@ -101,17 +174,58 @@ def value_and_grad(model: LM, params, batch, mark=_nomark) -> Tuple[torch.Tensor
     return loss.detach(), list(grads)
 
 
-def make_train_step(model: LM):
-    """Returns train_step(state, batch, mark=None) -> (state, metrics). The
-    state is updated in place and returned; ``batch`` holds "tokens" and
-    "labels" (numpy or tensors), and for the encdec family "frames" (B,
-    Se, d_model); microbatches split every key of it along the batch;
-    ``mark(name)``, if given, is called where
-    each phase ("forward", "backward", "optimizer") begins and at the
-    "end"."""
+def _batch_mean(model: LM, grads, over: Tuple[str, ...]) -> list:
+    """Each gradient leaf summed over the ``over`` axes, over their rank
+    count; a data-sharded leaf's sum over data came with its reduce-scatter.
+    The leaves that need one group are all-reduced together, in buckets of
+    up to BUCKET elements."""
+    grid = model.grid
+    n = 1
+    for a in over:
+        n *= grid.sizes.get(a, 1)
+    buckets: Dict[Tuple[str, ...], List[int]] = {}
+    for i, spec in enumerate(spec_leaves(model)):
+        axes = tuple(a for a in over if a != "data" or "data" not in spec)
+        buckets.setdefault(axes, []).append(i)
+    out = list(grads)
+    for axes, idx in buckets.items():
+        ctx = grid.axis(*axes)
+        start = 0
+        while start < len(idx) and ctx.size > 1:
+            part, size = [], 0
+            while start < len(idx) and (not part or size + out[idx[start]].numel() <= BUCKET):
+                part.append(idx[start])
+                size += out[idx[start]].numel()
+                start += 1
+            flat = ctx.all_reduce(torch.cat([out[i].reshape(-1) for i in part]))
+            for i, piece in zip(part, flat.split([out[i].numel() for i in part])):
+                out[i] = piece.view_as(out[i])
+    return [g / n for g in out] if n > 1 else out
+
+
+def make_train_step(model: LM, mesh=None):
+    """Returns train_step(state, batch, mark=None, probe=None) -> (state,
+    metrics). The state is updated in place and returned; ``batch`` holds
+    "tokens" and "labels" (numpy or tensors), and for the encdec family
+    "frames" (B, Se, d_model); microbatches split every key of it along
+    the batch; ``mark(name)``, if given, is called where each phase
+    ("forward", "backward", "optimizer") begins and at the "end". On a
+    grid ``mesh`` is the model's GridContext (the reference's signature;
+    its "pod" axis selects the compressed branch under ``grad_compression``
+    "posit8*"), ``batch`` is the whole batch, and ``probe``, a dict, gets
+    CPU copies of the pod branch's gradients before ("pod_grads") and after
+    ("mean_grads") the compressed mean."""
     rcfg = model.rcfg
     ocfg = opt_config_from_run(rcfg)
     n_micro = max(rcfg.microbatch, 1)
+    grid = model.grid
+    if mesh is not None and (grid is None or tuple(mesh.shape) != tuple(grid.shape)
+                             or tuple(mesh.axis_names) != tuple(grid.axis_names)):
+        raise ValueError("make_train_step: the mesh must be the model's grid")
+    compression = rcfg.grad_compression
+    pod_branch = (compression in ("posit8", "posit8_ef") and mesh is not None
+                  and "pod" in mesh.axis_names)
+    shards = leaf_groups(model) if grid is not None else None
 
     def grads_plain(params, batch, mark):
         if n_micro == 1:
@@ -132,13 +246,39 @@ def make_train_step(model: LM):
             losses.append(loss)
         return torch.stack(losses).mean(), acc
 
-    def train_step(state, batch, mark=None):
+    def grid_grads(state, loss, grads, probe):
+        """The batch mean of the rank's gradients and loss (and the pod
+        branch's compressed mean)."""
+        loss = grid.axis("pod", "data").all_reduce(loss) / (
+            grid.sizes.get("pod", 1) * grid.sizes.get("data", 1))
+        if not pod_branch:
+            return loss, _batch_mean(model, grads, ("pod", "data"))
+        grads = _batch_mean(model, grads, ("data",))
+        if probe is not None:
+            probe["pod_grads"] = [g.detach().cpu() for g in grads]
+        ef = tree_leaves(state["ef"]) if compression == "posit8_ef" else None
+        names = [name for name, _ in named_leaves(state["params"])]
+        grads, new_ef = compressed_grad_transform(grads, grid.axis("pod"), N=8, ES=2,
+                                                  residuals=ef, shards=shards, names=names)
+        if ef is not None:
+            for r, n in zip(ef, new_ef):
+                r.copy_(n)
+        if probe is not None:
+            probe["mean_grads"] = [g.detach().cpu() for g in grads]
+        return loss, grads
+
+    def train_step(state, batch, mark=None, probe=None):
         mark = mark or _nomark
         batch = _on_device(batch, model.device)
+        if grid is not None:
+            batch = shard_batch(model, batch)
         loss, grads = grads_plain(state["params"], batch, mark)
+        if grid is not None:
+            loss, grads = grid_grads(state, loss, grads, probe)
         mark("optimizer")
         with torch.profiler.record_function("optimizer"):
-            _, _, metrics = apply_updates(state["params"], grads, state["opt"], ocfg)
+            _, _, metrics = apply_updates(state["params"], grads, state["opt"], ocfg,
+                                          shards=shards)
         mark("end")
         metrics["loss"] = loss
         return state, metrics

@@ -36,7 +36,11 @@ config) and the matching rows of wo; every path returns through
 ``attn_tp_mode`` is the reference's mode table; serving TP admits only a
 tp that divides the kv heads (``nn.sharding``'s strict specs raise
 otherwise), so the reference's training-only "rep"/"expand" layouts are
-not served.
+not served. Training on a grid reads x through ``tp.copy_in`` (its
+gradient summed over the ranks' heads) and may hold wk/wv whole where the
+model axis does not divide the kv heads (the reference's lenient spec
+replicates them): the rank then computes the kv heads its own query heads
+read (``_rank_kv``).
 """
 from __future__ import annotations
 
@@ -339,21 +343,24 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
     """
     B, Sq, _ = x.shape
     Dh = cfg.d_head
-    H = p["wq"].shape[-2]
-    G = p["wk"].shape[-2]
-    R = H // G
+    if tp is not None:
+        x = tp.copy_in(x)
+    wk, wv, G, R = _rank_kv(p, cfg, tp)
+    H = G * R
     q = matmul_param(x, p["wq"], kernels=kernels).reshape(B, Sq, G, R, Dh)
+    # a rank's heads give a partial gradient of the replicated norm weights
+    norm_w = (lambda n: p[n]) if tp is None else (lambda n: tp.copy_in(p[n]))
     if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+        q = rmsnorm(q, norm_w("q_norm"), cfg.norm_eps)
     if xa is not None or (cache is not None and "k_static" in cache):
         y, new_kv = _cross_attn(p, q, cfg, rcfg, xa=xa, cache=cache, kernels=kernels)
         return _out_proj(p, y, x, kernels, tp), new_kv
     cos, sin = rotary_cos_sin(positions, Dh, cfg.rope_theta)
     q = apply_rotary(q.reshape(B, Sq, H, Dh), cos, sin).reshape(B, Sq, G, R, Dh)
-    k = matmul_param(x, p["wk"], kernels=kernels).reshape(B, Sq, G, Dh)
-    v = matmul_param(x, p["wv"], kernels=kernels).reshape(B, Sq, G, Dh)
+    k = matmul_param(x, wk, kernels=kernels).reshape(B, Sq, G, Dh)
+    v = matmul_param(x, wv, kernels=kernels).reshape(B, Sq, G, Dh)
     if cfg.qk_norm:
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+        k = rmsnorm(k, norm_w("k_norm"), cfg.norm_eps)
     k = apply_rotary(k, cos, sin)
     if cache is not None and Sq == 1 and pages is not None:
         pos_b = torch.as_tensor(cache_pos, device=x.device).reshape(-1).expand(B)
@@ -443,12 +450,29 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
     return _out_proj(p, y, x, kernels, tp), new_kv
 
 
+def _rank_kv(p: dict, cfg, tp):
+    """(wk, wv, G, R): the kv weights a rank's query heads read and the
+    (groups, heads a group) layout of its q. The leaves as they are, except
+    where wk/wv replicate while wq is sharded (a model axis that does not
+    divide the kv heads, training only): then the columns of the kv groups
+    of the rank's heads, one group for all of them when they share one,
+    else one a head (each read through ``copy_in``, so the gradient of the
+    whole leaf sums over the ranks)."""
+    H, G = p["wq"].shape[-2], p["wk"].shape[-2]
+    if tp is None or H == cfg.n_heads or G != cfg.n_kv_heads:
+        return p["wk"], p["wv"], G, H // G
+    r_full = cfg.n_heads // cfg.n_kv_heads
+    groups = [h // r_full for h in range(tp.rank * H, (tp.rank + 1) * H)]
+    sel, R = (groups[:1], H) if r_full % H == 0 else (groups, 1)
+    return (tp.copy_in(p["wk"])[:, sel], tp.copy_in(p["wv"])[:, sel], len(sel), R)
+
+
 def _out_proj(p: dict, y: torch.Tensor, x: torch.Tensor,
               kernels: Optional[KernelSet], tp=None) -> torch.Tensor:
     """Heads (B, Sq, G, R, Dh) -> (B, Sq, H * Dh) in x's dtype, through wo.
     Under tensor parallelism wo is row-sharded (the rank's heads): the
-    partial products are summed over the ranks here, the attention block's
-    one all-reduce."""
+    partial products are summed over the ranks here (``reduce_out``), the
+    attention block's one all-reduce."""
     y = y.reshape(*x.shape[:2], -1).to(x.dtype)
     out = matmul_param(y, p["wo"], kernels=kernels)
-    return out if tp is None else tp.psum(out)
+    return out if tp is None else tp.reduce_out(out)

@@ -92,15 +92,18 @@ def mlp_forward(p: dict, x: torch.Tensor, act: str,
     Under tensor parallelism (``tp``, an ``nn.sharding.TPContext``) the
     up-projections are column-sharded and the down-projection row-sharded
     over the rank's d_ff: its partial products are all-reduced, the block's
-    one MLP collective."""
+    one MLP collective (``reduce_out``; in training x comes in through
+    ``copy_in``, whose backward sums the ranks' partial gradients)."""
     fn = activation(act)
+    if tp is not None:
+        x = tp.copy_in(x)
     if is_gated(act):
         h = fn(matmul_param(x, p["wg"], kernels=kernels)) \
             * matmul_param(x, p["wu"], kernels=kernels)
     else:
         h = fn(matmul_param(x, p["wi"], kernels=kernels))
     out = matmul_param(h, p["wo"], kernels=kernels)
-    return out if tp is None else tp.psum(out)
+    return out if tp is None else tp.reduce_out(out)
 
 
 def mlp_logical(act: str) -> dict:

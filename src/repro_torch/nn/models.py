@@ -56,6 +56,25 @@ quantizing keeps each shard equal, bit for bit, to the tp = 1 leaf's. The
 caches hold ``n_kv_heads // tp`` heads of codes and static scales.
 ``logical()`` names every leaf's axes; a tp that does not divide them
 raises the reference's error when the model is built.
+
+Training over a (pod, data, model) grid (``build_model(..., grid=
+GridContext)``; the dense family): the LM is one rank's model, and each
+leaf is cut to the rank's block by the training rules (``nn.sharding.
+train_rules``: FSDP of ``p_embed`` over data; heads, kv_heads, mlp and
+vocab over model; an indivisible dim replicates). ``specs()`` gives every
+leaf's spec. ``forward`` gathers a layer's data shards inside its remat
+unit (``fsdp_gather``; the recompute gathers again, in the same order on
+every rank), reads the replicated residual into its column-sharded
+projections through ``TPContext.copy_in`` and sums the row-sharded
+projections through ``TPContext.reduce_out``; the embedding lookup is
+vocab-parallel (rows outside the rank's block masked, then reduce_out),
+and the logits of the rank's vocab block are gathered over model
+(``gather_replicated``), so the loss is the tp = 1 loss on the rank's
+rows. Under ``grad_compression="posit8*"`` the embedding's vocab dim
+replicates, as the reference's ``LM.logical`` has it. kv heads that the
+model axis does not divide replicate: the rank computes the kv heads its
+query heads read. A model axis that does not divide ``n_heads`` or
+``d_ff`` raises NotImplementedError (ROADMAP A8c).
 """
 from __future__ import annotations
 
@@ -76,7 +95,8 @@ from . import transformer as T
 from .attention import attn_logical, attn_shapes
 from .layers import matmul_param, mlp_logical, mlp_shapes, param_value, rmsnorm
 from .moe import moe_logical, moe_shapes
-from .sharding import TPContext, check_tp_shapes, shard_leaf
+from .sharding import (GridContext, TPContext, check_tp_shapes, fsdp_gather,
+                       gather_replicated, map_with_logical, shard_leaf)
 
 __all__ = ["LM", "build_model", "apply_policy", "ce_loss",
            "kv_decode_bytes_per_token", "resolve_device"]
@@ -168,14 +188,40 @@ class LM:
     kernel_set: KernelSet = KERNELS
     # this rank's tensor-parallel context (the default: tp = 1)
     tp: TPContext = dataclasses.field(default_factory=TPContext)
+    # this rank's training grid (None: one device, or serving TP)
+    grid: Optional[GridContext] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
         self.kv_spec = validate_kv_spec(self.kv_spec)
-        if self.tp.size > 1:
+        if self.grid is not None:
+            self.tp = self.grid.model
+            self._check_grid()
+            self._specs = map_with_logical(lambda name, shape, ax: self.grid.spec(ax, shape),
+                                           self.param_shapes(), self.logical())
+        elif self.tp.size > 1:
             if self.cfg.family == "encdec":
                 raise ValueError("--tp needs the engine path (not --legacy / encdec)")
             check_tp_shapes(self.param_shapes(), self.logical(), self.tp)
+
+    def _check_grid(self) -> None:
+        """The grid trains the dense family, with a model axis that divides
+        the query heads and d_ff; the rest is ROADMAP A8c."""
+        cfg, m = self.cfg, self.grid.sizes.get("model", 1)
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"training on a grid covers the dense family, not {cfg.family!r} "
+                "(ROADMAP A8c)")
+        for name, n in (("n_heads", cfg.n_heads), ("d_ff", cfg.d_ff)):
+            if n % m:
+                raise NotImplementedError(
+                    f"a model axis of {m} ranks does not divide {name} = {n}; "
+                    "training with it replicated is ROADMAP A8c")
+
+    def specs(self) -> Dict[str, Any]:
+        """Every parameter's spec on the grid (``GridContext.spec`` of its
+        logical axes and tp = 1 shape), in ``logical()``'s structure."""
+        return self._specs
 
     @property
     def n_kv_heads_local(self) -> int:
@@ -217,7 +263,11 @@ class LM:
         tree, one entry per layer of ``blocks``): the names ``nn.sharding``'s
         tensor-parallel rules map."""
         cfg = self.cfg
-        out: Dict[str, Any] = {"embed": ("vocab", "p_embed"), "ln_f": ("p_unsharded",)}
+        # under posit8 gradient compression the reference keeps the embed
+        # table's vocab dim replicated (its lookup runs inside a shard_map)
+        compressed = str(self.rcfg.grad_compression).startswith("posit8")
+        out: Dict[str, Any] = {"embed": (None if compressed else "vocab", "p_embed"),
+                               "ln_f": ("p_unsharded",)}
         if not cfg.tie_embeddings:
             out["unembed"] = ("p_embed", "vocab")
         fam = cfg.family
@@ -240,20 +290,25 @@ class LM:
         return out
 
     def param_shapes(self) -> Dict[str, Any]:
-        """The tp = 1 shapes of the leaves that a tensor-parallel rule can
-        shard (attention, MLP, MoE experts), in ``logical()``'s structure;
-        the replicated leaves are left out (a mamba layer is an empty
-        dict). The encdec family, which serves no tensor parallelism, has
-        none."""
+        """The tp = 1 shapes of the leaves, in ``logical()``'s structure:
+        every leaf of the decoder's attention and MLP blocks, the MoE
+        experts, the norms and the embedding tables; a mamba layer, which
+        no rule shards, is an empty dict, and the encdec family's encoder
+        and cross-attention are left out (neither serving TP nor a grid
+        takes that family)."""
         cfg = self.cfg
+        d = cfg.d_model
 
         def shapes(table):
             return {n: (i, *o) for n, (i, o) in table.items()}
 
         def block(moe):
-            b = {"attn": shapes(attn_shapes(cfg))}
+            attn = shapes(attn_shapes(cfg))
+            if cfg.qk_norm:
+                attn.update(q_norm=(cfg.d_head,), k_norm=(cfg.d_head,))
+            b = {"ln1": (d,), "ln2": (d,), "attn": attn}
             if not moe:
-                b["mlp"] = shapes(mlp_shapes(cfg.d_model, cfg.d_ff, cfg.act))
+                b["mlp"] = shapes(mlp_shapes(d, cfg.d_ff, cfg.act))
                 return b
             m = moe_shapes(cfg)
             b["moe"] = dict(m["experts"])
@@ -261,14 +316,18 @@ class LM:
                 b["moe"]["shared"] = shapes(m["shared"])
             return b
 
+        out: Dict[str, Any] = {"embed": (cfg.padded_vocab, d), "ln_f": (d,)}
+        if not cfg.tie_embeddings:
+            out["unembed"] = (d, cfg.padded_vocab)
         if cfg.family in ("ssm", "hybrid"):
-            out: Dict[str, Any] = {"blocks": [{} for _ in range(cfg.n_layers)]}
+            out["blocks"] = [{} for _ in range(cfg.n_layers)]
             if cfg.family == "hybrid":
                 out["shared"] = block(False)
             return out
         moe_every = cfg.moe_every if cfg.family == "moe" else 1
-        return {"blocks": [block(cfg.family == "moe" and (i + 1) % moe_every == 0)
-                           for i in range(self.n_groups * moe_every)]}
+        out["blocks"] = [block(cfg.family == "moe" and (i + 1) % moe_every == 0)
+                         for i in range(self.n_groups * moe_every)]
+        return out
 
     # -- init -----------------------------------------------------------------
 
@@ -298,6 +357,8 @@ class LM:
             # 256000 x 18432 table (nemotron-4-340b) is 18.9 GB in f32
             w = w.mul_(scale).to(dtype)
             w = _apply_rule(name, w, policy)
+            if self.grid is not None:
+                return self.grid.shard(w, self.grid.spec(axes, w.shape))
             return w if axes is None else shard_leaf(w, axes, self.tp, name)
 
         def ones(name, n):
@@ -338,10 +399,12 @@ class LM:
             blk["moe"] = m
             return blk
 
-        params: Dict[str, Any] = {"embed": dense("embed", V, (d,), scale=1.0),
+        lg = self.logical() if self.grid is not None else {}
+        params: Dict[str, Any] = {"embed": dense("embed", V, (d,), scale=1.0,
+                                                 axes=lg.get("embed")),
                                   "ln_f": ones("ln_f", d)}
         if not cfg.tie_embeddings:
-            params["unembed"] = dense("unembed", d, (V,))
+            params["unembed"] = dense("unembed", d, (V,), axes=lg.get("unembed"))
         if cfg.family in ("ssm", "hybrid"):
             rule = functools.partial(_apply_rule, policy=policy)
             params["blocks"] = [
@@ -581,12 +644,61 @@ class LM:
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         x = rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
+        if self.grid is not None:
+            return self._grid_logits(params, x)
         if self.cfg.tie_embeddings:
             # the reference's tied branch: the plain datapath, no kernels
             return matmul_param(x, param_value(params["embed"], x.dtype).transpose(0, 1))
         return matmul_param(x, params["unembed"], kernels=self.kernels)
 
     # -- training -------------------------------------------------------------
+
+    def _gather(self, tree, specs):
+        """A layer's (or one leaf's) parameters whole along their
+        data-sharded dims (FSDP; the identity off a grid or at data = 1)."""
+        data = self.grid.axis("data") if self.grid is not None else None
+        if data is None or data.size == 1:
+            return tree
+        if isinstance(tree, dict):
+            return {k: self._gather(tree[k], specs[k]) for k in tree}
+        dims = [d for d, a in enumerate(specs) if a == "data"]
+        return fsdp_gather(tree, data, dims[0]) if dims else tree
+
+    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        """The embedding lookup; on a grid with the vocab over model, each
+        rank looks up the tokens of its block of rows (the rest zero) and
+        the rows are summed over model."""
+        emb = params["embed"]
+        if self.grid is None:
+            return T.embed_tokens(emb, tokens, self.act_dtype)
+        spec = self._specs["embed"]
+        emb = self._gather(emb, spec)
+        if spec[0] is None:
+            return T.embed_tokens(emb, tokens, self.act_dtype)
+        n = emb.shape[0]
+        local = tokens - self.tp.rank * n
+        inside = (local >= 0) & (local < n)
+        rows = emb[local.clamp(0, n - 1)].to(self.act_dtype)
+        rows = torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                                 device=rows.device))
+        return self.tp.reduce_out(rows)
+
+    def _grid_logits(self, params, x: torch.Tensor) -> torch.Tensor:
+        """Logits on a grid: the rank's vocab block through its (data-
+        gathered) unembed or embed shard, gathered over model; the whole
+        vocab where it replicates."""
+        if self.cfg.tie_embeddings:
+            spec = self._specs["embed"]
+            w = param_value(self._gather(params["embed"], spec), x.dtype).transpose(0, 1)
+            sharded = spec[0] is not None
+        else:
+            spec = self._specs["unembed"]
+            w = self._gather(params["unembed"], spec)
+            sharded = spec[1] is not None
+        if not sharded:
+            return matmul_param(x, w)
+        logits = matmul_param(self.tp.copy_in(x), w)
+        return gather_replicated(logits, self.tp, logits.ndim - 1)
 
     def _remat(self):
         """``fn(*args)``, under ``torch.utils.checkpoint`` when
@@ -614,11 +726,13 @@ class LM:
         tokens = tokens.to(self.device).long()
         B, Sq = tokens.shape
         positions = torch.arange(Sq, device=self.device)[None, :].expand(B, Sq)
-        x = T.embed_tokens(params["embed"], tokens, self.act_dtype)
+        x = self._embed(params, tokens)
         run = self._remat()
         kw = dict(positions=positions, kernels=self.kernels)
+        layer_specs = self._specs["blocks"][0] if self.grid is not None else None
 
         def attn_block(lp, h):
+            lp = self._gather(lp, layer_specs)
             return T.block_forward(lp, h, cfg, rcfg, tp=self.tp, **kw)[0]
 
         def mamba_block(lp, h):
@@ -818,7 +932,9 @@ def kv_decode_bytes_per_token(cfg: ModelConfig, context_len: int,
 def build_model(cfg: ModelConfig, rcfg: RunConfig, *, device="cuda",
                 use_kernel: bool = False, kv_spec=None,
                 kernel_set: KernelSet = KERNELS,
-                tp: Optional[TPContext] = None) -> LM:
-    """The model (one rank's, given a TPContext ``tp`` of size > 1)."""
+                tp: Optional[TPContext] = None,
+                grid: Optional[GridContext] = None) -> LM:
+    """The model (one rank's, given a TPContext ``tp`` of size > 1 for
+    serving, or a training ``grid``)."""
     return LM(cfg, rcfg, device=device, use_kernel=use_kernel,
-              kv_spec=kv_spec, kernel_set=kernel_set, tp=tp or TPContext())
+              kv_spec=kv_spec, kernel_set=kernel_set, tp=tp or TPContext(), grid=grid)

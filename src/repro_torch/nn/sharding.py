@@ -27,11 +27,36 @@ The decode caches are never sharded after the fact: each rank allocates
 (``LM.init_cache``, ``LM.init_paged_cache``), so of the reference's two
 cache-logical trees the port keeps only the rule that the head axis
 ("kv_heads_c") shards.
+
+Training runs over a (pod, data, model) process grid (``GridContext``,
+made by ``launch.mesh.make_host_mesh``), one OS process a rank:
+
+* ``train_rules`` is ``make_ctx``'s table word for word (``sequence_
+  parallel`` is not ported): batch over (pod, data), ``p_embed`` over data
+  (FSDP), heads, kv_heads, mlp and vocab over model. ``GridContext.spec``
+  is the reference's lenient ``ShardingCtx.spec``: a dim that its mesh axes
+  do not divide replicates, and a mesh axis shards one dim of a leaf at
+  most. ``GridContext.shard`` cuts a rank's block along every named axis
+  (a dim over several axes indexes them row-major, as a mesh does), and
+  ``unshard`` puts every rank's blocks back together.
+* Megatron's pair of autograd functions, ``TPContext.copy_in`` (f: the
+  identity forward, an all-reduce backward; where a column-sharded
+  projection reads the replicated residual) and ``TPContext.reduce_out``
+  (g: an all-reduce forward, the identity backward; after the row-sharded
+  projections). Without a gradient, ``reduce_out`` is ``psum``, so serving
+  keeps its bits.
+* ``fsdp_gather``: an all-gather of a leaf's shards along its data-sharded
+  dim, whose backward is the reduce-scatter (the sum of every data rank's
+  gradient, cut to the rank's block). ``gather_replicated``: an all-gather
+  whose backward takes the rank's slice of a gradient that every rank
+  holds whole (vocab-parallel logits).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+import itertools
+import math
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -39,10 +64,12 @@ import torch
 from repro_torch.core.policy import layer_prefixes, validate_scale_sharding
 from repro_torch.core.quantizers import QuantizedTensor
 
-__all__ = ["TP_AXIS", "TPContext", "shard_leaf", "shard_policy_params",
+__all__ = ["TP_AXIS", "GRID_AXES", "TPContext", "GridContext", "train_rules",
+           "fsdp_gather", "gather_replicated", "shard_leaf", "shard_policy_params",
            "check_tp_shapes", "map_with_logical"]
 
 TP_AXIS = "tp"
+GRID_AXES = ("pod", "data", "model")
 
 
 def _tp_rules() -> dict:
@@ -83,6 +110,57 @@ class TPContext:
         torch.distributed.all_reduce(x, group=self.group)
         return x
 
+    def host(self) -> "TPContext":
+        """The same ranks over their gloo group, for CPU tensors."""
+        if self.size == 1:
+            return self
+        return dataclasses.replace(self, group=self.host_group, backend="gloo")
+
+    def all_reduce(self, x: torch.Tensor, op: str = "sum") -> torch.Tensor:
+        """A new tensor: ``x`` summed (or its elementwise "max") over the
+        ranks."""
+        y = x.clone(memory_format=torch.contiguous_format)
+        if self.size > 1:
+            red = torch.distributed.ReduceOp.MAX if op == "max" else torch.distributed.ReduceOp.SUM
+            torch.distributed.all_reduce(y, op=red, group=self.group)
+        return y
+
+    def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """The ranks' ``x`` concatenated along ``dim`` in rank order."""
+        if self.size == 1:
+            return x
+        src = x.movedim(dim, 0).contiguous()
+        out = src.new_empty((self.size * src.shape[0], *src.shape[1:]))
+        torch.distributed.all_gather_into_tensor(out, src, group=self.group)
+        return out.movedim(0, dim)
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """``x`` summed over the ranks, and of the sum the rank's block along
+        ``dim`` (``dim`` splits into ``size`` equal blocks)."""
+        if self.size == 1:
+            return x
+        src = x.movedim(dim, 0).contiguous()
+        out = src.new_empty((src.shape[0] // self.size, *src.shape[1:]))
+        torch.distributed.reduce_scatter_tensor(out, src, group=self.group)
+        return out.movedim(0, dim)
+
+    def copy_in(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's f: ``x`` as it is, whose gradient is all-reduced over
+        the ranks (each rank's projections give a partial one). The
+        identity at tp = 1 and without a gradient."""
+        if self.size == 1 or not (torch.is_grad_enabled() and x.requires_grad):
+            return x
+        return _CopyIn.apply(x, self)
+
+    def reduce_out(self, x: torch.Tensor) -> torch.Tensor:
+        """Megatron's g: the sum of the ranks' partial ``x``, whose gradient
+        passes through as it is. Without a gradient it is ``psum``."""
+        if self.size == 1:
+            return x
+        if not (torch.is_grad_enabled() and x.requires_grad):
+            return self.psum(x)
+        return _ReduceOut.apply(x, self)
+
     def check_equal(self, what: str, value) -> None:
         """Raise on every rank unless every rank holds the same ``value``
         (a numpy array or a picklable object) as rank 0: a rank whose
@@ -97,6 +175,228 @@ class TPContext:
             raise RuntimeError(
                 f"tensor-parallel ranks {bad} diverged from rank 0 in {what}: "
                 f"rank 0 {got[0]!r}, rank {bad[0]} {got[bad[0]]!r}")
+
+
+class _CopyIn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.all_reduce(g), None
+
+
+class _ReduceOut(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim``; backward: the reduce-scatter (``scatter``)
+    or the rank's slice of a gradient every rank holds whole."""
+
+    @staticmethod
+    def forward(ctx, x, tp, dim, scatter):
+        ctx.tp, ctx.dim, ctx.scatter, ctx.n = tp, dim, scatter, x.shape[dim]
+        return tp.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp, dim = ctx.tp, ctx.dim
+        if ctx.scatter:
+            return tp.reduce_scatter(g, dim), None, None, None
+        return g.narrow(dim, tp.rank * ctx.n, ctx.n), None, None, None
+
+
+def fsdp_gather(x: torch.Tensor, tp: TPContext, dim: int) -> torch.Tensor:
+    """A leaf whole along ``dim`` from the data ranks' shards; the gradient
+    of the gathered leaf is summed over the data ranks and cut back to the
+    rank's shard (FSDP's reduce-scatter)."""
+    if tp.size == 1:
+        return x
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return tp.all_gather(x, dim)
+    return _Gather.apply(x, tp, dim, True)
+
+
+def gather_replicated(x: torch.Tensor, tp: TPContext, dim: int) -> torch.Tensor:
+    """The ranks' blocks of ``x`` concatenated along ``dim``, for a use that
+    every rank then runs alike: the gradient is the rank's slice."""
+    if tp.size == 1:
+        return x
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return tp.all_gather(x, dim)
+    return _Gather.apply(x, tp, dim, False)
+
+
+# -- training over a (pod, data, model) grid ----------------------------------
+
+
+def train_rules(axis_names) -> dict:
+    """The training rules of the reference's ``make_ctx`` for a mesh with
+    ``axis_names``, at its defaults (``fsdp`` on, ``sequence_parallel``
+    off)."""
+    names = set(axis_names)
+    batch = tuple(a for a in ("pod", "data") if a in names)
+    data = ("data",) if "data" in names else ()
+    model = ("model",) if "model" in names else ()
+    return {
+        # activations
+        "batch": batch,
+        "seq": (),
+        "seq_attn": (),
+        "embed": (),
+        "heads": model,
+        "kv_heads": model,
+        "head_dim": (),
+        "head_dim_tp": model,
+        "mlp": model,
+        "experts": model,
+        "vocab": model,
+        "kv_seq": model,
+        "kv_heads_c": (),
+        "expert_cap": (),
+        "d_inner": model,
+        "d_inner2": model,
+        "d_inner_r": model,
+        "heads_r": model,
+        # params
+        "p_embed": data,
+        "p_unsharded": (),
+        "layers": (),
+        "state": (),
+        "conv": (),
+    }
+
+
+@dataclasses.dataclass(frozen=True)
+class GridContext:
+    """One rank's view of a training grid: the reference's mesh ``shape``
+    and ``axis_names`` ((data, model), or (pod, data, model) with more than
+    one pod), this process's ``rank`` (row-major over the shape), and
+    ``groups``: a TPContext for each set of axes that the training step
+    reads (``launch.mesh.GRID_SETS``; keyed by its axes of more than one
+    rank, in GRID_AXES order). Without groups it is the layout
+    alone (one rank, or a shape that is only reported)."""
+    shape: Tuple[int, ...] = (1, 1)
+    axis_names: Tuple[str, ...] = ("data", "model")
+    rank: int = 0
+    groups: Optional[Dict[Tuple[str, ...], TPContext]] = None
+    backend: str = "none"
+
+    @property
+    def sizes(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.shape))
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    @property
+    def coords(self) -> Dict[str, int]:
+        out, r = {}, self.rank
+        for name, n in reversed(list(self.sizes.items())):
+            out[name] = r % n
+            r //= n
+        return {a: out[a] for a in self.axis_names}
+
+    def axis(self, *names: str) -> TPContext:
+        """The group over ``names`` (those of size 1 dropped): TPContext()
+        when that is one rank; on a layout without groups, the rank's place
+        in it with no process group."""
+        key = tuple(a for a in GRID_AXES if a in names and self.sizes.get(a, 1) > 1)
+        if not key:
+            return TPContext()
+        if self.groups is None:
+            idx, n = self._block(key)
+            return TPContext(rank=idx, size=n)
+        if key not in self.groups:
+            raise KeyError(f"the grid makes no group over {key} (launch.mesh.GRID_SETS)")
+        return self.groups[key]
+
+    @property
+    def model(self) -> TPContext:
+        """The model axis: the TPContext the model code takes."""
+        return self.axis("model")
+
+    @property
+    def rules(self) -> dict:
+        return train_rules(self.axis_names)
+
+    def spec(self, logical, shape) -> Tuple:
+        """The reference's ``ShardingCtx.spec``: for each dim the mesh axis
+        (a name, a tuple of names, or None) it shards over. A dim that the
+        product of its axes does not divide replicates; an axis already used
+        by an earlier dim of the leaf is skipped."""
+        sizes = self.sizes
+        rules = self.rules
+        used: set = set()
+        out = []
+        for name, dim in zip(tuple(logical) + (None,) * (len(shape) - len(logical)), shape):
+            axes = rules.get(name) if name else None
+            picked = [a for a in (axes or ()) if a not in used and a in sizes]
+            if not picked or dim % math.prod(sizes[a] for a in picked):
+                out.append(None)
+                continue
+            used.update(picked)
+            out.append(tuple(picked) if len(picked) > 1 else picked[0])
+        return tuple(out)
+
+    def _block(self, axes) -> Tuple[int, int]:
+        """(this rank's block index, the block count) along a dim sharded
+        over ``axes`` (row-major over them)."""
+        axes = (axes,) if isinstance(axes, str) else axes
+        idx, n = 0, 1
+        for a in axes:
+            idx, n = idx * self.sizes[a] + self.coords[a], n * self.sizes[a]
+        return idx, n
+
+    def shard(self, t: torch.Tensor, spec) -> torch.Tensor:
+        """The rank's block of ``t`` along every sharded dim of ``spec``, as
+        a copy (so the whole leaf can go)."""
+        if all(a is None for a in spec):
+            return t
+        for dim, axes in enumerate(spec):
+            if axes is not None:
+                idx, n = self._block(axes)
+                m = t.shape[dim] // n
+                t = t.narrow(dim, idx * m, m)
+        return t.clone()
+
+    def shard_axes(self, spec) -> Tuple[str, ...]:
+        """The grid axes a leaf of ``spec`` is sharded over."""
+        out = set()
+        for axes in spec:
+            if axes is not None:
+                out.update((axes,) if isinstance(axes, str) else axes)
+        return tuple(a for a in GRID_AXES if a in out)
+
+    def unshard(self, blocks, spec):
+        """The whole leaf from every rank's block (``blocks[r]`` rank r's,
+        numpy arrays or tensors): the inverse of ``shard``."""
+        cat = np.concatenate if isinstance(blocks[0], np.ndarray) else torch.cat
+
+        def build(dims, fixed):
+            if not dims:
+                r = 0
+                for a in self.axis_names:
+                    r = r * self.sizes[a] + fixed.get(a, 0)
+                return blocks[r]
+            dim, axes = dims[0]
+            axes = (axes,) if isinstance(axes, str) else axes
+            parts = []
+            for combo in itertools.product(*(range(self.sizes[a]) for a in axes)):
+                parts.append(build(dims[1:], {**fixed, **dict(zip(axes, combo))}))
+            return cat(parts, dim)
+
+        return build([(d, a) for d, a in enumerate(spec) if a is not None], {})
 
 
 def _same(a, b) -> bool:

@@ -28,6 +28,14 @@ same f32 moments from the old codes (no group's f32 moments are held).
 Weight decay follows the reference's ``p.ndim >= 2`` on its stacked
 leaves, whose layer axes count: a layer's norm weight (d,) decays as the
 reference's (L, d) stack does.
+
+On a training grid each rank holds its block of every leaf, and
+``apply_updates(..., shards=)`` names, leaf by leaf, the group of ranks
+over which the leaf is sharded (``TPContext()`` where it replicates): the
+gradient and parameter norms sum each leaf's squares over its group (a
+replicated leaf is counted once), and a posit8 group's moment maxima are
+all-reduced with MAX over its group, so every rank's scales are the tp = 1
+scales. Moments shard like their parameter; a posit8 scale replicates.
 """
 from __future__ import annotations
 
@@ -137,11 +145,32 @@ def _stacked_axes(name: str) -> int:
     return 1 if name.startswith(("blocks/", "enc_blocks/")) else 0
 
 
-def apply_updates(params, grads, opt_state, ocfg: OptConfig
+def _sq_norms(flat_g, flat_p, groups, shards) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(grad norm, param norm): the reference's sum runs over its stacked
+    leaves (one term a group); on a grid each group's terms are summed over
+    the ranks that hold the group's shards, one all-reduce a group of ranks."""
+    f32 = torch.float32
+    terms: Dict[Any, Any] = {}
+    for idx in groups.values():
+        key = None if shards is None else shards[idx[0]]
+        g = sum(torch.sum(torch.square(flat_g[i].to(f32))) for i in idx)
+        p = sum(torch.sum(torch.square(flat_p[i].to(f32))) for i in idx)
+        tg, tp_ = terms.get(key, (0, 0))
+        terms[key] = (tg + g, tp_ + p)
+    gsq = psq = 0
+    for key, (g, p) in terms.items():
+        if key is not None and key.size > 1:
+            g, p = key.all_reduce(torch.stack([g, p]))
+        gsq, psq = gsq + g, psq + p
+    return torch.sqrt(gsq), torch.sqrt(psq)
+
+
+def apply_updates(params, grads, opt_state, ocfg: OptConfig, shards=None
                   ) -> Tuple[Any, Dict[str, Any], Dict[str, torch.Tensor]]:
     """One AdamW step, in place. ``grads`` mirrors ``params`` (a tree or a
-    list in ``tree_leaves`` order). Returns (params, opt_state, metrics),
-    the same objects, updated."""
+    list in ``tree_leaves`` order). ``shards`` (on a grid): for each leaf in
+    ``tree_leaves`` order, the TPContext of the ranks its shards lie on.
+    Returns (params, opt_state, metrics), the same objects, updated."""
     names_p = list(named_leaves(params))
     flat_g = tree_leaves(grads) if isinstance(grads, dict) else list(grads)
     flat_m = tree_leaves(opt_state["m"])
@@ -154,11 +183,7 @@ def apply_updates(params, grads, opt_state, ocfg: OptConfig
     count = opt_state["count"] + 1
     lr = lr_schedule(count, ocfg)
     f32 = torch.float32
-    # the reference's sum runs over its stacked leaves: one term a group
-    gnorm = torch.sqrt(sum(sum(torch.sum(torch.square(flat_g[i].to(f32))) for i in idx)
-                           for idx in groups.values()))
-    param_norm = torch.sqrt(sum(sum(torch.sum(torch.square(flat_p[i].to(f32))) for i in idx)
-                                for idx in groups.values()))
+    gnorm, param_norm = _sq_norms(flat_g, flat_p, groups, shards)
     if ocfg.grad_clip > 0:
         clip = torch.clamp(ocfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     else:
@@ -200,6 +225,8 @@ def apply_updates(params, grads, opt_state, ocfg: OptConfig
                     amax_v = av if amax_v is None else torch.maximum(amax_v, av)
             if not quant:
                 continue
+            if shards is not None and shards[idx[0]].size > 1:
+                amax_m, amax_v = shards[idx[0]].all_reduce(torch.stack([amax_m, amax_v]), "max")
             # the group's new scales, then its codes, from the same f32
             # moments recomputed (old codes are read before they are written)
             scale_m = compute_scale(amax_m.reshape(1), _POSIT8.scale_mode).reshape(())

@@ -1,0 +1,101 @@
+"""Rank-side functions of the training-grid tests (``test_torch_train_grid.py``
+and ``test_torch_compression.py``).
+
+They run in the spawned processes of a ``launch.mesh.RankPool`` and import
+torch and the port only (no JAX), so the ranks start in seconds. Each
+returns numpy copies of what it made.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ARCHS, RunConfig, smoke
+from repro_torch.convert import rank_train_state_from_numpy, tensor_to_numpy
+from repro_torch.core.quantizers import QuantizedTensor
+from repro_torch.launch.train import make_train_step
+from repro_torch.nn.models import build_model
+from repro_torch.nn.sharding import TPContext
+from repro_torch.optim import tree_map
+
+F32 = dict(weight_dtype="f32", activation_dtype="f32")
+
+
+def host(tree):
+    """A state tree with numpy leaves (a QuantizedTensor of numpy arrays)."""
+    def one(t):
+        if isinstance(t, QuantizedTensor):
+            return QuantizedTensor(tensor_to_numpy(t.codes), tensor_to_numpy(t.scale), t.spec)
+        return tensor_to_numpy(t)
+    return tree_map(one, tree)
+
+
+def grid_model(grid, device, arch, run_kw, over=None):
+    """The smoke ``arch`` (``over`` replacing config fields) at f32 on the
+    grid."""
+    cfg = smoke(ARCHS[arch])
+    if over:
+        cfg = dataclasses.replace(cfg, **over)
+    return build_model(cfg, RunConfig(**F32, **run_kw), device=device, grid=grid)
+
+
+def train_case(grid, device, case):
+    """``case["batches"]`` steps of the port's train step on this rank from
+    the reference's state ``case["init"]`` cut to the rank's shard. Returns
+    {"metrics": each step's floats, "state": the rank's state (numpy),
+    "probes": each step's ``probe`` (the pod branch's gradients before and
+    after the compressed mean, numpy lists in ``tree_leaves`` order)}."""
+    model = grid_model(grid, device, case["arch"], case["kw"], case.get("over"))
+    state = rank_train_state_from_numpy(case["init"], model)
+    step = make_train_step(model, grid)
+    metrics, probes = [], []
+    for b in case["batches"]:
+        probe = {}
+        state, met = step(state, b, probe=probe)
+        metrics.append({k: float(v) for k, v in met.items()})
+        probes.append({k: [g.numpy() for g in v] for k, v in probe.items()})
+    return {"metrics": metrics, "state": host(state), "probes": probes}
+
+
+def compressed_case(grid, device, xs, residuals, dims, names):
+    """``runtime.compression.compressed_grad_transform`` over the pod axis:
+    leaf i of pod p is ``xs[i][p]``, of which the rank holds its model block
+    along ``dims[i]`` (the whole leaf where that is None); ``names`` as the
+    function takes them. Returns (means, new residuals or None) of the
+    rank's blocks, numpy."""
+    from repro_torch.runtime.compression import compressed_grad_transform
+    pod, model = grid.coords.get("pod", 0), grid.axis("model")
+
+    def block(a, dim):
+        t = torch.from_numpy(np.array(a[pod]))
+        if dim is None or model.size == 1:
+            return t
+        n = t.shape[dim] // model.size
+        return t.narrow(dim, model.rank * n, n).contiguous()
+
+    grads = [block(x, d) for x, d in zip(xs, dims)]
+    res = None if residuals is None else [block(r, d) for r, d in zip(residuals, dims)]
+    shards = [model if d is not None else TPContext() for d in dims]
+    means, new = compressed_grad_transform(grads, grid.axis("pod"), residuals=res,
+                                           shards=shards, names=names)
+    return ([m.numpy() for m in means], None if new is None else [r.numpy() for r in new])
+
+
+def megatron_mlp(grid, device, w, x, probe):
+    """A gated MLP whose wg/wu are column-sharded and wo row-sharded over
+    model, between ``copy_in`` and ``reduce_out``: (the loss, the gradient of
+    x, the rank's blocks of the weights' gradients), numpy."""
+    from repro_torch.nn.layers import mlp_forward
+    tp = grid.model
+    n = w["wg"].shape[1] // tp.size
+    cols = slice(tp.rank * n, (tp.rank + 1) * n)
+    p = {"wg": torch.tensor(w["wg"][:, cols]), "wu": torch.tensor(w["wu"][:, cols]),
+         "wo": torch.tensor(w["wo"][cols])}
+    for t in p.values():
+        t.requires_grad_()
+    xt = torch.tensor(x, requires_grad=True)
+    loss = (mlp_forward(p, xt, "silu", tp=tp) * torch.tensor(probe)).sum()
+    loss.backward()
+    return (loss.item(), xt.grad.numpy(), {k: t.grad.numpy() for k, t in p.items()})

@@ -216,6 +216,60 @@ STEP_CASES = [("none", 0), ("none", 2), ("posit8", 0), ("posit8", 2)]
 STEP_IDS = [f"{q}-mb{m}" for q, m in STEP_CASES]
 
 
+def step_kw(quant, micro, **extra):
+    """The RunConfig fields of the three-step runs."""
+    return dict(learning_rate=1e-3, total_steps=10, warmup_steps=1, remat="block",
+                microbatch=micro, opt_state_quant=quant, **extra)
+
+
+def step_batches(cfg, steps, B, S, frames=False):
+    """The reference's synthetic batches of the three-step runs (plus
+    seeded frames for encdec)."""
+    from repro.data import DataConfig, synthetic_batch
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=S, global_batch=B)
+    out = []
+    for s in range(steps):
+        b = synthetic_batch(dc, s)
+        if frames:
+            b["frames"] = np.random.RandomState(s).standard_normal(
+                (B, S, cfg.d_model)).astype(np.float32)
+        out.append(b)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def reference_state(arch, quant):
+    """The reference's seed-0 train state of the smoke ``arch`` with
+    ``quant`` moments (jitted ``make_train_state``; the microbatch count
+    does not enter it), computed once a process: JAX arrays are immutable
+    and the steps below do not donate them."""
+    from repro.launch.train import make_train_state as j_make_state
+    jm, _ = train_models(arch, **step_kw(quant, 0))
+    return jax.jit(lambda k: j_make_state(jm, k))(jax.random.PRNGKey(0))
+
+
+def reference_steps(arch, quant, micro, *, frames=False, steps=3, B=4, S=32):
+    """``steps`` steps of the reference's jitted step from its seed-0 state
+    on ``step_batches``. Returns {"init": the initial state, "batches",
+    "jmet": the metrics, "m1": the first moments after the first step with
+    f32 moments (else None), "before", "want": the params before the last
+    step and the state after it}, as numpy trees."""
+    from repro.launch.train import make_train_step as j_make_step
+    jm, _ = train_models(arch, **step_kw(quant, micro))
+    jstate = reference_state(arch, quant)
+    out = {"init": to_numpy_tree(jstate), "batches": step_batches(jm.cfg, steps, B, S, frames),
+           "jmet": [], "m1": None}
+    jstep = jax.jit(j_make_step(jm))
+    for s, b in enumerate(out["batches"]):
+        out["before"] = to_numpy_tree(jstate["params"])
+        jstate, jm_ = jstep(jstate, {k: jax.numpy.asarray(v) for k, v in b.items()})
+        if s == 0 and quant == "none":
+            out["m1"] = to_numpy_tree(jstate["opt"]["m"])
+        out["jmet"].append({k: float(v) for k, v in jm_.items()})
+    out["want"] = to_numpy_tree(jstate)
+    return out
+
+
 def three_steps(arch, quant, micro, *, frames=False, steps=3, B=4, S=32):
     """``steps`` steps of the port's ``make_train_step`` and of the
     reference's jitted step from the same state (the reference's, carried
@@ -224,32 +278,18 @@ def three_steps(arch, quant, micro, *, frames=False, steps=3, B=4, S=32):
     reference's first moments after the first step with f32 moments
     (else None), the reference's states before and after the last step
     and the port's, as numpy trees)."""
-    from repro.data import DataConfig, synthetic_batch
-    from repro.launch.train import make_train_state as j_make_state
-    from repro.launch.train import make_train_step as j_make_step
     from repro_torch.convert import params_to_numpy, train_state_from_numpy
     from repro_torch.launch.train import make_train_step
-    kw = dict(learning_rate=1e-3, total_steps=10, warmup_steps=1, remat="block",
-              microbatch=micro, opt_state_quant=quant)
-    jm, tm = train_models(arch, **kw)
-    jstate = jax.jit(lambda k: j_make_state(jm, k))(jax.random.PRNGKey(0))
-    tstate = train_state_from_numpy(to_numpy_tree(jstate), device="cpu")
-    jstep, tstep = jax.jit(j_make_step(jm)), make_train_step(tm)
-    dc = DataConfig(vocab_size=jm.cfg.vocab_size, seq_len=S, global_batch=B)
-    jmet, tmet, states, m1 = [], [], [], None
-    for s in range(steps):
-        b = synthetic_batch(dc, s)
-        if frames:
-            b["frames"] = np.random.RandomState(s).standard_normal(
-                (B, S, jm.cfg.d_model)).astype(np.float32)
-        states.append(to_numpy_tree(jstate["params"]))
-        jstate, jm_ = jstep(jstate, {k: jax.numpy.asarray(v) for k, v in b.items()})
-        if s == 0 and quant == "none":
-            m1 = to_numpy_tree(jstate["opt"]["m"])
+    ref = reference_steps(arch, quant, micro, frames=frames, steps=steps, B=B, S=S)
+    _, tm = train_models(arch, **step_kw(quant, micro))
+    tstate = train_state_from_numpy(ref["init"], device="cpu")
+    tstep = make_train_step(tm)
+    tmet = []
+    for b in ref["batches"]:
         tstate, tm_ = tstep(tstate, b)
-        jmet.append({k: float(v) for k, v in jm_.items()})
         tmet.append({k: float(v) for k, v in tm_.items()})
-    return jmet, tmet, m1, states[-1], to_numpy_tree(jstate), params_to_numpy(tstate)
+    return (ref["jmet"], tmet, ref["m1"], ref["before"], ref["want"],
+            params_to_numpy(tstate))
 
 
 def assert_steps_match(quant, jmet, tmet, m1, before, want, got, *, zero_leaves=(),
