@@ -159,6 +159,23 @@ Phases, one line each, any failure exits non-zero without the final line:
    four cards, full-depth yi-9b on (data 2, model 2) over NCCL with the
    train CLI's workload (bf16, posit8 moments, 5 steps), else one line
    saying (b) was not run.
+18. the paper's behavioral analysis (``phase_analysis``): yi-9b at full
+   width (d_model 4096, d_ff 11008, vocab 64000) on 2 layers, f32
+   activations, 20 steps of the analysis CLI's training (lr 1e-3, 8 x 128
+   tokens of the synthetic stream), then ``launch.analyze.run_analysis``
+   over the 33 specs of ``default_spec_grid(include_paths=True)`` once
+   with the kernels and once with their plain versions: level (a) on layer
+   0's wq, wo, wg and the unembed, level (b) on wq and wg, level (c) the
+   eval NLL of 8 x 128 tokens (m = 1024 rows in every weight matmul); the
+   same pruned and surviving configs and derived policy in both runs, each
+   survivor's NLL within 2e-5, 15 pofx_matmul (pofx) or fxp_matmul (fxp)
+   launches in each survivor's forward, fxp7 and fxp8 among the
+   survivors; then every pofx and fxp config of the grid, pruned or not,
+   through the same eval with kernels and plain (NLL within 2e-5, 15
+   launches each: pofx_matmul at every (N, ES, path)); fxp16's NLL (its
+   codes wrap to int8 as in the reference) printed beside its NLL without
+   kernels; each level's seconds, the survivors with their bits per
+   weight, the derived policy and its NLL.
 
 Before torch is imported, the CUDA driver is asked to start in a process of
 its own (``wait_for_card``): a freshly booted host may refuse for a while
@@ -927,8 +944,8 @@ def phase_sampled(torch, result):
 MOE_ARGV = ["--arch", "moonshot-v1-16b-a3b", "--quant", "pofx8", "--kv-quant", "fxp8",
             "--use-kernel"]
 # phase 9's depths: the CLI and the paged engine serve all 48 layers; the
-# f32 kernels-vs-plain check takes the first 2, the sampled repeat the first 12
-MOE_IDENTITY_LAYERS, MOE_SAMPLED_LAYERS = 2, 12
+# f32 kernels-vs-plain check takes the first 2, the sampled repeat the first 4
+MOE_IDENTITY_LAYERS, MOE_SAMPLED_LAYERS = 2, 4
 
 
 def truncated(model, params, n_layers, enc_layers=None, **rcfg):
@@ -2413,10 +2430,214 @@ def phase_grid_train(torch, result, device="cuda", over=None):
         raise AssertionError("; ".join(failed))
 
 
+# phase 18: the paper's behavioral analysis (Fig. 8) at yi-9b width
+ANALYSIS_LAYERS = 2
+ANALYSIS_STEPS = 20
+ANALYSIS_RUN = dict(learning_rate=1e-3, total_steps=ANALYSIS_STEPS,
+                    warmup_steps=ANALYSIS_STEPS // 10, remat="none", activation_dtype="f32")
+# kernels vs plain level-(c) NLL, relative. Both take exact f32 products
+# (no TF32) and differ in the sum order alone: an output of a k-term f32 sum
+# moves by ~sqrt(k) eps of its terms' size (6e-6 at k = 11008), and the NLL
+# is a mean over the batch's 1024 positions
+ANALYSIS_NLL_RTOL = 2e-5
+# kernels vs plain logits, max |diff| over max |logit| (the CPU tests' f32
+# bound for a 2-layer model's logits in two frameworks)
+ANALYSIS_LOGIT_RTOL = 1e-4
+
+
+def phase_analysis(torch, result, device="cuda", over=None):
+    """Phase 18: the example's behavioral analysis (``launch.analyze``) at
+    yi-9b width on 2 layers, f32 activations: ANALYSIS_STEPS steps of the
+    example's training on the synthetic stream (8 x 128 tokens), then
+    ``run_analysis`` over all 33 specs of ``default_spec_grid(
+    include_paths=True)`` with the kernels and with their plain versions.
+    Same pruned and surviving configs, same derived policy, each
+    survivor's NLL within ANALYSIS_NLL_RTOL, and the launches of each
+    survivor's forward: 7 a layer and the unembed through pofx_matmul
+    (pofx) or fxp_matmul (fxp), none for posit. Then every pofx and fxp
+    config of the grid, pruned or not, through level (c)'s eval with the
+    kernels and with their plain versions (the same launches and bound):
+    pruning leaves few pofx configs to level (c), and this runs
+    pofx_matmul's f32 path at m = 1024 at every (N, ES, path). fxp16's NLL
+    with kernels (its codes wrap to int8 in ``fxp_view``, as the
+    reference's) is printed beside its NLL without, not gated. ``over``
+    replaces config fields (a tiny width on the CPU)."""
+    from repro_torch.configs import ARCHS, RunConfig
+    from repro_torch.core.analysis import default_spec_grid, spec_name
+    from repro_torch.data import DataConfig, synthetic_batch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.ops import KERNELS, PLAIN
+    from repro_torch.launch.analyze import EVAL_STEP, eval_nll, run_analysis
+    from repro_torch.launch.train import make_train_state, make_train_step
+    from repro_torch.nn.models import build_model, ce_loss, quantize_params
+    cuda = device == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(ARCHS["yi-9b"], n_layers=ANALYSIS_LAYERS, **(over or {}))
+    model = build_model(cfg, RunConfig(**ANALYSIS_RUN), device=device)
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=128, global_batch=8)
+    if cuda:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = make_train_state(model, 0)
+    step = make_train_step(model)
+    losses = []
+    for i in range(ANALYSIS_STEPS):
+        state, m = step(state, synthetic_batch(dc, i))
+        losses.append(float(m["loss"]))            # waits for the step
+    params = state["params"]
+    del state, step
+    sync()
+    train_s = time.perf_counter() - t0
+    log(f"  yi-9b width (d_model {cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}), "
+        f"{cfg.n_layers} layers, {cfg.param_count() / 1e9:.3f} B params: {ANALYSIS_STEPS} "
+        f"steps in {train_s:.1f} s, losses {losses[0]:.4f} -> {losses[-1]:.4f}")
+    entry = {"n_layers": cfg.n_layers, "train_s": train_s, "losses": losses}
+    result["analysis"] = entry
+    failed = []
+    if not all(map(math.isfinite, losses)):
+        failed.append(f"non-finite training losses {losses}")
+    runs, per_fwd = {}, 7 * cfg.n_layers + 1
+    for label, kset in (("kernels", KERNELS), ("plain", PLAIN)):
+        lines = []
+        reset_launches()
+        t0 = time.perf_counter()
+        run = run_analysis(model, params, dc=dc, kernels=kset, out=lines.append)
+        sync()
+        wall = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+        runs[label] = run
+        sec = run.seconds
+        log(f"  {label}: level (a) {sec['a']:.1f} s, (b) {sec['b']:.1f} s, (c) {sec['c']:.1f} s "
+            f"over {len(run.report.survivors)} survivors, Pareto policy {sec['policy']:.1f} s, "
+            f"its eval {sec['policy_eval']:.1f} s; {wall:.1f} s in all; launches {counts}")
+        entry[label] = {"seconds": sec, "wall_s": wall, "launches": counts,
+                        "per_config_launches": run.launches,
+                        "per_config": run.report.per_config,
+                        "pruned_at_a": run.report.pruned_at_a,
+                        "pruned_at_b": run.report.pruned_at_b,
+                        "survivors": run.report.survivors,
+                        "policy": run.policy.to_string(), "policy_nll": run.policy_nll,
+                        "best": {str(b): v for b, v in run.best.items()}}
+        if label == "kernels":
+            for line in lines:
+                log("  | " + line.replace("\n", "\n  | "))
+            entry["report_lines"] = lines
+    k, p = runs["kernels"], runs["plain"]
+    kr, pr = k.report, p.report
+    for what in ("pruned_at_a", "pruned_at_b", "survivors"):
+        if getattr(kr, what) != getattr(pr, what):
+            failed.append(f"{what}: kernels {getattr(kr, what)} != plain {getattr(pr, what)}")
+    if k.policy.to_string() != p.policy.to_string():
+        failed.append(f"derived policy: {k.policy.to_string()} != {p.policy.to_string()}")
+    specs = {spec_name(s): s for s in default_spec_grid(include_paths=True)}
+    margins = sorted((abs(r[key] - 0.25), name, key) for name, r in kr.per_config.items()
+                     for key in ("weight_avg_rel", "act_avg_rel") if key in r)
+    log("  nearest to a 0.25 threshold: " + ", ".join(
+        f"{name} {key} {kr.per_config[name][key]:.6f}" for _, name, key in margins[:3]))
+    nll_rel = {}
+    for name in kr.survivors:
+        if name not in pr.per_config or "metric" not in pr.per_config[name]:
+            continue
+        mk, mp = kr.per_config[name]["metric"], pr.per_config[name]["metric"]
+        nll_rel[name] = abs(mk - mp) / max(abs(mp), 1e-30)
+        kernel = {"pofx": "pofx_matmul", "fxp": "fxp_matmul"}.get(specs[name].kind)
+        got = k.launches.get(name, {})
+        want = {kernel: per_fwd} if kernel and cuda else {}
+        if got != want:
+            failed.append(f"{name}: launches {got} != {want}")
+        if p.launches.get(name):
+            failed.append(f"{name}: the plain run launched {p.launches[name]}")
+        if nll_rel[name] > ANALYSIS_NLL_RTOL:
+            failed.append(f"{name}: NLL kernels {-mk:.7f} vs plain {-mp:.7f} "
+                          f"(rel {nll_rel[name]:.3g} > {ANALYSIS_NLL_RTOL})")
+    entry["nll_rel"] = nll_rel
+    log(f"  level (c) launches at m = {dc.global_batch * dc.seq_len} per survivor: " + ", ".join(
+        f"{n} {k.launches.get(n, {})}" for n in kr.survivors))
+    # every pofx and fxp config of the grid, pruned or not: its level-(c)
+    # eval with the kernels against their plain versions, so pofx_matmul
+    # runs at m = 1024 at every (N, ES, path) of the sweep
+    batch = synthetic_batch(dc, EVAL_STEP)
+    tokens = torch.as_tensor(batch["tokens"]).to(model.device)
+    labels = torch.as_tensor(batch["labels"]).to(model.device)
+    with_k = dataclasses.replace(model, use_kernel=True, kernel_set=KERNELS)
+    with_p = dataclasses.replace(model, use_kernel=True, kernel_set=PLAIN)
+    grid = {}
+    t0 = time.perf_counter()
+    for name, spec in specs.items():
+        kernel = {"pofx": "pofx_matmul", "fxp": "fxp_matmul"}.get(spec.kind)
+        if kernel is None:
+            continue
+        qp = quantize_params(params, spec)
+        reset_launches()
+        with torch.no_grad():
+            lk = with_k.forward(qp, tokens)
+            got = {n: c for n, c in LAUNCHES.items() if c}
+            lp = with_p.forward(qp, tokens)
+        nk, np_ = float(ce_loss(lk, labels)), float(ce_loss(lp, labels))
+        logit_rel = rel_err(lk, lp)
+        del qp, lk, lp
+        rel = abs(nk - np_) / max(abs(np_), 1e-30)
+        grid[name] = {"nll_kernels": nk, "nll_plain": np_, "rel": rel, "logit_rel": logit_rel,
+                      "launches": got}
+        want = {kernel: per_fwd} if cuda else {}
+        if got != want:
+            failed.append(f"{name} (grid check): launches {got} != {want}")
+        if not (math.isfinite(nk) and rel <= ANALYSIS_NLL_RTOL
+                and logit_rel <= ANALYSIS_LOGIT_RTOL):
+            failed.append(f"{name} (grid check): NLL kernels {nk:.7f} vs plain {np_:.7f} "
+                          f"(rel {rel:.3g}, bound {ANALYSIS_NLL_RTOL}), logits rel "
+                          f"{logit_rel:.3g} (bound {ANALYSIS_LOGIT_RTOL})")
+    sync()
+    entry["grid_check"] = grid
+    entry["grid_check_s"] = time.perf_counter() - t0
+    log(f"  every pofx and fxp config, kernels vs plain at m = {dc.global_batch * dc.seq_len} "
+        f"({entry['grid_check_s']:.1f} s): largest NLL rel "
+        f"{max(g['rel'] for g in grid.values()):.3g} (bound {ANALYSIS_NLL_RTOL}), logits rel "
+        f"{max(g['logit_rel'] for g in grid.values()):.3g} (bound {ANALYSIS_LOGIT_RTOL}); "
+        f"pofx_matmul "
+        f"launches per (N, ES, path): " + ", ".join(
+            f"({specs[n].N},{specs[n].ES},{specs[n].path}) {g['launches'].get('pofx_matmul', 0)}"
+            for n, g in grid.items() if specs[n].kind == "pofx"))
+    for name in ("fxp7", "fxp8"):
+        if name not in kr.survivors:
+            failed.append(f"{name} did not survive to level (c): no fxp_matmul launch there")
+    log("  survivors (bits/weight, NLL kernels / plain, rel): " + "; ".join(
+        f"{n} {kr.per_config[n]['bits_per_weight']:.2f} b/w {-kr.per_config[n]['metric']:.5f}"
+        f" / {-pr.per_config[n]['metric']:.5f} ({nll_rel.get(n, float('nan')):.2g})"
+        for n in kr.survivors))
+    if "fxp16" in kr.survivors:
+        fxp16 = specs["fxp16"]
+        true_nll = eval_nll(dataclasses.replace(model, use_kernel=False),
+                            quantize_params(params, fxp16), synthetic_batch(dc, EVAL_STEP))
+        entry["fxp16_nll"] = {"kernels": -kr.per_config["fxp16"]["metric"],
+                              "plain": -pr.per_config["fxp16"]["metric"], "no_kernels": true_nll}
+        log(f"  fxp16 NLL (codes wrapped to int8 by fxp_view, as in the reference): kernels "
+            f"{entry['fxp16_nll']['kernels']:.5f}, plain {entry['fxp16_nll']['plain']:.5f}; "
+            f"without kernels (the fxp16 network's) {true_nll:.5f}")
+    log(f"  derived policy {k.policy.to_string()}: NLL kernels {k.policy_nll:.5f}, plain "
+        f"{p.policy_nll:.5f}")
+    entry["phase_s"] = time.perf_counter() - t_phase
+    if cuda:
+        entry["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"  phase {entry['phase_s']:.1f} s" + (f", peak {entry['peak_gib']:.2f} GiB" if cuda
+                                                 else ""))
+    del model, params, runs, k, p
+    if cuda:
+        torch.cuda.empty_cache()
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
 def main(argv) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="drive the port on one card")
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18",
                     help="comma-separated phases after the build (default: all)")
     want = {int(p) for p in ap.parse_args(argv).phases.split(",")}
     state = wait_for_card()
@@ -2494,6 +2715,8 @@ def main(argv) -> int:
          lambda: phase_tp(torch, result)),
         ("phase 17: training the dense family on (pod, data, model) grids",
          lambda: phase_grid_train(torch, result)),
+        ("phase 18: behavioral analysis (Fig. 8 sweep, Pareto policy), yi-9b width",
+         lambda: phase_analysis(torch, result)),
     ]
     for label, fn in phases:
         if int(label.split()[1].rstrip(":")) not in want:
@@ -2517,7 +2740,7 @@ def main(argv) -> int:
     if failed:
         log(f"FAILED: {failed}")
         return 1
-    if want != set(range(2, 18)):
+    if want != set(range(2, 19)):
         log(f"ran phases {sorted(want)} only: no result line")
         return 1
     main_counts = result["main_counts"]

@@ -2,13 +2,16 @@
 
 Port of ``repro/core/fxp.py``: M total bits, F fraction bits, value =
 code/2^F, codes clamped to [-2^(M-1), 2^(M-1)-1], round half to even
-(``torch.round`` rounds half to even, like ``jnp.round``).
+(``torch.round`` rounds half to even, like ``jnp.round``). The ``*_np``
+functions are the reference's float64 numpy codec.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["fxp_quantize", "fxp_dequantize", "compute_scale"]
+__all__ = ["fxp_quantize", "fxp_dequantize", "fxp_quantize_np", "fxp_dequantize_np",
+           "compute_scale"]
 
 
 def fxp_quantize(x: torch.Tensor, M: int, F: int) -> torch.Tensor:
@@ -21,6 +24,16 @@ def fxp_quantize(x: torch.Tensor, M: int, F: int) -> torch.Tensor:
 def fxp_dequantize(codes: torch.Tensor, F: int,
                    dtype=torch.float32) -> torch.Tensor:
     return codes.to(dtype) * (1.0 / (1 << F))
+
+
+def fxp_quantize_np(x, M: int, F: int) -> np.ndarray:
+    """float64 values -> int32 codes (``np.rint``: half to even)."""
+    scaled = np.rint(np.asarray(x, dtype=np.float64) * float(1 << F))
+    return np.clip(scaled, -(1 << (M - 1)), (1 << (M - 1)) - 1).astype(np.int32)
+
+
+def fxp_dequantize_np(codes, F: int) -> np.ndarray:
+    return np.asarray(codes, dtype=np.float64) / float(1 << F)
 
 
 def compute_scale(w: torch.Tensor, mode: str = "tensor_pow2",

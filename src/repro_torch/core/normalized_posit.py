@@ -15,7 +15,8 @@ from .posit import (posit_decode, posit_decode_np, posit_encode, posit_encode_ar
                     posit_encode_np)
 
 __all__ = ["norm_expand", "norm_compress", "norm_encode", "norm_encode_arith",
-           "norm_encode_np", "norm_decode", "norm_decode_np", "pack_bits", "unpack_bits"]
+           "norm_encode_np", "norm_decode", "norm_decode_np", "norm_max", "pack_bits",
+           "unpack_bits"]
 
 
 def norm_expand(codes: torch.Tensor, N: int) -> torch.Tensor:
@@ -67,6 +68,11 @@ def norm_decode_np(codes, N: int, ES: int) -> np.ndarray:
     """(N-1)-bit normalized codes -> float64 values."""
     c = torch.from_numpy(np.asarray(codes).astype(np.int32))
     return posit_decode_np(norm_expand(c, N).numpy(), N, ES)
+
+
+def norm_max(N: int, ES: int) -> float:
+    """Largest representable normalized-posit magnitude (< 1)."""
+    return float(norm_decode_np(np.asarray([(1 << (N - 2)) - 1]), N, ES)[0])
 
 
 PACK_CHUNK = 1 << 20        # codes a pass; a multiple of 8, so every pass ends on a byte

@@ -7,6 +7,10 @@ leading-run detection), B1-B2 (regime k, exponent e, fraction), C (SHIFT =
 variant replicates the stored leading bit and outputs FxP(M, M-1).
 ``pofx_norm_lut`` tabulates the bit-level algorithm; the CUDA kernels stage
 that table in shared memory and the tests hold both to the reference.
+``pofx_convert`` takes full N-bit codes to FxP(M, F); like the reference's
+jit version it refuses M > 31. The ``*_np`` functions are the reference's
+numpy golden converters: numpy in, numpy out, through the same int64
+datapath. ``pofx_lut`` tabulates all 2^N codes.
 """
 from __future__ import annotations
 
@@ -18,7 +22,8 @@ import torch
 from .normalized_posit import norm_expand
 from .posit import NAR, _decode_fields
 
-__all__ = ["pofx_normalized", "pofx_norm_lut"]
+__all__ = ["pofx_convert", "pofx_convert_np", "pofx_normalized", "pofx_normalized_np",
+           "pofx_lut", "pofx_norm_lut"]
 
 _LEFT_CLAMP = 45      # |mag_ext| < 2^17: a 45-bit left shift never wraps int64
 
@@ -56,10 +61,39 @@ def _pofx_impl(codes: torch.Tensor, N: int, ES: int, M: int, F: int,
     return out, (of & ~(c == 0) & ~nar)
 
 
+def pofx_convert(codes, N: int, ES: int, M: int, F: int, rounding: str = "trunc"):
+    """N-bit posit codes -> (FxP(M, F) int32 codes, OF flags), as tensors."""
+    if M > 31:
+        raise ValueError("jnp PoFx supports M <= 31 (int32 datapath)")
+    return _pofx_impl(torch.as_tensor(codes), N, ES, M, F, rounding)
+
+
+def pofx_convert_np(codes, N: int, ES: int, M: int, F: int, rounding: str = "trunc"):
+    """``pofx_convert`` on numpy codes: a numpy wrapper over the same torch
+    datapath. Returns numpy (fxp_codes, of_flags)."""
+    out, of = _pofx_impl(torch.from_numpy(np.asarray(codes).astype(np.int32)),
+                         N, ES, M, F, rounding)
+    return out.numpy(), of.numpy()
+
+
 def pofx_normalized(codes_nm1: torch.Tensor, N: int, ES: int, M: int,
                     rounding: str = "trunc"):
     """Normalized (N-1)-bit codes -> (FxP(M, M-1) int32 codes, OF flags)."""
     return _pofx_impl(norm_expand(codes_nm1, N), N, ES, M, M - 1, rounding)
+
+
+def pofx_normalized_np(codes_nm1, N: int, ES: int, M: int, rounding: str = "trunc"):
+    """``pofx_normalized`` on numpy codes; numpy (codes, OF flags)."""
+    out, of = pofx_normalized(torch.from_numpy(np.asarray(codes_nm1).astype(np.int32)),
+                              N, ES, M, rounding)
+    return out.numpy(), of.numpy()
+
+
+@functools.lru_cache(maxsize=64)
+def pofx_lut(N: int, ES: int, M: int, F: int, rounding: str = "trunc") -> np.ndarray:
+    """Full 2^N-entry Posit -> FxP(M, F) decode table (bit-level algorithm)."""
+    out, _ = pofx_convert_np(np.arange(1 << N, dtype=np.int32), N, ES, M, F, rounding)
+    return out.astype(np.int32)
 
 
 @functools.lru_cache(maxsize=64)

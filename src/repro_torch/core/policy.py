@@ -1,7 +1,8 @@
 """QuantPolicy — per-layer mixed-precision quantization with one spec grammar.
 
 Port of ``repro/core/policy.py`` (grammar, rules, presets, the ``kv=``
-rule, the storage report and the shared CLI arguments). Spec grammar:
+rule, the storage report, the analysis-driven ``policy_from_pareto`` and
+the shared CLI arguments). Spec grammar:
 
     fp32 | bf16                       passthrough baselines
     fxp{M}[f{F}]                      FxP(M, F); F defaults to M-1
@@ -21,8 +22,9 @@ from __future__ import annotations
 import dataclasses
 import fnmatch
 import re
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 
 from .quantizers import (QuantSpec, QuantizedTensor, storage_bits,
                          validate_kv_spec)
@@ -30,7 +32,7 @@ from .quantizers import (QuantSpec, QuantizedTensor, storage_bits,
 __all__ = ["parse_spec", "format_spec", "QuantPolicy", "PRESETS", "KV_RULE",
            "parse_kv_spec", "storage_report", "named_leaves", "layer_prefixes",
            "add_policy_arg", "add_kv_quant_arg", "resolve_kv_spec",
-           "validate_scale_sharding"]
+           "validate_scale_sharding", "policy_from_pareto"]
 
 # Reserved rule name: "kv=<spec>" configures the decode KV-cache format and
 # never participates in parameter path matching.
@@ -309,6 +311,58 @@ def validate_scale_sharding(name: str, codes_shape, scale_shape, codes_spec):
                 f"have {codes_shape[i]} — the scale axis must match the "
                 f"sharded axis exactly (or broadcast with size 1)")
     return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# Analysis-driven policy search (Fig. 8 / Tables 3-4 machinery -> a policy)
+# ---------------------------------------------------------------------------
+
+
+def policy_from_pareto(
+    group_weights: Mapping[str, Sequence],
+    candidates: Optional[Sequence[QuantSpec]] = None,
+    *,
+    max_avg_rel: float = 0.05,
+    fallback: str = "bf16",
+) -> QuantPolicy:
+    """Pick one format per layer group from its (error, storage) Pareto front.
+
+    group_weights: ordered {path-glob: [weight tensors or arrays]} — e.g.
+        {"attn/*": [...], "mlp/*": [...]} sampled from the model.
+    candidates: QuantSpecs to sweep (default: core.analysis grid, via_fxp
+        paths only — the deployable ones per Table 5).
+    For each group, candidates are reduced to their Pareto front over
+    (avg relative weight error, stored bits/weight); the chosen spec is the
+    cheapest front member with error <= max_avg_rel, else the most accurate
+    front member. A trailing "*"=fallback rule completes the policy.
+    """
+    from .analysis import default_spec_grid, weight_error
+    from .pareto import pareto_mask
+
+    if candidates is None:
+        candidates = [s for s in default_spec_grid(include_paths=False)
+                      if s.kind != "posit" or s.N >= 6]
+    rules: List[Tuple[str, Optional[QuantSpec]]] = []
+    for pattern, weights in group_weights.items():
+        pts = []
+        for spec in candidates:
+            errs, bits, count = [], 0, 0
+            for w in weights:
+                e = weight_error(w, spec, axis=-1)
+                errs.append(e["avg_rel"])
+                bits += e["bits"]
+                count += int(np.prod(np.shape(w)))
+            pts.append((float(np.mean(errs)), bits / max(count, 1)))
+        pts_arr = np.asarray(pts)
+        front_idx = np.nonzero(pareto_mask(pts_arr))[0]
+        ok = [i for i in front_idx if pts_arr[i, 0] <= max_avg_rel]
+        if ok:
+            pick = min(ok, key=lambda i: (pts_arr[i, 1], pts_arr[i, 0]))
+        else:
+            pick = min(front_idx, key=lambda i: (pts_arr[i, 0], pts_arr[i, 1]))
+        rules.append((pattern, candidates[pick]))
+    rules.append(("*", parse_spec(fallback)))
+    return QuantPolicy(rules=tuple(rules))
 
 
 # ---------------------------------------------------------------------------

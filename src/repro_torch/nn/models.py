@@ -4,7 +4,8 @@ Port of the serving surface of ``repro/nn/models.py`` for every family
 the reference serves (dense, moe, ssm, hybrid and encdec): ``init``
 (per-layer parameters, quantized leaf by leaf as they are made),
 ``init_cache``, ``prefill(length=, frames=)``, ``decode_step``, plus
-``apply_policy``, ``kv_decode_bytes_per_token`` and ``build_model``; and
+``apply_policy`` (and ``quantize_params``, its uniform-policy shim),
+``kv_decode_bytes_per_token`` and ``build_model``; and
 the training surface of every family: ``forward`` (full-sequence logits,
 each of the reference's remat units under ``torch.utils.checkpoint`` when
 ``rcfg.remat == "block"`` and gradients are on), ``loss`` and
@@ -98,7 +99,7 @@ from .moe import moe_logical, moe_shapes
 from .sharding import (GridContext, TPContext, check_tp_shapes, fsdp_gather,
                        gather_replicated, map_with_logical, shard_leaf)
 
-__all__ = ["LM", "build_model", "apply_policy", "ce_loss",
+__all__ = ["LM", "build_model", "apply_policy", "quantize_params", "ce_loss",
            "kv_decode_bytes_per_token", "resolve_device"]
 
 _NEVER_QUANT = ("ln", "norm", "A_log", "dt_bias", "D", "router", "conv_w",
@@ -169,6 +170,16 @@ def apply_policy(params, policy):
             return [walk(v, p) for v, p in zip(tree, layer_prefixes(tree, prefix))]
         return _apply_rule(prefix.rstrip("/"), tree, policy)
     return walk(params, "")
+
+
+def quantize_params(params, spec: QuantSpec, *, quant_embed: bool = True):
+    """Back-compat shim: uniform-policy application of one QuantSpec.
+
+    Equivalent to ``apply_policy(params, QuantPolicy.uniform(spec))``, with
+    ``quant_embed=False`` expressed as a leading "*embed*=keep" rule.
+    """
+    rules = (("*embed*", None),) if not quant_embed else ()
+    return apply_policy(params, QuantPolicy(rules=rules + (("*", spec),)))
 
 
 @dataclasses.dataclass
