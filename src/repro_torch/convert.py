@@ -39,7 +39,10 @@ weights. On a training grid, ``rank_train_state_from_numpy`` cuts the
 reference's train state to one rank's shard (``launch.train.
 state_shardings``: moments like their parameter, a posit8 scale whole),
 and ``gather_train_state`` puts every rank's shards back together into the
-reference's numpy layout.
+reference's numpy layout (``gather_reference_layout``: the same before the
+quantized leaves become {"codes", "scale", "spec"} dicts, the form that
+``runtime.checkpoint`` writes); ``host_tree`` is a rank's state on the
+host, as those take it.
 """
 from __future__ import annotations
 
@@ -51,7 +54,8 @@ import torch
 from repro_torch.core.policy import format_spec, parse_spec
 from repro_torch.core.quantizers import QuantSpec, QuantizedTensor
 
-__all__ = ["gather_train_state", "params_from_numpy", "params_to_numpy",
+__all__ = ["gather_reference_layout", "gather_train_state", "host_tree", "params_from_numpy",
+           "params_to_numpy",
            "rank_params_from_numpy", "rank_train_state_from_numpy", "reference_layout",
            "reference_structure", "tensor_from_numpy", "tensor_to_numpy",
            "train_state_from_numpy"]
@@ -175,11 +179,29 @@ def rank_train_state_from_numpy(tree: Dict[str, Any], model) -> Dict[str, Any]:
     return _zip_map(one, state_shardings(model), train_state_from_numpy(tree, device="cpu"))
 
 
+def host_tree(tree):
+    """A tree of the port's layout with its tensors on the host as numpy
+    arrays (a QuantizedTensor of numpy codes and scale)."""
+    if isinstance(tree, dict):
+        return {k: host_tree(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [host_tree(v) for v in tree]
+    if isinstance(tree, QuantizedTensor):
+        return QuantizedTensor(_host(tree.codes), _host(tree.scale), tree.spec)
+    return _host(tree)
+
+
 def gather_train_state(states: List[Dict[str, Any]], model) -> Dict[str, Any]:
     """Every rank's train state (``states[r]`` rank r's; tensors, or numpy
     arrays in the same structure) -> the whole state in the reference's
     numpy layout (``params_to_numpy``). A posit8 moment's scale must be the
     same on every rank."""
+    return _as_qleaves(gather_reference_layout(states, model))
+
+
+def gather_reference_layout(states: List[Dict[str, Any]], model) -> Dict[str, Any]:
+    """``gather_train_state`` in ``reference_layout``'s form (a quantized
+    leaf a QuantizedTensor of numpy arrays)."""
     from repro_torch.launch.train import state_shardings
     grid = model.grid
 
@@ -192,7 +214,7 @@ def gather_train_state(states: List[Dict[str, Any]], model) -> Dict[str, Any]:
                                    scales[0], leaves[0].spec)
         return grid.unshard([_host(t) for t in leaves], spec)
 
-    return params_to_numpy(_zip_map(one, state_shardings(model), *states[:grid.size]))
+    return reference_layout(_zip_map(one, state_shardings(model), *states[:grid.size]))
 
 
 # -- the way back: the reference's stacked layout -------------------------

@@ -103,9 +103,11 @@ def grid_layout(pod: int = 1, data: int = 1, model: int = 1) -> Tuple[Tuple[int,
 
 # the sets of axes the training step takes a group over: model (Megatron's
 # all-reduces, the logits), data (FSDP), pod (the compressed mean), (pod,
-# data) (the loss and gradient means) and (data, model) (a leaf sharded
-# over both: its norms and posit8 maxima)
-GRID_SETS = (("model",), ("data",), ("pod",), ("pod", "data"), ("data", "model"))
+# data) (the loss and gradient means, an MoE layer's routed batch), (data,
+# model) (a leaf sharded over both: its norms and posit8 maxima) and the
+# whole grid (a checkpoint's gather)
+GRID_SETS = (("model",), ("data",), ("pod",), ("pod", "data"), ("data", "model"),
+             ("pod", "data", "model"))
 
 
 def grid_groups(shape, names, rank: int, backend: str, timeout_s: float = GROUP_TIMEOUT_S

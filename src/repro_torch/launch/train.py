@@ -10,11 +10,14 @@ assembles the step:
 and updates the state IN PLACE (the reference jits its step with the
 state donated). On one device it runs the reference's plain branch. On a
 training grid (a model built with ``grid=``, a ``launch.mesh.
-make_host_mesh`` context; the dense family) each rank holds its shard of
-the state (``state_shardings``: moments like their parameter, a posit8
-scale and the count replicated, ``ef`` like the parameters) and takes the
-rows of the batch at its (pod, data) coordinate (``batch_shardings``);
-every rank is given the whole batch. Plain branch: the rank's gradients
+make_host_mesh`` context; every family) each rank holds its shard of the
+state (``state_shardings``: moments like their parameter, a posit8 scale
+and the count replicated, ``ef`` like the parameters) and takes its rows
+of the batch (``rank_microbatches``): every rank is given the whole batch,
+which is cut as the reference's step cuts it, into microbatches of the
+global batch (under the compressed pod mean, of the pod's rows), each
+microbatch's rows over the batch ranks, so that an MoE layer routes the
+rows the reference routes together. Plain branch: the rank's gradients
 (FSDP's reduce-scatter sums a data-sharded leaf's over the data ranks in
 the backward), then the sum over the batch group of what is not summed
 yet, over the batch ranks. Pod branch (``grad_compression`` "posit8" or
@@ -51,6 +54,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import time
 from typing import Any, Dict, List, Tuple
 
@@ -60,14 +64,14 @@ from repro_torch.configs import ARCHS, RunConfig, smoke as smoke_cfg
 from repro_torch.core.policy import named_leaves
 from repro_torch.core.quantizers import QuantizedTensor
 from repro_torch.nn.models import LM, build_model
-from repro_torch.nn.sharding import TPContext, map_with_logical
+from repro_torch.nn.sharding import GRID_AXES, TPContext, map_with_logical
 from repro_torch.optim import (OptConfig, apply_updates, init_opt_state,
                                tree_leaves, tree_map)
 from repro_torch.optim.adamw import _POSIT8
 from repro_torch.runtime.compression import compressed_grad_transform
 
 __all__ = ["make_train_state", "make_train_step", "opt_config_from_run",
-           "state_shardings", "batch_shardings", "shard_batch", "spec_leaves", "leaf_groups",
+           "state_shardings", "batch_shardings", "rank_microbatches", "spec_leaves", "leaf_groups",
            "value_and_grad"]
 
 # elements a bucket of one gradient all-reduce (f32: 256 MiB)
@@ -129,10 +133,35 @@ def batch_shardings(model: LM, batch) -> Dict[str, Tuple]:
             for k, v in batch.items()}
 
 
-def shard_batch(model: LM, batch) -> Dict[str, torch.Tensor]:
-    """The rows of ``batch`` at this rank's (pod, data) coordinate."""
-    specs = batch_shardings(model, batch)
-    return {k: model.grid.shard(v, specs[k]) for k, v in batch.items()}
+def _rows(model: LM, batch, axes) -> Dict[str, torch.Tensor]:
+    """Each leaf's block of rows at this rank's coordinates on ``axes`` (the
+    batch rule's lenient spec: rows that those ranks do not divide stay
+    whole)."""
+    grid = model.grid
+    axes = tuple(a for a in GRID_AXES if a in axes and a in grid.sizes)
+    n = math.prod(grid.sizes[a] for a in axes)
+    out = {}
+    for k, v in batch.items():
+        rows = None if not axes or v.shape[0] % n else (axes if len(axes) > 1 else axes[0])
+        out[k] = grid.shard(v, (rows,) + (None,) * (v.ndim - 1))
+    return out
+
+
+def rank_microbatches(model: LM, batch, n_micro: int) -> List[Dict[str, torch.Tensor]]:
+    """The rows of ``batch`` (every key along its first dim) that this rank
+    runs, as ``n_micro`` microbatches in the reference's order: the global
+    batch (under the compressed pod mean, the pod's rows) split into
+    microbatches, and each microbatch's rows cut over ``model.batch_axes``
+    (off a grid, the microbatches themselves)."""
+    grid = model.grid
+    if grid is not None and "pod" not in model.batch_axes:
+        batch = _rows(model, batch, ("pod",))
+    B = batch["tokens"].shape[0]
+    if B % n_micro:
+        raise ValueError(f"batch {B} does not split into {n_micro} microbatches")
+    b = B // n_micro
+    mbs = [{k: v[i * b:(i + 1) * b] for k, v in batch.items()} for i in range(n_micro)]
+    return mbs if grid is None else [_rows(model, mb, model.batch_axes) for mb in mbs]
 
 
 def spec_leaves(model: LM) -> List[Tuple]:
@@ -223,22 +252,18 @@ def make_train_step(model: LM, mesh=None):
                              or tuple(mesh.axis_names) != tuple(grid.axis_names)):
         raise ValueError("make_train_step: the mesh must be the model's grid")
     compression = rcfg.grad_compression
-    pod_branch = (compression in ("posit8", "posit8_ef") and mesh is not None
-                  and "pod" in mesh.axis_names)
+    # each pod runs its own rows under the compressed pod mean (LM.batch_axes)
+    pod_branch = grid is not None and "pod" not in model.batch_axes
     shards = leaf_groups(model) if grid is not None else None
 
     def grads_plain(params, batch, mark):
+        mbs = rank_microbatches(model, batch, n_micro)
         if n_micro == 1:
-            return value_and_grad(model, params, batch, mark)
-        B = batch["tokens"].shape[0]
-        if B % n_micro:
-            raise ValueError(f"batch {B} does not split into {n_micro} microbatches")
-        b = B // n_micro
+            return value_and_grad(model, params, mbs[0], mark)
         acc = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                for p in tree_leaves(params)]
         losses = []
-        for i in range(n_micro):
-            mb = {k: v[i * b:(i + 1) * b] for k, v in batch.items()}
+        for mb in mbs:
             loss, g = value_and_grad(model, params, mb, mark)
             for a, gg in zip(acc, g):
                 a.add_(gg.to(torch.float32) / n_micro)
@@ -270,8 +295,6 @@ def make_train_step(model: LM, mesh=None):
     def train_step(state, batch, mark=None, probe=None):
         mark = mark or _nomark
         batch = _on_device(batch, model.device)
-        if grid is not None:
-            batch = shard_batch(model, batch)
         loss, grads = grads_plain(state["params"], batch, mark)
         if grid is not None:
             loss, grads = grid_grads(state, loss, grads, probe)
@@ -315,7 +338,9 @@ def profile_step(step_fn, state, batch, device):
         else:
             marks.append((name, time.perf_counter()))
 
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
+    # on the card its kernels alone: the host's ops are not read, and
+    # recording them made a full-depth step's trace take minutes
+    acts = [ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]
     _sync(device)
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()

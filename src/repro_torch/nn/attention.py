@@ -32,15 +32,20 @@ Port of the dense, single-device paths of ``repro/nn/attention.py``:
 Tensor parallelism (DESIGN.md §9): a rank holds H/tp query heads and G/tp
 kv groups of wq/wk/wv (head counts come from the weight leaves, not the
 config) and the matching rows of wo; every path returns through
-``_out_proj``, whose ``tp.psum`` is the attention block's one all-reduce.
+``_out_proj``, whose ``tp.reduce_out`` (``psum`` without a gradient) is the
+attention block's one all-reduce.
 ``attn_tp_mode`` is the reference's mode table; serving TP admits only a
 tp that divides the kv heads (``nn.sharding``'s strict specs raise
 otherwise), so the reference's training-only "rep"/"expand" layouts are
-not served. Training on a grid reads x through ``tp.copy_in`` (its
-gradient summed over the ranks' heads) and may hold wk/wv whole where the
-model axis does not divide the kv heads (the reference's lenient spec
-replicates them): the rank then computes the kv heads its own query heads
-read (``_rank_kv``).
+not served. Training on a grid places each leaf by its own spec (the
+reference's lenient one): with the query heads cut over model, x (and the
+encoder states) go in through ``tp.copy_in`` (their gradient summed over
+the ranks' heads), and wk/wv may be whole where the model axis does not
+divide the kv heads: the rank then computes the kv heads its own query
+heads read (``_rank_kv``). Where it does not divide the query heads
+either, the attention runs whole on every rank, with no collective, and
+``_out_proj`` cuts the rank's rows of the output (``take_block``) before a
+wo whose rows the model axis divides.
 """
 from __future__ import annotations
 
@@ -52,6 +57,7 @@ from repro_torch.core.quantizers import kv_dequantize, kv_quantize
 from repro_torch.kernels.ops import KernelSet
 from repro_torch.kernels.ref import gather_pages
 from .layers import apply_rotary, matmul_param, rmsnorm, rotary_cos_sin
+from .sharding import placed, take_block
 
 NEG_INF = -1e30
 
@@ -289,11 +295,12 @@ def attn_shapes(cfg) -> dict:
 
 
 def _cross_attn(p: dict, q: torch.Tensor, cfg, rcfg, *, xa, cache,
-                kernels: Optional[KernelSet]):
+                kernels: Optional[KernelSet], wk=None, wv=None, norm_w=None):
     """Cross-attention of q (B, Sq, G, R, Dh), no rotary anywhere: over the
-    encoder states ``xa`` (K/V through the weights, non-causal; new_kv the
-    grouped (B, Se, G, Dh) K/V), or over the static cross cache {"k_static",
-    "v_static": (B, G, Se, Dh), "len"} for one token (new_kv None)."""
+    encoder states ``xa`` (K/V through ``wk``/``wv``, by default the
+    layer's, non-causal; new_kv the grouped (B, Se, G, Dh) K/V), or over
+    the static cross cache {"k_static", "v_static": (B, G, Se, Dh), "len"}
+    for one token (new_kv None)."""
     if xa is None:
         if q.shape[1] != 1:
             raise ValueError(f"the static cross cache serves one token, got {q.shape[1]}")
@@ -301,10 +308,12 @@ def _cross_attn(p: dict, q: torch.Tensor, cfg, rcfg, *, xa, cache,
         return y, None
     B, Se = xa.shape[:2]
     G, Dh = q.shape[2], q.shape[4]
-    k = matmul_param(xa, p["wk"], kernels=kernels).reshape(B, Se, G, Dh)
-    v = matmul_param(xa, p["wv"], kernels=kernels).reshape(B, Se, G, Dh)
+    wk = p["wk"] if wk is None else wk
+    wv = p["wv"] if wv is None else wv
+    k = matmul_param(xa, wk, kernels=kernels).reshape(B, Se, G, Dh)
+    v = matmul_param(xa, wv, kernels=kernels).reshape(B, Se, G, Dh)
     if cfg.qk_norm:
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+        k = rmsnorm(k, p["k_norm"] if norm_w is None else norm_w("k_norm"), cfg.norm_eps)
     y = flash_attention(q, k, v, causal=False, q_chunk=rcfg.attn_q_chunk,
                         kv_chunk=rcfg.attn_kv_chunk)
     return y, {"k": k, "v": v}
@@ -338,23 +347,28 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
     Cross-attention: ``xa`` (B, Se, d) encoder states, or a ``cache``
     holding "k_static", "v_static" and "len" (``_cross_attn``).
 
-    ``tp`` (an ``nn.sharding.TPContext``) all-reduces the output projection
-    of a rank's heads.
+    ``tp`` (an ``nn.sharding.TPContext``, the model axis) all-reduces the
+    output projection of a rank's heads.
     """
     B, Sq, _ = x.shape
     Dh = cfg.d_head
-    if tp is not None:
-        x = tp.copy_in(x)
-    wk, wv, G, R = _rank_kv(p, cfg, tp)
+    # the model axis where it cuts the query heads (None where they are whole)
+    tp_h = placed(tp, p["wq"].shape[-2], cfg.n_heads)
+    if tp_h is not None:
+        x = tp_h.copy_in(x)
+        if xa is not None:
+            xa = tp_h.copy_in(xa)
+    wk, wv, G, R = _rank_kv(p, cfg, tp_h)
     H = G * R
     q = matmul_param(x, p["wq"], kernels=kernels).reshape(B, Sq, G, R, Dh)
     # a rank's heads give a partial gradient of the replicated norm weights
-    norm_w = (lambda n: p[n]) if tp is None else (lambda n: tp.copy_in(p[n]))
+    norm_w = (lambda n: p[n]) if tp_h is None else (lambda n: tp_h.copy_in(p[n]))
     if cfg.qk_norm:
         q = rmsnorm(q, norm_w("q_norm"), cfg.norm_eps)
     if xa is not None or (cache is not None and "k_static" in cache):
-        y, new_kv = _cross_attn(p, q, cfg, rcfg, xa=xa, cache=cache, kernels=kernels)
-        return _out_proj(p, y, x, kernels, tp), new_kv
+        y, new_kv = _cross_attn(p, q, cfg, rcfg, xa=xa, cache=cache, kernels=kernels,
+                                wk=wk, wv=wv, norm_w=norm_w)
+        return _out_proj(p, y, x, cfg, kernels, tp), new_kv
     cos, sin = rotary_cos_sin(positions, Dh, cfg.rope_theta)
     q = apply_rotary(q.reshape(B, Sq, H, Dh), cos, sin).reshape(B, Sq, G, R, Dh)
     k = matmul_param(x, wk, kernels=kernels).reshape(B, Sq, G, Dh)
@@ -447,19 +461,20 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
             new_kv = {"k": k, "v": v}
         y = flash_attention(q, k, v, causal=causal, q_chunk=rcfg.attn_q_chunk,
                             kv_chunk=rcfg.attn_kv_chunk)
-    return _out_proj(p, y, x, kernels, tp), new_kv
+    return _out_proj(p, y, x, cfg, kernels, tp), new_kv
 
 
 def _rank_kv(p: dict, cfg, tp):
     """(wk, wv, G, R): the kv weights a rank's query heads read and the
-    (groups, heads a group) layout of its q. The leaves as they are, except
-    where wk/wv replicate while wq is sharded (a model axis that does not
-    divide the kv heads, training only): then the columns of the kv groups
-    of the rank's heads, one group for all of them when they share one,
-    else one a head (each read through ``copy_in``, so the gradient of the
-    whole leaf sums over the ranks)."""
+    (groups, heads a group) layout of its q. ``tp`` is the model axis where
+    it cuts the query heads. The leaves as they are, except where wk/wv
+    replicate while wq is sharded (a model axis that does not divide the kv
+    heads, training only): then the columns of the kv groups of the rank's
+    heads, one group for all of them when they share one, else one a head
+    (each read through ``copy_in``, so the gradient of the whole leaf sums
+    over the ranks)."""
     H, G = p["wq"].shape[-2], p["wk"].shape[-2]
-    if tp is None or H == cfg.n_heads or G != cfg.n_kv_heads:
+    if tp is None or G != cfg.n_kv_heads:
         return p["wk"], p["wv"], G, H // G
     r_full = cfg.n_heads // cfg.n_kv_heads
     groups = [h // r_full for h in range(tp.rank * H, (tp.rank + 1) * H)]
@@ -467,12 +482,16 @@ def _rank_kv(p: dict, cfg, tp):
     return (tp.copy_in(p["wk"])[:, sel], tp.copy_in(p["wv"])[:, sel], len(sel), R)
 
 
-def _out_proj(p: dict, y: torch.Tensor, x: torch.Tensor,
+def _out_proj(p: dict, y: torch.Tensor, x: torch.Tensor, cfg,
               kernels: Optional[KernelSet], tp=None) -> torch.Tensor:
     """Heads (B, Sq, G, R, Dh) -> (B, Sq, H * Dh) in x's dtype, through wo.
-    Under tensor parallelism wo is row-sharded (the rank's heads): the
-    partial products are summed over the ranks here (``reduce_out``), the
-    attention block's one all-reduce."""
+    Where the model axis ``tp`` cuts wo's rows, the partial products are
+    summed over the ranks here (``reduce_out``), the attention block's one
+    all-reduce; heads that every rank computed whole are cut to the rank's
+    rows first (``take_block``)."""
     y = y.reshape(*x.shape[:2], -1).to(x.dtype)
+    tp_o = placed(tp, p["wo"].shape[0], cfg.n_heads * cfg.d_head)
+    if tp_o is not None and y.shape[-1] > p["wo"].shape[0]:
+        y = take_block(y, tp_o, -1)
     out = matmul_param(y, p["wo"], kernels=kernels)
-    return out if tp is None else tp.reduce_out(out)
+    return out if tp_o is None else tp_o.reduce_out(out)

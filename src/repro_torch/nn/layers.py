@@ -89,11 +89,13 @@ def is_gated(act: str) -> bool:
 def mlp_forward(p: dict, x: torch.Tensor, act: str,
                 kernels: Optional[KernelSet] = None, tp=None) -> torch.Tensor:
     """Gated (silu/gelu: wg, wu, wo) or plain (relu2/gelu_plain: wi, wo) MLP.
-    Under tensor parallelism (``tp``, an ``nn.sharding.TPContext``) the
-    up-projections are column-sharded and the down-projection row-sharded
-    over the rank's d_ff: its partial products are all-reduced, the block's
-    one MLP collective (``reduce_out``; in training x comes in through
-    ``copy_in``, whose backward sums the ranks' partial gradients)."""
+    Under tensor parallelism (``tp``, an ``nn.sharding.TPContext``: the
+    caller passes it where the model axis cuts the hidden dim, None where
+    the MLP is whole on every rank) the up-projections are column-sharded
+    and the down-projection row-sharded over the rank's d_ff: its partial
+    products are all-reduced, the block's one MLP collective
+    (``reduce_out``; in training x comes in through ``copy_in``, whose
+    backward sums the ranks' partial gradients)."""
     fn = activation(act)
     if tp is not None:
         x = tp.copy_in(x)

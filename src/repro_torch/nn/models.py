@@ -59,28 +59,31 @@ caches hold ``n_kv_heads // tp`` heads of codes and static scales.
 raises the reference's error when the model is built.
 
 Training over a (pod, data, model) grid (``build_model(..., grid=
-GridContext)``; the dense family): the LM is one rank's model, and each
-leaf is cut to the rank's block by the training rules (``nn.sharding.
-train_rules``: FSDP of ``p_embed`` over data; heads, kv_heads, mlp and
-vocab over model; an indivisible dim replicates). ``specs()`` gives every
-leaf's spec. ``forward`` gathers a layer's data shards inside its remat
-unit (``fsdp_gather``; the recompute gathers again, in the same order on
-every rank), reads the replicated residual into its column-sharded
-projections through ``TPContext.copy_in`` and sums the row-sharded
-projections through ``TPContext.reduce_out``; the embedding lookup is
-vocab-parallel (rows outside the rank's block masked, then reduce_out),
-and the logits of the rank's vocab block are gathered over model
-(``gather_replicated``), so the loss is the tp = 1 loss on the rank's
-rows. Under ``grad_compression="posit8*"`` the embedding's vocab dim
-replicates, as the reference's ``LM.logical`` has it. kv heads that the
-model axis does not divide replicate: the rank computes the kv heads its
-query heads read. A model axis that does not divide ``n_heads`` or
-``d_ff`` raises NotImplementedError (ROADMAP A8c).
+GridContext)``; every family): the LM is one rank's model, and each leaf
+is cut to the rank's block by the training rules (``nn.sharding.
+train_rules``: FSDP of ``p_embed`` over data; heads, kv_heads, mlp,
+experts, vocab and the mamba channel dims over model; a dim that its axes
+do not divide replicates, as the reference's ``ShardingCtx.spec`` has
+it). ``specs()`` gives every leaf's spec. ``forward`` gathers a layer's
+(or an encoder layer's, or the shared block's) data shards inside its
+remat unit (``fsdp_gather``; the recompute gathers again, in the same
+order on every rank), and each product takes its collectives from its
+own leaf: a column-sharded product reads a whole input through
+``TPContext.copy_in``, a row-sharded one sums through
+``TPContext.reduce_out``, a leaf the model axis does not divide takes
+neither (the rank computes it whole, and its gradient is whole on every
+rank). The embedding lookup is vocab-parallel (rows outside the rank's
+block masked, then reduce_out), and the logits of the rank's vocab block
+are gathered over model (``gather_replicated``), so the loss is the tp = 1
+loss on the rank's rows. Under ``grad_compression="posit8*"`` the
+embedding's vocab dim replicates, as the reference's ``LM.logical`` has
+it. An MoE layer routes the rank's rows as part of the batch that
+``batch_axes`` names (``moe.moe_forward``). ``sequence_parallel`` with a
+model axis raises NotImplementedError (ROADMAP A8c).
 """
 from __future__ import annotations
 
 import dataclasses
-import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -98,6 +101,7 @@ from .layers import matmul_param, mlp_logical, mlp_shapes, param_value, rmsnorm
 from .moe import moe_logical, moe_shapes
 from .sharding import (GridContext, TPContext, check_tp_shapes, fsdp_gather,
                        gather_replicated, map_with_logical, shard_leaf)
+from .ssm import mamba_shapes
 
 __all__ = ["LM", "build_model", "apply_policy", "quantize_params", "ce_loss",
            "kv_decode_bytes_per_token", "resolve_device"]
@@ -207,7 +211,10 @@ class LM:
         self.kv_spec = validate_kv_spec(self.kv_spec)
         if self.grid is not None:
             self.tp = self.grid.model
-            self._check_grid()
+            if self.rcfg.sequence_parallel and self.grid.sizes.get("model", 1) > 1:
+                raise NotImplementedError(
+                    "sequence_parallel on a grid with a model axis (the reference's "
+                    "\"seq\" rule over model) is not ported: ROADMAP A8c")
             self._specs = map_with_logical(lambda name, shape, ax: self.grid.spec(ax, shape),
                                            self.param_shapes(), self.logical())
         elif self.tp.size > 1:
@@ -215,19 +222,17 @@ class LM:
                 raise ValueError("--tp needs the engine path (not --legacy / encdec)")
             check_tp_shapes(self.param_shapes(), self.logical(), self.tp)
 
-    def _check_grid(self) -> None:
-        """The grid trains the dense family, with a model axis that divides
-        the query heads and d_ff; the rest is ROADMAP A8c."""
-        cfg, m = self.cfg, self.grid.sizes.get("model", 1)
-        if cfg.family != "dense":
-            raise NotImplementedError(
-                f"training on a grid covers the dense family, not {cfg.family!r} "
-                "(ROADMAP A8c)")
-        for name, n in (("n_heads", cfg.n_heads), ("d_ff", cfg.d_ff)):
-            if n % m:
-                raise NotImplementedError(
-                    f"a model axis of {m} ranks does not divide {name} = {n}; "
-                    "training with it replicated is ROADMAP A8c")
+    @property
+    def batch_axes(self) -> Tuple[str, ...]:
+        """The grid axes over whose ranks one forward's batch is cut, each
+        rank a block of rows: (pod, data); under the posit8-compressed pod
+        mean (``grad_compression`` "posit8*" on a grid with a pod axis)
+        (data,) alone, since each pod runs the loss on its own rows (the
+        reference's shard_map over "pod")."""
+        if (str(self.rcfg.grad_compression).startswith("posit8")
+                and "pod" in self.grid.axis_names):
+            return ("data",)
+        return ("pod", "data")
 
     def specs(self) -> Dict[str, Any]:
         """Every parameter's spec on the grid (``GridContext.spec`` of its
@@ -301,28 +306,28 @@ class LM:
         return out
 
     def param_shapes(self) -> Dict[str, Any]:
-        """The tp = 1 shapes of the leaves, in ``logical()``'s structure:
-        every leaf of the decoder's attention and MLP blocks, the MoE
-        experts, the norms and the embedding tables; a mamba layer, which
-        no rule shards, is an empty dict, and the encdec family's encoder
-        and cross-attention are left out (neither serving TP nor a grid
-        takes that family)."""
+        """The tp = 1 shapes of every leaf, in ``logical()``'s structure."""
         cfg = self.cfg
         d = cfg.d_model
 
         def shapes(table):
             return {n: (i, *o) for n, (i, o) in table.items()}
 
-        def block(moe):
-            attn = shapes(attn_shapes(cfg))
+        def attn():
+            a = shapes(attn_shapes(cfg))
             if cfg.qk_norm:
-                attn.update(q_norm=(cfg.d_head,), k_norm=(cfg.d_head,))
-            b = {"ln1": (d,), "ln2": (d,), "attn": attn}
+                a.update(q_norm=(cfg.d_head,), k_norm=(cfg.d_head,))
+            return a
+
+        def block(moe=False, cross=False):
+            b = {"ln1": (d,), "ln2": (d,), "attn": attn()}
+            if cross:
+                b.update(ln_x=(d,), xattn=attn())
             if not moe:
                 b["mlp"] = shapes(mlp_shapes(d, cfg.d_ff, cfg.act))
                 return b
             m = moe_shapes(cfg)
-            b["moe"] = dict(m["experts"])
+            b["moe"] = dict(m["experts"], router=(d, cfg.n_experts))
             if "shared" in m:
                 b["moe"]["shared"] = shapes(m["shared"])
             return b
@@ -330,14 +335,20 @@ class LM:
         out: Dict[str, Any] = {"embed": (cfg.padded_vocab, d), "ln_f": (d,)}
         if not cfg.tie_embeddings:
             out["unembed"] = (d, cfg.padded_vocab)
-        if cfg.family in ("ssm", "hybrid"):
-            out["blocks"] = [{} for _ in range(cfg.n_layers)]
-            if cfg.family == "hybrid":
-                out["shared"] = block(False)
-            return out
-        moe_every = cfg.moe_every if cfg.family == "moe" else 1
-        out["blocks"] = [block(cfg.family == "moe" and (i + 1) % moe_every == 0)
-                         for i in range(self.n_groups * moe_every)]
+        fam = cfg.family
+        if fam in ("ssm", "hybrid"):
+            out["blocks"] = [{"ln": (d,), "mix": mamba_shapes(cfg)}
+                             for _ in range(cfg.n_layers)]
+            if fam == "hybrid":
+                out["shared"] = block()
+        elif fam == "encdec":
+            out["enc_blocks"] = [block() for _ in range(cfg.n_enc_layers)]
+            out["enc_ln"] = (d,)
+            out["blocks"] = [block(cross=True) for _ in range(cfg.n_layers)]
+        else:
+            moe_every = cfg.moe_every if fam == "moe" else 1
+            out["blocks"] = [block(fam == "moe" and (i + 1) % moe_every == 0)
+                             for i in range(self.n_groups * moe_every)]
         return out
 
     # -- init -----------------------------------------------------------------
@@ -367,7 +378,11 @@ class LM:
             # in place, and the f32 draw dropped before the rule runs: a
             # 256000 x 18432 table (nemotron-4-340b) is 18.9 GB in f32
             w = w.mul_(scale).to(dtype)
-            w = _apply_rule(name, w, policy)
+            return place(name, _apply_rule(name, w, policy), axes)
+
+        def place(name, w, axes):
+            """The rank's block of a leaf drawn whole (a grid's, or serving
+            TP's shard)."""
             if self.grid is not None:
                 return self.grid.shard(w, self.grid.spec(axes, w.shape))
             return w if axes is None else shard_leaf(w, axes, self.tp, name)
@@ -399,9 +414,9 @@ class LM:
             shapes = moe_shapes(cfg)
             # the router stays f32 whatever the weight dtype (never quantized);
             # each (E, in, out) expert leaf is drawn and quantized whole
-            m = {"router": dense(f"{pre}moe/router", d, (cfg.n_experts,),
-                                 dtype=torch.float32)}
             mx = moe_logical(cfg)
+            m = {"router": dense(f"{pre}moe/router", d, (cfg.n_experts,),
+                                 dtype=torch.float32, axes=mx["router"])}
             m.update({n: dense(f"{pre}moe/{n}", E, (i, o), scale=i ** -0.5, axes=mx[n])
                       for n, (E, i, o) in shapes["experts"].items()})
             if "shared" in shapes:
@@ -417,7 +432,12 @@ class LM:
         if not cfg.tie_embeddings:
             params["unembed"] = dense("unembed", d, (V,), axes=lg.get("unembed"))
         if cfg.family in ("ssm", "hybrid"):
-            rule = functools.partial(_apply_rule, policy=policy)
+            mix_axes = T.mamba_block_logical(cfg)["mix"]
+
+            def rule(name, w):
+                return place(name, _apply_rule(name, w, policy),
+                             mix_axes[name.rsplit("/", 1)[1]])
+
             params["blocks"] = [
                 {"ln": ones("blocks/ln", d),
                  "mix": ssm.mamba_init(cfg, gen=gen, device=dev, dtype=dt,
@@ -739,45 +759,50 @@ class LM:
         positions = torch.arange(Sq, device=self.device)[None, :].expand(B, Sq)
         x = self._embed(params, tokens)
         run = self._remat()
-        kw = dict(positions=positions, kernels=self.kernels)
-        layer_specs = self._specs["blocks"][0] if self.grid is not None else None
+        kw = dict(positions=positions, kernels=self.kernels, tp=self.tp)
+        blocks = params["blocks"]
+        # each layer's specs (FSDP's gathers) and, for an MoE layer, the
+        # ranks that route the batch with this one
+        specs = self._specs if self.grid is not None else {}
+        block_specs = specs.get("blocks", [None] * len(blocks))
+        batch = self.grid.axis(*self.batch_axes) if self.grid is not None else None
 
-        def attn_block(lp, h):
-            lp = self._gather(lp, layer_specs)
-            return T.block_forward(lp, h, cfg, rcfg, tp=self.tp, **kw)[0]
+        def attn_block(lp, sp, h):
+            return T.block_forward(self._gather(lp, sp), h, cfg, rcfg, batch=batch, **kw)[0]
 
-        def mamba_block(lp, h):
-            return T.mamba_block_forward(lp, h, cfg, kernels=self.kernels,
-                                         variant="mamba1" if fam == "ssm" else "mamba2")[0]
+        def mamba_block(lp, sp, h):
+            return T.mamba_block_forward(self._gather(lp, sp), h, cfg, kernels=self.kernels,
+                                         variant="mamba1" if fam == "ssm" else "mamba2",
+                                         tp=self.tp)[0]
 
-        def group(layers, h):
-            for lp in layers:
-                h = attn_block(lp, h)
+        def group(layers, sps, h):
+            for lp, sp in zip(layers, sps):
+                h = attn_block(lp, sp, h)
             return h
 
-        blocks = params["blocks"]
         if fam in ("dense", "moe"):
             k = cfg.moe_every if fam == "moe" else 1
             for g in range(0, len(blocks), k):
-                x = run(group, blocks[g:g + k], x)
+                x = run(group, blocks[g:g + k], block_specs[g:g + k], x)
         elif fam == "ssm":
-            for lp in blocks:
-                x = run(mamba_block, lp, x)
+            for lp, sp in zip(blocks, block_specs):
+                x = run(mamba_block, lp, sp, x)
         elif fam == "hybrid":
             first = 0
             for size in self._hybrid_chunks():
-                x = run(attn_block, params["shared"], x)
-                for lp in blocks[first:first + size]:
-                    x = run(mamba_block, lp, x)
+                x = run(attn_block, params["shared"], specs.get("shared"), x)
+                for lp, sp in zip(blocks[first:first + size], block_specs[first:first + size]):
+                    x = run(mamba_block, lp, sp, x)
                 first += size
         else:                                   # encdec
             xa = self._encode(params, frames)
 
-            def xblock(lp, h, xa):
-                return T.decoder_xblock_forward(lp, h, cfg, rcfg, xa=xa, **kw)[0]
+            def xblock(lp, sp, h, xa):
+                return T.decoder_xblock_forward(self._gather(lp, sp), h, cfg, rcfg, xa=xa,
+                                                **kw)[0]
 
-            for lp in blocks:
-                x = run(xblock, lp, x, xa)
+            for lp, sp in zip(blocks, block_specs):
+                x = run(xblock, lp, sp, x, xa)
         return self._logits(params, x)
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
@@ -798,13 +823,16 @@ class LM:
         B, Se, _ = xa.shape
         positions = torch.arange(Se, device=self.device)[None, :].expand(B, Se)
         run = self._remat()
+        enc = params["enc_blocks"]
+        specs = self._specs["enc_blocks"] if self.grid is not None else [None] * len(enc)
 
-        def layer(lp, h):
-            return T.dense_block_forward(lp, h, cfg, rcfg, positions=positions,
-                                         causal=False, kernels=self.kernels)[0]
+        def layer(lp, sp, h):
+            return T.dense_block_forward(self._gather(lp, sp), h, cfg, rcfg,
+                                         positions=positions, causal=False,
+                                         kernels=self.kernels, tp=self.tp)[0]
 
-        for lp in params["enc_blocks"]:
-            xa = run(layer, lp, xa)
+        for lp, sp in zip(enc, specs):
+            xa = run(layer, lp, sp, xa)
         return rmsnorm(xa, params["enc_ln"], cfg.norm_eps)
 
     def _write_cross(self, lp, xa: torch.Tensor, lc) -> None:

@@ -24,6 +24,17 @@ permutation, and summed over the k choices. In the backward, the dropped
 assignments' row E*C is cut off before the expert products and their
 gathers are masked, so their gradient is zero; the permutation's backward
 is a gather, with nothing to accumulate.
+
+On a training grid the rank routes the rows it holds, as one block of the
+rows of the batch that the reference routes whole (its GSPMD forward sees
+the global batch, or under the compressed pod mean the pod's): the
+capacity C comes from that batch's T, and an assignment's position within
+its expert is its position in the stable sort over all the batch's T * k
+assignments, in row order, i.e. the local one plus the assignments to the
+same expert of the ranks ahead (an exclusive prefix sum of the ranks'
+per-expert counts, all-gathered over the ``batch`` group). Each token's
+expert output depends on its own row alone, so the rank computes its own
+rows of the global (E, C, d) dispatch.
 """
 from __future__ import annotations
 
@@ -35,9 +46,14 @@ import torch.nn.functional as F
 from repro_torch.kernels.ops import KernelSet
 from .layers import (activation, is_gated, mlp_forward, mlp_logical, mlp_shapes,
                      param_value)
+from .sharding import placed
 
 __all__ = ["moe_shapes", "moe_logical", "moe_capacity", "moe_forward",
-           "router_aux_loss"]
+           "router_aux_loss", "DROPPED"]
+
+# a measurement's hook: while a list is set here, every call appends (the
+# assignments it dropped at capacity (a tensor), the assignments it routed)
+DROPPED = None
 
 
 def moe_shapes(cfg) -> dict:
@@ -74,23 +90,32 @@ def moe_capacity(T: int, S: int, cfg) -> int:
 
 
 def moe_forward(p: dict, x: torch.Tensor, cfg,
-                kernels: Optional[KernelSet] = None, tp=None) -> torch.Tensor:
+                kernels: Optional[KernelSet] = None, tp=None, batch=None) -> torch.Tensor:
     """x (B, S, d) -> (B, S, d).
 
-    Under tensor parallelism (``tp``) the expert leaves hold the rank's
-    E_loc = E / tp experts, from e0 = rank * E_loc. Routing and dispatch
-    run over the global expert ids on every rank; the rank computes its
-    experts' rows of the dispatch, scatters them into a zero global (E*C,
-    d) layout, combines as at tp = 1 and all-reduces the combine. The
-    shared experts add in after that all-reduce (``mlp_forward`` reduces
-    their own down-projection)."""
+    Under tensor parallelism (``tp``, where the model axis cuts the
+    experts) the expert leaves hold the rank's E_loc = E / tp experts, from
+    e0 = rank * E_loc. Routing and dispatch run over the global expert ids
+    on every rank; the rank computes its experts' rows of the dispatch,
+    scatters them into a zero global (E*C, d) layout, combines as at tp = 1
+    and all-reduces the combine (``reduce_out``; in training x and the
+    router are read through ``copy_in``, since the combine's gradient
+    reaches the gates of the rank's experts alone). The shared experts add
+    in after that all-reduce (``mlp_forward`` reduces their own
+    down-projection). ``batch`` (a TPContext, training on a grid): the
+    ranks that each hold one block of the routed batch's rows, in row
+    order."""
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     T = B * S
     dev = x.device
     xt = x.reshape(T, d)
+    tp_e = placed(tp, p["wo"].shape[0], E)
+    xr, router = xt, p["router"]
+    if tp_e is not None:
+        xr, router = tp_e.copy_in(xt), tp_e.copy_in(router)
     # 1. route in f32 (a flipped choice changes a token's output entirely)
-    logits = torch.matmul(xt.to(torch.float32), param_value(p["router"], torch.float32))
+    logits = torch.matmul(xr.to(torch.float32), param_value(router, torch.float32))
     probs = torch.softmax(logits, dim=-1)
     gate_vals, topk_idx = torch.topk(probs, k, dim=-1)            # (T, k)
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
@@ -98,20 +123,27 @@ def moe_forward(p: dict, x: torch.Tensor, cfg,
     flat_expert = topk_idx.reshape(-1)                             # (T*k,)
     order = torch.argsort(flat_expert, stable=True)
     sorted_expert = flat_expert[order]
-    # 3. position within expert, capacity
-    C = moe_capacity(T, S, cfg)
+    # 3. position within expert (among the whole routed batch's), capacity
+    n_rows = batch.size if batch is not None else 1
+    C = moe_capacity(T * n_rows, S, cfg)
     starts = torch.searchsorted(sorted_expert, torch.arange(E, device=dev))
     pos = torch.arange(T * k, device=dev) - starts[sorted_expert]
+    if n_rows > 1:
+        counts = torch.diff(starts, append=starts.new_full((1,), T * k))
+        ahead = batch.all_gather(counts[None], 0)[:batch.rank].sum(0)
+        pos = pos + ahead[sorted_expert]
     keep = pos < C
+    if DROPPED is not None:
+        DROPPED.append(((~keep).sum(), T * k))
     slot = torch.where(keep, sorted_expert * C + pos, torch.full_like(pos, E * C))
     token_of = order // k
     # 4. dispatch -> (E, C, d); dropped rows land (as zeros) on row E*C
     disp = torch.zeros((E * C + 1, d), dtype=x.dtype, device=dev)
-    disp[slot] = xt[token_of] * keep[:, None].to(x.dtype)
+    disp[slot] = xr[token_of] * keep[:, None].to(x.dtype)
     disp = disp[:-1].reshape(E, C, d)
     # 5. expert FFNs, batched over the rank's experts
     E_loc = p["wo"].shape[0]
-    e0 = tp.rank * E_loc if E_loc != E else 0
+    e0 = tp_e.rank * E_loc if tp_e is not None else 0
     disp_e = disp[e0:e0 + E_loc]
     fn = activation(cfg.act)
     if is_gated(cfg.act):
@@ -135,10 +167,11 @@ def moe_forward(p: dict, x: torch.Tensor, cfg,
     unsorted = torch.empty_like(contrib)
     unsorted[order] = contrib
     y = unsorted.reshape(T, k, d).sum(dim=1)
-    if E_loc != E:
-        y = tp.psum(y)       # the MoE block's one expert-combine collective
+    if tp_e is not None:
+        y = tp_e.reduce_out(y)       # the MoE block's one expert-combine collective
     if cfg.n_shared_experts:
-        y = y + mlp_forward(p["shared"], xt, cfg.act, kernels=kernels, tp=tp)
+        tp_s = placed(tp, p["shared"]["wo"].shape[0], cfg.d_ff * cfg.n_shared_experts)
+        y = y + mlp_forward(p["shared"], xt, cfg.act, kernels=kernels, tp=tp_s)
     return y.reshape(B, S, d)
 
 

@@ -33,23 +33,30 @@ made by ``launch.mesh.make_host_mesh``), one OS process a rank:
 
 * ``train_rules`` is ``make_ctx``'s table word for word (``sequence_
   parallel`` is not ported): batch over (pod, data), ``p_embed`` over data
-  (FSDP), heads, kv_heads, mlp and vocab over model. ``GridContext.spec``
+  (FSDP); heads, kv_heads, mlp, experts, vocab and the mamba channel names
+  (d_inner, d_inner2, d_inner_r, heads_r) over model. ``GridContext.spec``
   is the reference's lenient ``ShardingCtx.spec``: a dim that its mesh axes
   do not divide replicates, and a mesh axis shards one dim of a leaf at
   most. ``GridContext.shard`` cuts a rank's block along every named axis
   (a dim over several axes indexes them row-major, as a mesh does), and
   ``unshard`` puts every rank's blocks back together.
-* Megatron's pair of autograd functions, ``TPContext.copy_in`` (f: the
-  identity forward, an all-reduce backward; where a column-sharded
-  projection reads the replicated residual) and ``TPContext.reduce_out``
-  (g: an all-reduce forward, the identity backward; after the row-sharded
-  projections). Without a gradient, ``reduce_out`` is ``psum``, so serving
-  keeps its bits.
+* Each leaf is placed on its own: the model code reads from a leaf's
+  shape whether the model axis cuts it (``placed``), never from the family.
+  A tensor between two steps of a block is either the rank's block or
+  whole on every model rank; a whole one carries its whole gradient on
+  every rank, so a leaf that replicates gets its whole gradient on every
+  rank and is never summed over model. Four functions pass between the
+  two: ``TPContext.copy_in`` (Megatron's f: the identity forward, an
+  all-reduce backward; where a column-sharded product, or any use of the
+  rank's block, reads a whole tensor), ``take_block`` (the rank's block of
+  a whole tensor; backward, the blocks' gradients gathered whole),
+  ``TPContext.reduce_out`` (g: an all-reduce forward, the identity
+  backward; after a row-sharded product) and ``gather_replicated`` (the
+  ranks' blocks gathered whole; backward, the rank's slice). Without a
+  gradient, ``reduce_out`` is ``psum``, so serving keeps its bits.
 * ``fsdp_gather``: an all-gather of a leaf's shards along its data-sharded
   dim, whose backward is the reduce-scatter (the sum of every data rank's
-  gradient, cut to the rank's block). ``gather_replicated``: an all-gather
-  whose backward takes the rank's slice of a gradient that every rank
-  holds whole (vocab-parallel logits).
+  gradient, cut to the rank's block).
 """
 from __future__ import annotations
 
@@ -65,8 +72,8 @@ from repro_torch.core.policy import layer_prefixes, validate_scale_sharding
 from repro_torch.core.quantizers import QuantizedTensor
 
 __all__ = ["TP_AXIS", "GRID_AXES", "TPContext", "GridContext", "train_rules",
-           "fsdp_gather", "gather_replicated", "shard_leaf", "shard_policy_params",
-           "check_tp_shapes", "map_with_logical"]
+           "fsdp_gather", "gather_replicated", "take_block", "placed", "shard_leaf",
+           "shard_policy_params", "check_tp_shapes", "map_with_logical"]
 
 TP_AXIS = "tp"
 GRID_AXES = ("pod", "data", "model")
@@ -161,6 +168,16 @@ class TPContext:
             return self.psum(x)
         return _ReduceOut.apply(x, self)
 
+    def gather_objects(self, value):
+        """Every rank's ``value`` (picklable) in rank order on rank 0, None
+        on the others, over the host group."""
+        if self.size == 1:
+            return [value]
+        out = [None] * self.size if self.rank == 0 else None
+        dst = torch.distributed.get_global_rank(self.host_group, 0)
+        torch.distributed.gather_object(value, out, dst=dst, group=self.host_group)
+        return out
+
     def check_equal(self, what: str, value) -> None:
         """Raise on every rank unless every rank holds the same ``value``
         (a numpy array or a picklable object) as rank 0: a rank whose
@@ -236,13 +253,45 @@ def gather_replicated(x: torch.Tensor, tp: TPContext, dim: int) -> torch.Tensor:
     return _Gather.apply(x, tp, dim, False)
 
 
+class _TakeBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        n = x.shape[dim] // tp.size
+        return x.narrow(dim, tp.rank * n, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.all_gather(g, ctx.dim), None, None
+
+
+def take_block(x: torch.Tensor, tp: TPContext, dim: int) -> torch.Tensor:
+    """The rank's block along ``dim`` of a tensor that every rank holds
+    whole, for a use of that block alone: the gradient of the whole tensor
+    is the ranks' blocks' gradients gathered (Megatron's scatter)."""
+    if tp.size == 1:
+        return x
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        n = x.shape[dim] // tp.size
+        return x.narrow(dim, tp.rank * n, n)
+    return _TakeBlock.apply(x, tp, dim)
+
+
+def placed(tp: Optional[TPContext], local: int, full: int) -> Optional[TPContext]:
+    """``tp`` where a leaf's dim of ``full`` entries holds ``local`` of them
+    on this rank (the model axis cuts it: its products take Megatron's
+    pair), None where the rank holds it whole (it replicates: its products
+    take no collective)."""
+    return tp if tp is not None and tp.size > 1 and local < full else None
+
+
 # -- training over a (pod, data, model) grid ----------------------------------
 
 
 def train_rules(axis_names) -> dict:
     """The training rules of the reference's ``make_ctx`` for a mesh with
     ``axis_names``, at its defaults (``fsdp`` on, ``sequence_parallel``
-    off)."""
+    off: ``LM`` refuses it on a grid with a model axis, ROADMAP A8c)."""
     names = set(axis_names)
     batch = tuple(a for a in ("pod", "data") if a in names)
     data = ("data",) if "data" in names else ()

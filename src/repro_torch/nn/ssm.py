@@ -21,6 +21,20 @@ Only ``in_proj`` and ``out_proj`` take the kernel datapath; ``x_proj`` and
 ``dt_proj`` are dequantized and multiplied (``matmul_param`` without
 kernels) even when the kernels are on, as in the reference. A_log,
 dt_bias, D, the conv taps and the norm are never quantized.
+
+On a training grid (``tp``, the model axis) each leaf holds the block that
+the reference's training rules give it, and the mixer computes the rank's
+channels (``nn.sharding``'s four passes between whole tensors and the
+rank's blocks): in_proj's output is gathered whole where the model axis
+cuts its columns (contiguous blocks across the packed x | z, or z | x B C
+| dt). Mamba1 takes the rank's channels of x and z; conv, dt_proj's
+columns, dt_bias, A_log and D are the rank's, x_proj's rows give a partial
+(dt, B, C) summed over model, and out_proj's rows a partial output summed
+over model. Mamba2 convolves the rank's block of x B C (gathered whole
+after), runs the rank's heads (A_log, dt_bias, D) on the shared B and C,
+takes the gated RMSNorm's mean square over every channel (its sum of
+squares summed over model) and sums out_proj's rows' partial products.
+A dim that the model axis does not divide is whole on every rank.
 """
 from __future__ import annotations
 
@@ -32,8 +46,9 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ops import KernelSet
 from .layers import matmul_param, param_value, rmsnorm
+from .sharding import gather_replicated, placed, take_block
 
-__all__ = ["mamba_init", "mamba_init_cache", "mamba1_mix", "mamba1_forward",
+__all__ = ["mamba_init", "mamba_shapes", "mamba_init_cache", "mamba1_mix", "mamba1_forward",
            "mamba2_mix", "mamba2_forward", "mamba1_mix_ref", "mamba2_mix_ref",
            "softplus"]
 
@@ -107,6 +122,20 @@ def mamba_init(cfg, *, gen: torch.Generator, device, dtype: torch.dtype,
         "norm_w": leaf("norm_w", torch.ones(di, dtype=dtype, device=device)),
         "out_proj": dense("out_proj", di, d),
     }
+
+
+def mamba_shapes(cfg) -> dict:
+    """{name: shape} of one mixer's leaves, as ``mamba_init`` makes them."""
+    d, di, ds, K = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.conv_width
+    if cfg.family == "ssm":
+        dr = cfg.dt_rank
+        return {"in_proj": (d, 2 * di), "conv_w": (K, di), "conv_b": (di,),
+                "x_proj": (di, dr + 2 * ds), "dt_proj": (dr, di), "dt_bias": (di,),
+                "A_log": (di, ds), "D": (di,), "out_proj": (di, d)}
+    nh, cd = di // cfg.ssm_head_dim, di + 2 * ds
+    return {"in_proj": (d, 2 * di + 2 * ds + nh), "conv_w": (K, cd), "conv_b": (cd,),
+            "A_log": (nh,), "dt_bias": (nh,), "D": (nh,), "norm_w": (di,),
+            "out_proj": (di, d)}
 
 
 def mamba_init_cache(cfg, n_layers: int, batch: int, device) -> dict:
@@ -196,16 +225,25 @@ def _chunk_scan_diag(dA: torch.Tensor, dBx: torch.Tensor, h0: torch.Tensor):
 
 
 def mamba1_mix(p: dict, xz: torch.Tensor, cfg, *, conv_state=None, ssm_state=None,
-               chunk: Optional[int] = None):
-    """The mamba1 mixer after in_proj. xz (B, S, 2 di). Returns (y (B, S,
-    di) in xz's dtype, new conv state, new ssm state)."""
+               chunk: Optional[int] = None, tp=None):
+    """The mamba1 mixer after in_proj. xz (B, S, 2 di), whole. Returns (y
+    (B, S, di) in xz's dtype, new conv state, new ssm state); with ``tp``
+    (a training grid's model axis, where it cuts d_inner) y holds the
+    rank's channels."""
     di, ds, dr = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
     x, z = torch.split(xz, di, dim=-1)
+    tp = placed(tp, p["conv_w"].shape[-1], di)
+    if tp is not None:
+        x, z = take_block(x, tp, -1), take_block(z, tp, -1)
     x, new_conv = _causal_conv(x, param_value(p["conv_w"], _f32),
                                param_value(p["conv_b"], _f32), conv_state)
     x = F.silu(x)
     # the input-dependent dt, B, C: plain dequantize + matmul
     dbc = matmul_param(x, p["x_proj"])
+    if tp is not None:
+        # x_proj's rows are the rank's channels: a partial (dt, B, C), which
+        # every channel of the rank then reads whole
+        dbc = tp.copy_in(tp.reduce_out(dbc))
     dt, Bm, Cm = torch.split(dbc, [dr, ds, ds], dim=-1)
     dt = matmul_param(dt, p["dt_proj"]).to(_f32)
     dt = softplus(dt + p["dt_bias"].to(_f32))                   # (B, S, di)
@@ -216,7 +254,7 @@ def mamba1_mix(p: dict, xz: torch.Tensor, cfg, *, conv_state=None, ssm_state=Non
     dA = torch.exp(dt[..., None] * A)                           # (B, S, di, ds)
     dBx = (dt * xf)[..., None] * Bm.to(_f32)[..., None, :]
     Cf = Cm.to(_f32)
-    h = (torch.zeros((B_, di, ds), dtype=_f32, device=xz.device)
+    h = (torch.zeros((B_, x.shape[-1], ds), dtype=_f32, device=xz.device)
          if ssm_state is None else ssm_state)
     ys = []
     for s in range(0, S_, c):
@@ -228,15 +266,36 @@ def mamba1_mix(p: dict, xz: torch.Tensor, cfg, *, conv_state=None, ssm_state=Non
     return y.to(xz.dtype), new_conv, h
 
 
+def _in_proj(p: dict, x: torch.Tensor, width: int, kernels, tp) -> torch.Tensor:
+    """x @ in_proj, whole on every rank: where the model axis ``tp`` cuts
+    in_proj's ``width`` columns, x goes in through ``copy_in`` and the
+    ranks' column blocks are gathered."""
+    tp = placed(tp, p["in_proj"].shape[-1], width)
+    if tp is None:
+        return matmul_param(x, p["in_proj"], kernels=kernels)
+    return gather_replicated(matmul_param(tp.copy_in(x), p["in_proj"], kernels=kernels),
+                             tp, -1)
+
+
+def _out_proj(p: dict, y: torch.Tensor, cfg, kernels, tp) -> torch.Tensor:
+    """y @ out_proj, summed over model where the model axis cuts its rows
+    (y then holds the rank's channels)."""
+    out = matmul_param(y, p["out_proj"], kernels=kernels)
+    tp = placed(tp, p["out_proj"].shape[0], cfg.d_inner)
+    return out if tp is None else tp.reduce_out(out)
+
+
 def mamba1_forward(p: dict, x: torch.Tensor, cfg, *, cache: Optional[dict] = None,
-                   kernels: Optional[KernelSet] = None):
-    """The whole mamba1 mixer. x (B, S, d); cache {"conv", "ssm"} or None.
-    Returns (out (B, S, d), new cache or None)."""
-    xz = matmul_param(x, p["in_proj"], kernels=kernels)
+                   kernels: Optional[KernelSet] = None, tp=None):
+    """The whole mamba1 mixer. x (B, S, d); cache {"conv", "ssm"} or None;
+    ``tp``: the model axis of a training grid. Returns (out (B, S, d), new
+    cache or None)."""
+    xz = _in_proj(p, x, 2 * cfg.d_inner, kernels, tp)
     conv_s = cache["conv"] if cache else None
     ssm_s = cache["ssm"] if cache else None
-    y, new_conv, new_ssm = mamba1_mix(p, xz, cfg, conv_state=conv_s, ssm_state=ssm_s)
-    out = matmul_param(y, p["out_proj"], kernels=kernels)
+    y, new_conv, new_ssm = mamba1_mix(p, xz, cfg, conv_state=conv_s, ssm_state=ssm_s,
+                                      tp=tp)
+    out = _out_proj(p, y, cfg, kernels, tp)
     return out, ({"conv": new_conv, "ssm": new_ssm} if cache is not None else None)
 
 
@@ -279,17 +338,29 @@ def _ssd_chunk(x, dt, A, Bm, Cm, h0):
 
 
 def mamba2_mix(p: dict, zxbcdt: torch.Tensor, cfg, *, conv_state=None,
-               ssm_state=None, chunk: Optional[int] = None):
-    """The mamba2 mixer after in_proj. zxbcdt (B, S, 2 di + 2 ds + nh).
-    Returns (y (B, S, di) after the gated RMSNorm, new conv state, new ssm
-    state)."""
+               ssm_state=None, chunk: Optional[int] = None, tp=None):
+    """The mamba2 mixer after in_proj. zxbcdt (B, S, 2 di + 2 ds + nh),
+    whole. Returns (y (B, S, di) after the gated RMSNorm, new conv state,
+    new ssm state); with ``tp`` (a training grid's model axis) y holds the
+    rank's channels where the model axis cuts d_inner."""
     di, ds, dh = cfg.d_inner, cfg.ssm_state, cfg.ssm_head_dim
     nh = di // dh
     z, xBC, dt = torch.split(zxbcdt, [di, di + 2 * ds, nh], dim=-1)
+    tp_c = placed(tp, p["conv_w"].shape[-1], di + 2 * ds)
+    if tp_c is not None:
+        xBC = take_block(xBC, tp_c, -1)
     xBC, new_conv = _causal_conv(xBC, param_value(p["conv_w"], _f32),
                                  param_value(p["conv_b"], _f32), conv_state)
     xBC = F.silu(xBC)
+    if tp_c is not None:
+        xBC = gather_replicated(xBC, tp_c, -1)
     x, Bm, Cm = torch.split(xBC, [di, ds, ds], dim=-1)
+    tp_h = placed(tp, p["A_log"].shape[0], nh)
+    if tp_h is not None:
+        # the rank's heads (and their channels), on the B and C all share
+        x, dt, z = (take_block(t, tp_h, -1) for t in (x, dt, z))
+        Bm, Cm = tp_h.copy_in(Bm), tp_h.copy_in(Cm)
+        nh = nh // tp_h.size
     Bsz, S, _ = x.shape
     dt = softplus(dt.to(_f32) + p["dt_bias"].to(_f32))
     A = -torch.exp(p["A_log"].to(_f32))                 # (nh,)
@@ -305,21 +376,34 @@ def mamba2_mix(p: dict, zxbcdt: torch.Tensor, cfg, *, conv_state=None,
         ys.append(y_c)
     y = torch.cat(ys, dim=1) if len(ys) > 1 else ys[0]
     y = y + xh * p["D"].to(_f32)[None, None, :, None]
-    y = y.reshape(Bsz, S, di)
+    y = y.reshape(Bsz, S, nh * dh)
     # gated RMSNorm (mamba2): norm(y * silu(z))
     y = y * F.silu(z.to(_f32))
-    y = rmsnorm(y.to(zxbcdt.dtype), p["norm_w"], cfg.norm_eps)
-    return y, new_conv, h
+    tp_n = placed(tp, p["norm_w"].shape[0], di)
+    if tp_n is None:
+        return rmsnorm(y.to(zxbcdt.dtype), p["norm_w"], cfg.norm_eps), new_conv, h
+    yf = y.to(zxbcdt.dtype).to(_f32)
+    if tp_h is None:
+        # every channel normalized on every rank, then the rank's
+        yn = take_block(yf * torch.rsqrt(torch.mean(yf * yf, dim=-1, keepdim=True)
+                                         + cfg.norm_eps), tp_n, -1)
+    else:
+        # the mean square over every channel: the ranks' sums of squares
+        var = tp_h.copy_in(tp_h.reduce_out(torch.sum(yf * yf, dim=-1, keepdim=True))) / di
+        yn = yf * torch.rsqrt(var + cfg.norm_eps)
+    return (yn * param_value(p["norm_w"], _f32)).to(zxbcdt.dtype), new_conv, h
 
 
 def mamba2_forward(p: dict, x: torch.Tensor, cfg, *, cache: Optional[dict] = None,
-                   kernels: Optional[KernelSet] = None):
+                   kernels: Optional[KernelSet] = None, tp=None):
     """The whole mamba2 mixer, as ``mamba1_forward``."""
-    zxbcdt = matmul_param(x, p["in_proj"], kernels=kernels)
+    di, ds = cfg.d_inner, cfg.ssm_state
+    zxbcdt = _in_proj(p, x, 2 * di + 2 * ds + di // cfg.ssm_head_dim, kernels, tp)
     conv_s = cache["conv"] if cache else None
     ssm_s = cache["ssm"] if cache else None
-    y, new_conv, new_ssm = mamba2_mix(p, zxbcdt, cfg, conv_state=conv_s, ssm_state=ssm_s)
-    out = matmul_param(y, p["out_proj"], kernels=kernels)
+    y, new_conv, new_ssm = mamba2_mix(p, zxbcdt, cfg, conv_state=conv_s, ssm_state=ssm_s,
+                                      tp=tp)
+    out = _out_proj(p, y, cfg, kernels, tp)
     return out, ({"conv": new_conv, "ssm": new_ssm} if cache is not None else None)
 
 

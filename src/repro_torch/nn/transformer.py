@@ -14,9 +14,11 @@ loop over per-layer parameter dicts):
 ``block_forward`` calls the block that a layer's parameters name (an
 "moe" entry makes it an MoE block). ``*_block_logical`` give a layer's
 logical axes (``LM.logical``, read by ``nn.sharding``); ``tp`` (an
-``nn.sharding.TPContext``) reaches the attention, MLP and MoE all-reduces.
-A mamba block takes no ``tp``: it serves replicated under tensor
-parallelism, as the reference's does.
+``nn.sharding.TPContext``, the model axis) reaches the attention, MLP and
+MoE all-reduces, each taken where the model axis cuts that leaf
+(``nn.sharding.placed``). A mamba block serves replicated under tensor
+parallelism, as the reference's does (serving's rules name no mamba axis);
+on a training grid its channels are cut over model (``ssm``).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ from repro_torch.kernels.ops import KernelSet
 from .attention import attn_forward, attn_logical
 from .layers import Param, mlp_forward, mlp_logical, rmsnorm
 from .moe import moe_forward, moe_logical
+from .sharding import placed
 from . import ssm
 
 
@@ -51,8 +54,10 @@ def encdec_block_logical(cfg, cross: bool = False) -> dict:
 
 
 def mamba_block_logical(cfg) -> dict:
-    """A mamba layer's axes: its channel dims name no tensor-parallel rule,
-    so the mixer replicates (the reference's mamba{1,2}_logical)."""
+    """A mamba layer's axes (the reference's mamba{1,2}_logical): serving's
+    tensor-parallel rules name none of its channel dims, so the mixer
+    replicates there; the training rules cut d_inner, d_inner2, d_inner_r
+    and heads_r over model."""
     if cfg.family == "ssm":
         mix = {"in_proj": ("p_embed", "d_inner"), "conv_w": ("conv", "d_inner"),
                "conv_b": ("d_inner",), "x_proj": ("d_inner_r", "p_unsharded"),
@@ -78,58 +83,67 @@ def dense_block_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
     """``attn_kw`` goes to ``attn_forward`` (positions, the dense or paged
     cache, paged prefill, KV format and scales)."""
     x, new_kv = _attn_residual(p, x, cfg, rcfg, kernels=kernels, tp=tp, **attn_kw)
-    x = x + mlp_forward(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.act,
-                        kernels=kernels, tp=tp)
-    return x, new_kv
+    return x + _mlp(p, x, cfg, kernels, tp), new_kv
+
+
+def _mlp(p: dict, x: torch.Tensor, cfg, kernels, tp) -> torch.Tensor:
+    """The block's MLP on RMSNorm(x), with the model axis where it cuts d_ff."""
+    tp = placed(tp, p["mlp"]["wo"].shape[0], cfg.d_ff)
+    return mlp_forward(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.act,
+                       kernels=kernels, tp=tp)
 
 
 def moe_block_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
-                      kernels: Optional[KernelSet] = None, tp=None, **attn_kw):
-    """Attention as in ``dense_block_forward``, then the MoE FFN."""
+                      kernels: Optional[KernelSet] = None, tp=None, batch=None, **attn_kw):
+    """Attention as in ``dense_block_forward``, then the MoE FFN (``batch``:
+    ``moe_forward``'s)."""
     x, new_kv = _attn_residual(p, x, cfg, rcfg, kernels=kernels, tp=tp, **attn_kw)
     x = x + moe_forward(p["moe"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg,
-                        kernels=kernels, tp=tp)
+                        kernels=kernels, tp=tp, batch=batch)
     return x, new_kv
 
 
-def block_forward(p: dict, x: torch.Tensor, cfg, rcfg, **kw):
-    """The block that ``p`` names: MoE if it holds "moe", else dense."""
-    fwd = moe_block_forward if "moe" in p else dense_block_forward
-    return fwd(p, x, cfg, rcfg, **kw)
+def block_forward(p: dict, x: torch.Tensor, cfg, rcfg, batch=None, **kw):
+    """The block that ``p`` names: MoE if it holds "moe" (given ``batch``),
+    else dense."""
+    if "moe" in p:
+        return moe_block_forward(p, x, cfg, rcfg, batch=batch, **kw)
+    return dense_block_forward(p, x, cfg, rcfg, **kw)
 
 
 def decoder_xblock_forward(p: dict, x: torch.Tensor, cfg, rcfg, *, positions,
                            xa: Optional[torch.Tensor] = None, cache=None,
-                           cache_pos=None, kernels: Optional[KernelSet] = None):
+                           cache_pos=None, kernels: Optional[KernelSet] = None, tp=None):
     """Whisper decoder block: self-attention (with its cache), then
     cross-attention after ``ln_x``, then the MLP. Prefill passes the
     encoder states ``xa``; decode passes ``cache`` = the layer's {"k", "v"}
     and its static cross cache "xk", "xv" (B, G, Se, Dh) with its length
-    "xlen". Returns (x, the self-attention's new_kv)."""
+    "xlen". ``tp``: the model axis of a training grid. Returns (x, the
+    self-attention's new_kv)."""
     self_cache = None if cache is None else {"k": cache["k"], "v": cache["v"]}
     x, new_kv = _attn_residual(p, x, cfg, rcfg, positions=positions,
                                cache=self_cache, cache_pos=cache_pos,
-                               kernels=kernels)
+                               kernels=kernels, tp=tp)
     xcache = None
     if cache is not None and "xk" in cache:
         xcache = {"k_static": cache["xk"], "v_static": cache["xv"],
                   "len": cache["xlen"]}
     h, _ = attn_forward(p["xattn"], rmsnorm(x, p["ln_x"], cfg.norm_eps), cfg,
                         rcfg, positions=positions, xa=xa, cache=xcache,
-                        kernels=kernels)
+                        kernels=kernels, tp=tp)
     x = x + h
-    x = x + mlp_forward(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.act,
-                        kernels=kernels)
-    return x, new_kv
+    return x + _mlp(p, x, cfg, kernels, tp), new_kv
 
 
 def mamba_block_forward(p: dict, x: torch.Tensor, cfg, *, cache=None,
-                        kernels: Optional[KernelSet] = None, variant: str = "mamba1"):
+                        kernels: Optional[KernelSet] = None, variant: str = "mamba1",
+                        tp=None):
     """x + mixer(RMSNorm(x)); ``cache`` {"conv", "ssm"} carries the layer's
-    recurrent state. Returns (x, the new state or None)."""
+    recurrent state; ``tp``: the model axis of a training grid. Returns (x,
+    the new state or None)."""
     fwd = ssm.mamba1_forward if variant == "mamba1" else ssm.mamba2_forward
     h, new_cache = fwd(p["mix"], rmsnorm(x, p["ln"], cfg.norm_eps), cfg,
-                       cache=cache, kernels=kernels)
+                       cache=cache, kernels=kernels, tp=tp)
     return x + h, new_cache
 
 

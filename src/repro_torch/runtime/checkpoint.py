@@ -39,6 +39,14 @@ Fault-tolerance contract, as the reference's:
   * quantized tensors — ``QuantizedTensor`` leaves are bit-packed at their
     stored width, their spec recorded as its grammar string; ``save(...,
     policy=...)`` records the QuantPolicy string (``read_manifest``).
+  * training grids — ``save(..., model=)`` and ``restore(..., model=)``
+    with one rank's LM on a grid: every rank calls both. The save gathers
+    the ranks' shards to the grid's rank 0 (``convert.
+    gather_reference_layout``), which alone writes, so the files are the
+    tp = 1 state's, byte for byte; the restore reads the files on every
+    rank and keeps the rank's shard (``convert.
+    rank_train_state_from_numpy``), so any checkpoint of the state, the
+    reference's included, restores onto any grid.
 """
 from __future__ import annotations
 
@@ -51,7 +59,8 @@ from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 
-from repro_torch.convert import (params_from_numpy, reference_layout,
+from repro_torch.convert import (gather_reference_layout, host_tree, params_from_numpy,
+                                 rank_train_state_from_numpy, reference_layout,
                                  reference_structure)
 from repro_torch.core.normalized_posit import (norm_decode_np, norm_encode_np,
                                                pack_bits, unpack_bits)
@@ -106,10 +115,22 @@ class CheckpointManager:
 
     def save(self, step: int, state: Any,
              param_compress: Optional[QuantSpec] = None,
-             policy: Optional[Union[QuantPolicy, str]] = None) -> None:
+             policy: Optional[Union[QuantPolicy, str]] = None, *, model=None) -> None:
+        """Snapshot ``state`` to the host and write it (in the background
+        when ``async_save``). ``model``: one rank's LM on a training grid,
+        whose ranks all call this; rank 0 writes the gathered state (a
+        grid's ``restore`` waits for it)."""
         self.wait()
+        grid = getattr(model, "grid", None)
+        if grid is not None and grid.size > 1:
+            states = grid.axis(*grid.axis_names).host().gather_objects(host_tree(state))
+            if states is None:
+                return
+            tree = gather_reference_layout(states, model)
+        else:
+            tree = reference_layout(state)
         host_leaves: List[Any] = []
-        for path, leaf in _flatten(reference_layout(state)):
+        for path, leaf in _flatten(tree):
             if isinstance(leaf, QuantizedTensor):
                 host_leaves.append(leaf)
                 continue
@@ -245,10 +266,17 @@ class CheckpointManager:
             return json.load(f)
 
     def restore(self, template: Any, step: Optional[int] = None, *,
-                device=None) -> Any:
+                device=None, model=None) -> Any:
         """Load a checkpoint (the latest by default) into the structure of
         ``template``, a state of the port's layout (its values are not
-        read); tensors go to ``device``, by default the template's."""
+        read); tensors go to ``device``, by default the template's. With
+        ``model`` (one rank's LM on a training grid) the rank's shard of
+        the train state, on the model's device; every rank calls it, and it
+        reads once rank 0's write of the grid's save has ended."""
+        grid = getattr(model, "grid", None)
+        if grid is not None and grid.size > 1:
+            self.wait()
+            grid.axis(*grid.axis_names).host().check_equal("the checkpoint step", step)
         root = self._root(step)
         with open(os.path.join(root, "manifest.json")) as f:
             manifest = json.load(f)
@@ -267,6 +295,8 @@ class CheckpointManager:
             node[path[-1]] = self._read_leaf(root, entry)
             if device is None:
                 device = (like.codes if isinstance(like, QuantizedTensor) else like).device
+        if grid is not None:
+            return rank_train_state_from_numpy(tree, model)
         return params_from_numpy(tree, device=device)
 
     @classmethod

@@ -46,17 +46,59 @@ def train_case(grid, device, case):
     the reference's state ``case["init"]`` cut to the rank's shard. Returns
     {"metrics": each step's floats, "state": the rank's state (numpy),
     "probes": each step's ``probe`` (the pod branch's gradients before and
-    after the compressed mean, numpy lists in ``tree_leaves`` order)}."""
+    after the compressed mean, numpy lists in ``tree_leaves`` order),
+    "dropped": the assignments the rank's MoE layers dropped at capacity in
+    the first step's forward}."""
+    from repro_torch.nn import moe
     model = grid_model(grid, device, case["arch"], case["kw"], case.get("over"))
     state = rank_train_state_from_numpy(case["init"], model)
     step = make_train_step(model, grid)
     metrics, probes = [], []
-    for b in case["batches"]:
+    for s, b in enumerate(case["batches"]):
         probe = {}
-        state, met = step(state, b, probe=probe)
+        moe.DROPPED = [] if s == 0 else None
+        try:
+            state, met = step(state, b, probe=probe)
+            if s == 0:
+                # the backward's remat recompute repeats each call of the forward
+                dropped = (sum(int(n) for n, _ in moe.DROPPED)
+                           // (2 if model.rcfg.remat == "block" else 1))
+        finally:
+            moe.DROPPED = None
         metrics.append({k: float(v) for k, v in met.items()})
         probes.append({k: [g.numpy() for g in v] for k, v in probe.items()})
-    return {"metrics": metrics, "state": host(state), "probes": probes}
+    return {"metrics": metrics, "state": host(state), "probes": probes, "dropped": dropped}
+
+
+def checkpoint_case(grid, device, case):
+    """A grid's checkpoints: one step from ``case["init"]``, the state saved
+    by every rank (``CheckpointManager.save(..., model=)``) under
+    ``case["dir"]`` as step 1, a second step (the uninterrupted run); the
+    checkpoint restored into a fresh state (``restore(..., model=)``) and
+    its second step (the resumed run); and the reference's checkpoint
+    under ``case["ref_dir"]`` restored onto the grid. Returns the rank's
+    states (numpy): "saved", "restored", "uninterrupted", "resumed" and
+    "from_reference", and the save's and restore's seconds."""
+    import time
+    from repro_torch.runtime import CheckpointManager
+    model = grid_model(grid, device, case["arch"], case["kw"], case.get("over"))
+    step = make_train_step(model, grid)
+    first, second = case["batches"][:2]
+    state, _ = step(rank_train_state_from_numpy(case["init"], model), first)
+    manager = CheckpointManager(case["dir"], async_save=False)
+    t0 = time.perf_counter()
+    manager.save(1, state, model=model)
+    out = {"save_s": time.perf_counter() - t0, "saved": host(state)}
+    out["uninterrupted"] = host(step(state, second)[0])
+    template = rank_train_state_from_numpy(case["init"], model)
+    t0 = time.perf_counter()
+    restored = manager.restore(template, 1, model=model)
+    out["restore_s"] = time.perf_counter() - t0
+    out["restored"] = host(restored)
+    out["resumed"] = host(step(restored, second)[0])
+    out["from_reference"] = host(CheckpointManager(case["ref_dir"]).restore(template,
+                                                                             model=model))
+    return out
 
 
 def compressed_case(grid, device, xs, residuals, dims, names):

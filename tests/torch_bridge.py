@@ -142,10 +142,13 @@ def torch_one_thread():
         yield
 
 
-def train_models(arch, **rkw):
-    """Matching smoke-size (jax_model, torch_model) of ``arch`` at f32
-    weights and activations, on the CPU."""
+def train_models(arch, over=(), **rkw):
+    """Matching smoke-size (jax_model, torch_model) of ``arch`` (``over``:
+    (field, value) pairs replacing config fields) at f32 weights and
+    activations, on the CPU."""
     jc, tc = j_smoke(J_ARCHS[arch]), t_smoke(T_ARCHS[arch])
+    if over:
+        jc, tc = dataclasses.replace(jc, **dict(over)), dataclasses.replace(tc, **dict(over))
     return (j_build_model(jc, JRunConfig(**F32, **rkw)),
             t_build_model(tc, TRunConfig(**F32, **rkw), device="cpu"))
 
@@ -238,13 +241,14 @@ def step_batches(cfg, steps, B, S, frames=False):
 
 
 @functools.lru_cache(maxsize=None)
-def reference_state(arch, quant):
-    """The reference's seed-0 train state of the smoke ``arch`` with
-    ``quant`` moments (jitted ``make_train_state``; the microbatch count
-    does not enter it), computed once a process: JAX arrays are immutable
-    and the steps below do not donate them."""
+def reference_state(arch, quant, over=()):
+    """The reference's seed-0 train state of the smoke ``arch`` (``over``
+    as ``train_models`` takes it) with ``quant`` moments (jitted
+    ``make_train_state``; the microbatch count does not enter it),
+    computed once a process: JAX arrays are immutable and the steps below
+    do not donate them."""
     from repro.launch.train import make_train_state as j_make_state
-    jm, _ = train_models(arch, **step_kw(quant, 0))
+    jm, _ = train_models(arch, over, **step_kw(quant, 0))
     return jax.jit(lambda k: j_make_state(jm, k))(jax.random.PRNGKey(0))
 
 
@@ -293,7 +297,7 @@ def three_steps(arch, quant, micro, *, frames=False, steps=3, B=4, S=32):
 
 
 def assert_steps_match(quant, jmet, tmet, m1, before, want, got, *, zero_leaves=(),
-                       noise=None):
+                       noise=None, flips=None, wild=None, first=None):
     """The metrics to the bounds of tests/test_torch_train.py (loss to 1e-6,
     grad norm to 1e-5 and lr to 1e-6 relative; the loss falls over the
     steps where the reference's does), and the parameters to its bounds:
@@ -316,17 +320,35 @@ def assert_steps_match(quant, jmet, tmet, m1, before, want, got, *, zero_leaves=
       step of m / sqrt(v) >> 1 from a new gradient near zero, in the
       reference as in the port. An entry past 5e-3 must be one that the
       reference moved by more than 10 lr in the last step, and the port's
-      entry must lie within that move of the reference's."""
-    noise = noise or {}
-    for j, t in zip(jmet, tmet):
-        assert abs(t["loss"] - j["loss"]) <= 1e-6 * abs(j["loss"]), (t, j)
+      entry must lie within that move of the reference's.
+
+    Two more, posit8 moments only, for a run whose gradients are summed in
+    another order than the reference's (a training grid), each named per
+    leaf with its bound (its reading, rounded up):
+
+    * ``flips`` {leaf: n}: a moment code one rounding boundary apart from
+      the reference's moves its entry by a step 6 to 12 % apart; in a leaf
+      of a few hundred entries one such entry is past 0.1 %. The leaf may
+      hold up to n entries past 3e-5 beyond 0.1 % of its entries.
+    * ``wild`` {leaf: bound}: an entry of the leaf took the wild step above
+      before the last step, from a gradient near zero whose rounding it
+      amplifies; the losses after the first step may part by up to the
+      bound (relative), and an entry past 5e-3 may be one that the
+      reference moved by more than 10 lr since ``first`` (the parameters
+      before the first step), the port's entry within that move."""
+    noise, flips, wild = noise or {}, flips or {}, wild or {}
+    loss_rtol = max([1e-6, *wild.values()])
+    for s, (j, t) in enumerate(zip(jmet, tmet)):
+        assert abs(t["loss"] - j["loss"]) <= (loss_rtol if s else 1e-6) * abs(j["loss"]), (s, t, j)
         assert abs(t["grad_norm"] - j["grad_norm"]) <= 1e-5 * abs(j["grad_norm"]), (t, j)
         assert abs(t["lr"] - j["lr"]) <= 1e-6 * abs(j["lr"]), (t, j)
     assert (tmet[-1]["loss"] < tmet[0]["loss"]) == (jmet[-1]["loss"] < jmet[0]["loss"])
     lr = jmet[-1]["lr"]
     leaves = list(walk(want["params"], got["params"]))
-    assert set(zero_leaves) | set(noise) <= {p for p, _, _ in leaves}
+    assert set(zero_leaves) | set(noise) | set(flips) | set(wild) <= {p for p, _, _ in leaves}
+    assert quant == "posit8" or not (flips or wild)
     g0 = {p: g for p, g, _ in walk(m1, m1)} if quant == "none" else {}
+    start = {p: a for p, a, _ in walk(first, first)} if wild else {}
     for (path, a, b), (_, _, a0) in zip(leaves, walk(want["params"], before)):
         d = np.abs(a - b)
         if path in zero_leaves:
@@ -340,10 +362,10 @@ def assert_steps_match(quant, jmet, tmet, m1, before, want, got, *, zero_leaves=
                 assert (g[off] <= 1e-6 * g.max()).all(), (path, g[off] / g.max())
                 assert d.max() <= noise[path], (path, d.max())
             continue
-        assert (d > 3e-5).mean() <= 1e-3, (path, (d > 3e-5).mean())
-        wild = d > 5e-3
-        move = np.abs(a - a0)[wild]
-        assert (move > 10 * lr).all() and (d[wild] <= move).all(), (path, d.max())
+        assert (d > 3e-5).sum() <= 1e-3 * d.size + flips.get(path, 0), (path, (d > 3e-5).sum())
+        far = d > 5e-3
+        move = np.abs(a - (start[path] if path in wild else a0))[far]
+        assert (move > 10 * lr).all() and (d[far] <= move).all(), (path, d.max())
     if quant == "posit8":
         # one scale per reference leaf (params_to_numpy refuses layers of a
         # stacked moment leaf whose scales differ): a power of two, the one
