@@ -66,12 +66,13 @@ Phases, one line each, any failure exits non-zero without the final line:
    mixer (conv, x/dt products, recurrence: ``ssm.mamba1_mix``) in a
    ``record_function`` range; ``--paged`` refused; kernels against plain
    versions at f32 on the first 2 layers (identical streams) and a sampled
-   run against its repeat (identical streams);
+   run against its repeat on the first 8 (identical streams);
 11. hybrid serving: the same with ``--arch zamba2-1.2b`` (38 mamba2
    layers, d_model 2048, one shared attention + MLP block before each run
    of 6 layers, 7 a forward): 119 pofx_matmul a forward (38 x 2, 7 x 6
    for the shared block, the unembed) and 7 kv_flash_decode a decode
-   step; the profile's range is ``ssm.mamba2_mix``;
+   step; the profile's range is ``ssm.mamba2_mix``; the sampled repeat on
+   the first 7 layers (two applications of the shared block);
 12. encdec serving: the serving CLI with ``--arch whisper-medium`` and
    MAIN_ARGV's other flags (24 encoder + 24 decoder layers, d_model 1024;
    the CLI drops the fxp8 KV cache and runs the one-shot loop: 4 sequences
@@ -84,7 +85,10 @@ Phases, one line each, any failure exits non-zero without the final line:
    versions at f32 on the first 2 encoder and 2 decoder layers (identical
    streams); the loop repeated at full depth (identical tokens); a
    decode-step profile with the cross-attention (``attention._cross_attn``)
-   in a ``record_function`` range;
+   in a ``record_function`` range; a decode step with
+   ``serve_bf16_compute`` (every ``decode_attention`` call taking it) and
+   that path on layer 0's cross cache against its formula
+   (``bf16_compute_check``);
 13. training, yi-9b full width: the training CLI (``python -m
    repro_torch.launch.train --arch yi-9b --opt-quant posit8``, 48 layers,
    batch 8 x 128 tokens, bf16 weights, block remat) in a process of its
@@ -104,7 +108,7 @@ Phases, one line each, any failure exits non-zero without the final line:
 14. training the other families at full width, with posit8 moments and
    the CLI's run configuration (batch 8 x 128, lr 1e-3, bf16, block
    remat): (a) ``python -m repro_torch.launch.train --arch falcon-mamba-7b
-   --opt-quant posit8 --steps 5 --profile`` in a process of its own (64
+   --opt-quant posit8 --steps 4 --profile`` in a process of its own (64
    mamba1 layers, 7.27 B parameters; the fields of phase 13 and its
    profiled split); (b) the same with ``--arch zamba2-1.2b --steps 3`` (38
    layers); (c) moonshot-v1-16b-a3b on its first 2 layers and (d)
@@ -148,7 +152,10 @@ Phases, one line each, any failure exits non-zero without the final line:
    wherever its m and v codes equalled tp = 1's after every step, and
    99.9 % of each leaf within 0.03 lr; the moment scales equal, each moment code parting
    from tp = 1's by one step (or within two codes of zero), at most 0.1 % of
-   them apart after the last step; then (pod 2, model 2) with
+   them apart after the last step; then the (data 2, model 2) grid again
+   with ``sequence_parallel`` (``grid_sp_run``: every rank's residual cut
+   along seq, the same gates, its first loss beside the grid's without
+   it); then (pod 2, model 2) with
    ``grad_compression="posit8_ef"``: finite losses and the first step's
    compressed gradient mean equal, bit for bit, to the port's
    ``posit_compressed_mean`` on the CPU over the pods' gradients (every
@@ -187,9 +194,12 @@ Phases, one line each, any failure exits non-zero without the final line:
    must drop assignments at capacity (the grid's count over its data ranks
    printed beside tp = 1's); whisper's grid state saved by every rank
    (rank 0 writes) and restored, each rank's shards equal bit for bit,
-   with the seconds of both; step ms (the first step), tokens/s, peak GiB
-   a rank and the collectives' share of step 1 a family. Like the other
-   training phases it launches none of the port's kernels.
+   with the seconds of both; moonshot and whisper (the families the
+   reference's production knobs run sequence-parallel) again on the grid
+   with ``sequence_parallel``, as phase 17's, moonshot's drops equal to
+   tp = 1's; step ms (the first step), tokens/s, peak GiB a rank and the
+   collectives' share of step 1 a run. Like the other training phases it
+   launches none of the port's kernels.
 
 Before torch is imported, the CUDA driver is asked to start in a process of
 its own (``wait_for_card``): a freshly booted host may refuse for a while
@@ -1088,9 +1098,12 @@ def phase_moe(torch, result):
 # launches a decode step)
 SSM_ARCHS = {10: ("falcon-mamba-7b", 64, 4096, 64 * 2 + 1, 0),
              11: ("zamba2-1.2b", 38, 2048, 38 * 2 + 7 * 6 + 1, 7)}
-# the f32 kernels-vs-plain check's depth; the CLI and the sampled repeat
-# serve every layer
+# the f32 kernels-vs-plain check's depth; the CLI serves every layer, the
+# sampled run and its repeat the first SSM_SAMPLED_LAYERS (zamba2's 7: two
+# applications of the shared block; every layer until the time limit
+# needed the room for the sequence-parallel runs of phases 17 and 19)
 SSM_IDENTITY_LAYERS = 2
+SSM_SAMPLED_LAYERS = {"falcon-mamba-7b": 8, "zamba2-1.2b": 7}
 
 
 def phase_ssm(torch, result, arch, n_layers, d_model, want_pofx, want_kv):
@@ -1103,8 +1116,8 @@ def phase_ssm(torch, result, arch, n_layers, d_model, want_pofx, want_kv):
     plain path, a decode-step profile with the plain mixer in a
     ``record_function`` range, the ``--paged`` refusal; then, on the same
     weights, kernels against plain versions at f32 on the first layers
-    (identical greedy streams) and a sampled run against its repeat at full
-    depth (identical streams)."""
+    (identical greedy streams) and a sampled run against its repeat on the
+    first SSM_SAMPLED_LAYERS (identical streams)."""
     import repro_torch.nn.ssm as ssm_mod
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.kernels.ops import PLAIN
@@ -1171,20 +1184,22 @@ def phase_ssm(torch, result, arch, n_layers, d_model, want_pofx, want_kv):
             n_attn and kcounts["kv_flash_decode"] <= 0):
         raise AssertionError(f"{arch} kernel streams differ from the plain path's")
 
-    # a sampled run and its repeat, every layer
+    # a sampled run and its repeat on the first layers
+    n_s = SSM_SAMPLED_LAYERS[arch]
+    sub, subp = truncated(model, params, n_s)
     sp = SamplingParams(**SAMPLING)
     t0 = time.perf_counter()
-    _, first, _ = serve(torch, model, params, sampling=sp)
-    _, again, _ = serve(torch, model, params, sampling=sp)
+    _, first, _ = serve(torch, sub, subp, sampling=sp)
+    _, again, _ = serve(torch, sub, subp, sampling=sp)
     same_s = sum(a.out == b.out for a, b in zip(first, again))
-    log(f"  sampled ({cfg.n_layers} layers, temperature 0.8, top-k 40): repeat "
+    log(f"  sampled ({n_s} layers, temperature 0.8, top-k 40): repeat "
         f"{same_s}/8 streams identical ({time.perf_counter() - t0:.1f}s for both)")
-    entry["sampled"] = {"n_layers": cfg.n_layers, "identical_repeat": same_s,
+    entry["sampled"] = {"n_layers": n_s, "identical_repeat": same_s,
                         "streams": [s.out for s in first]}
     result[arch] = entry
     if same_s != 8 or any(len(s.out) != 32 for s in first):
         raise AssertionError(f"{arch} sampled streams differ between runs with the same seed")
-    del run, model, params, eng, small, sparams
+    del run, model, params, eng, small, sparams, sub, subp
     torch.cuda.empty_cache()
     return counts
 
@@ -1270,9 +1285,10 @@ def phase_encdec(torch, result):
     cache, _ = model.prefill(params, prompts, cache=cache, frames=frames)
     prof = profile_decode(torch, model, params, cache=cache,
                           regions={"cross_attn": (attn_mod, "_cross_attn")})
+    bf16_check = bf16_compute_check(torch, model, params, cache)
     del cache
     entry = dict(summary, first_logit_max_abs_diff=diff, first_argmax_agree=same_argmax,
-                 decode_profile=prof, tokens=toks.tolist())
+                 decode_profile=prof, tokens=toks.tolist(), bf16_compute=bf16_check)
     if same_argmax != B or toks[:, 0].tolist() != lk.argmax(-1).tolist():
         raise AssertionError("encdec first tokens differ between kernels, plain and the CLI")
 
@@ -1305,6 +1321,76 @@ def phase_encdec(torch, result):
     del run, model, params, leg, small, sparams, prompts, frames
     torch.cuda.empty_cache()
     return counts
+
+
+def bf16_compute_check(torch, model, params, cache):
+    """Phase 12's check of ``RunConfig.serve_bf16_compute`` on the card: one
+    decode step of the full model from its prefilled bf16 caches with the
+    flag set, in which every ``decode_attention`` call (each decoder
+    layer's self-attention, then its static cross cache) must take it, and
+    the same step without it; then ``decode_attention(..., bf16_compute=
+    True)`` on layer 0's cross cache and a seeded q against the reference's
+    formula computed in float64 on the card: q and the probabilities
+    rounded to bf16, products summed exactly. The output must lie within
+    2^-8 of the largest |v| of the formula (a probability whose f32 value
+    sits at a bf16 rounding boundary may round the other way in the two
+    computations, and the probabilities sum to 1) and nearer to it than to
+    the formula without the rounding. Returns the readings."""
+    import repro_torch.nn.attention as attn_mod
+    calls = []
+    orig = attn_mod.decode_attention
+
+    def spy(*args, bf16_compute=False, **kw):
+        calls.append(bool(bf16_compute))
+        return orig(*args, bf16_compute=bf16_compute, **kw)
+
+    B = cache["kv"]["k"].shape[1]
+    dev = cache["kv"]["k"].device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    tokens = torch.zeros((B, 1), dtype=torch.long, device=dev)
+    flagged = dataclasses.replace(model, rcfg=dataclasses.replace(model.rcfg,
+                                                                  serve_bf16_compute=True))
+    attn_mod.decode_attention = spy
+    try:
+        sync()
+        t0 = time.perf_counter()
+        lb = flagged.decode_step(params, cache, tokens)[1].float()
+        sync()
+        step_s = time.perf_counter() - t0
+    finally:
+        attn_mod.decode_attention = orig
+    lf = model.decode_step(params, cache, tokens)[1].float()
+    k, v, n = cache["cross"]["k"][0], cache["cross"]["v"][0], cache["xlen"]
+    G, Dh = k.shape[1], k.shape[-1]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    q = torch.randn((B, 1, G, 1, Dh), generator=gen, device=dev)
+    got = orig(q, k, v, n, bf16_compute=True).double()
+
+    def formula(rounded):
+        rnd = (lambda t: t.to(torch.bfloat16).double()) if rounded else (lambda t: t.double())
+        s = torch.einsum("bqgrd,bgsd->bgrqs", rnd(q), k.double()) * Dh ** -0.5
+        valid = torch.arange(k.shape[2], device=dev) < n
+        p = torch.softmax(torch.where(valid, s, torch.full_like(s, -1e30)), dim=-1)
+        return torch.einsum("bgrqs,bgsd->bqgrd", rnd(p.float()), v.double())
+
+    err, err_f32 = ((got - formula(r)).abs().max().item() for r in (True, False))
+    bound = 2.0 ** -8 * v.double().abs().max().item()
+    out = {"calls": len(calls), "calls_flagged": sum(calls), "step_s": step_s,
+           "logit_max_abs_diff_flag_on_off": (lb - lf).abs().max().item(),
+           "formula_max_abs_err": err, "bound": bound, "unrounded_max_abs_err": err_f32}
+    log(f"  serve_bf16_compute: a decode step with the flag ({step_s * 1e3:.1f} ms) made "
+        f"{len(calls)} decode_attention calls, {sum(calls)} with bf16 q and p; logits moved "
+        f"by at most {out['logit_max_abs_diff_flag_on_off']:.4g} against the flag off; layer "
+        f"0's cross cache: within {err:.3g} of the bf16 formula (bound {bound:.3g}), "
+        f"{err_f32:.3g} of the f32 one")
+    want_calls = [True, True] * model.cfg.n_layers
+    if calls != want_calls or not torch.isfinite(lb).all():
+        raise AssertionError(f"serve_bf16_compute: decode_attention took {calls}, "
+                             f"expected {want_calls}")
+    if not (err <= bound and err < err_f32):
+        raise AssertionError(f"serve_bf16_compute: the card's bf16 path is {err} off its "
+                             f"formula (bound {bound}; the unrounded formula {err_f32} off)")
+    return out
 
 
 # phase 13: the CLI at full width and depth (its last step profiled, so
@@ -1551,7 +1637,7 @@ def phase_train(torch, result):
 # WHISPER_TRAIN_LAYERS encoder and decoder layers in-process (both cut to
 # keep the script within its time limit); (e) card against CPU gradients at
 # ORACLE_LAYERS layers
-FALCON_TRAIN_ARGV = ["--arch", "falcon-mamba-7b", "--opt-quant", "posit8", "--steps", "5",
+FALCON_TRAIN_ARGV = ["--arch", "falcon-mamba-7b", "--opt-quant", "posit8", "--steps", "4",
                      "--log-every", "1", "--profile"]
 ZAMBA_TRAIN_ARGV = ["--arch", "zamba2-1.2b", "--opt-quant", "posit8", "--steps", "3",
                     "--log-every", "1"]
@@ -2096,10 +2182,11 @@ def grid_train_rank(grid, device, spec):
     step is saved there by every rank and restored (``CheckpointManager``
     with ``model=``), the rank's restored shards held to its own bit for
     bit. Returns the metrics, step seconds, the collectives' seconds a kind
-    in step GRID_TIMED_STEP (``timed_collectives``), peak GiB, state GiB
-    and (``spec["state"]``) the parameters after the last step and the
-    posit8 moment codes after every step, as numpy arrays (a rank's as
-    files in its ``state_dir``)."""
+    in step GRID_TIMED_STEP (``timed_collectives``), peak GiB, state GiB,
+    whether the residual ran sequence-parallel (``LM.seq_ctx`` of the
+    batch's 128 positions) and (``spec["state"]``) the parameters after the
+    last step and the posit8 moment codes after every step, as numpy arrays
+    (a rank's as files in its ``state_dir``)."""
     import numpy as np
     import torch
     from repro_torch.configs import ARCHS, RunConfig
@@ -2114,6 +2201,7 @@ def grid_train_rank(grid, device, spec):
     if spec.get("enc_layers"):
         cfg = dataclasses.replace(cfg, n_enc_layers=spec["enc_layers"])
     model = build_model(cfg, RunConfig(**spec["run"]), device=device, grid=grid)
+    seq_parallel = grid is not None and model.seq_ctx(128) is not None
     acc = timed_collectives() if grid is not None else None
     cuda = model.device.type == "cuda"
     sync = torch.cuda.synchronize if cuda else (lambda: None)
@@ -2126,7 +2214,7 @@ def grid_train_rank(grid, device, spec):
     params0 = ([p.detach().clone() for p in tree_leaves(state["params"])]
                if spec.get("state") == "initial" else None)
     out = {"init_s": time.perf_counter() - t0, "loss": [], "grad_norm": [], "step_s": [],
-           "collective_s": {}, "state_gib": sum(
+           "collective_s": {}, "seq_parallel": seq_parallel, "state_gib": sum(
                t.numel() * t.element_size() for leaf in tree_leaves(state["params"])
                + tree_leaves(state["opt"]["m"]) + tree_leaves(state["opt"]["v"])
                for t in ((leaf.codes, leaf.scale) if hasattr(leaf, "codes") else (leaf,))) / 2**30}
@@ -2425,15 +2513,53 @@ def grid_summary(label, ranks, n_params, tokens):
     return entry
 
 
+def grid_sp_run(torch, pool, spec, one, base, cfg, label, n_params, device):
+    """Phases 17 and 19's sequence-parallel run: ``spec``'s run again on
+    (data 2, model 2) with ``sequence_parallel`` on, in the same pool,
+    held by ``grid_gate`` to tp = 1's run ``one``, its state files removed
+    after. Every rank must report the residual cut along seq (never the
+    path without it), and its first loss is recorded beside the grid's
+    without it (``base``, rank 0's result): the forward computes every
+    product on the same inputs and model 2 sums two partials either way.
+    Returns (the run's summary, the failed checks, the ranks' results)."""
+    from repro_torch.configs import RunConfig
+    from repro_torch.launch.mesh import grid_layout
+    from repro_torch.nn.models import build_model
+    from repro_torch.nn.sharding import GridContext
+    run = dict(spec["run"], sequence_parallel=True)
+    sp_spec = {k: v for k, v in dict(spec, run=run).items() if k != "ckpt_dir"}
+    t0 = time.perf_counter()
+    ranks = pool.run(grid_train_rank, sp_spec, grid=(1, 2, 2))
+    label = f"{label} sequence parallel"
+    log(f"  {label} ran ({time.perf_counter() - t0:.0f} s)")
+    e = grid_summary(label, ranks, n_params, 8 * 128)
+    failed = []
+    if not all(r["seq_parallel"] for r in ranks):
+        failed.append(f"{label}: a rank ran without sequence parallelism")
+    first, without = ranks[0]["loss"][0], base["loss"][0]
+    e.update(first_loss=first, first_loss_without=without, first_loss_equal=first == without)
+    apart = "bit for bit" if first == without else f"{abs(first - without) / abs(without):.3g} apart"
+    log(f"  {label}: first loss {first!r}, without {without!r} ({apart})")
+    lay = build_model(cfg, RunConfig(**run), device="cpu",
+                      grid=GridContext(*grid_layout(1, 2, 2)))
+    try:
+        cmp, bad = grid_gate(torch, label, one, ranks, lay, device)
+    finally:
+        shutil.rmtree(spec["state_dir"], ignore_errors=True)
+    e.update(cmp)
+    return e, failed + bad, ranks
+
+
 def phase_grid_train(torch, result, device="cuda", over=None):
     """Phase 17: training the dense family across ranks. (a) yi-9b at full
     width on GRID_LAYERS layers, f32 weights and activations, posit8 moments,
     lr 1e-5, 8 x 128 tokens, block remat: GRID_STEPS steps at tp = 1 in this
     process (its state freed after), then the same from the same seed on the
     (data 2, model 2) grid, four rank processes (over gloo on one card, NCCL
-    with a card each), held to tp = 1's by ``grid_gate``; then
-    (pod 2, model 2) with posit8_ef: finite losses and the first step's
-    compressed mean equal to the port's on the CPU (``grid_pod_check``).
+    with a card each), held to tp = 1's by ``grid_gate``, and again with
+    sequence parallelism (``grid_sp_run``); then (pod 2, model 2) with
+    posit8_ef: finite losses and the first step's compressed mean equal to
+    the port's on the CPU (``grid_pod_check``).
     (b) with four cards: full-depth yi-9b on (data 2, model 2) over NCCL
     with the train CLI's workload (bf16, posit8 moments, 5 steps). Every
     part runs before a failed check fails the phase."""
@@ -2474,10 +2600,18 @@ def phase_grid_train(torch, result, device="cuda", over=None):
             cmp, failed = grid_gate(torch, "(data 2, model 2)", one, ranks, lay, device)
         finally:
             shutil.rmtree(state_dir, ignore_errors=True)
+        a.update(cmp)
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        # the same with sequence parallelism
+        c, bad, _ = grid_sp_run(torch, pool, spec, one, ranks[0], cfg, "(data 2, model 2)",
+                                n_params, device)
+        c["backend"] = pool.backend
+        entry["data2_model2_sp"] = c
+        failed += bad
+        del ranks, one
         if device == "cuda":
             torch.cuda.empty_cache()            # the ranks' pod run needs the card
-        a.update(cmp)
-        del ranks, one
         pod_spec = dict(spec, run=dict(GRID_RUN, grad_compression="posit8_ef"), state=False,
                         check_pod=True)
         ranks = pool.run(grid_train_rank, pod_spec, grid=(2, 1, 2))
@@ -2520,6 +2654,9 @@ def phase_grid_train(torch, result, device="cuda", over=None):
 GRID_FAMILIES = (("moonshot-v1-16b-a3b", 1, 0), ("falcon-mamba-7b", 1, 0),
                  ("zamba2-1.2b", 1, 0), ("whisper-medium", 1, 1))
 GRID_FAMILY_STEPS = 2
+# the families run again with sequence parallelism: those the reference's
+# production knobs turn it on for (src/repro/launch/dryrun.py:46-56)
+GRID_SP_FAMILIES = ("moonshot-v1-16b-a3b", "whisper-medium")
 
 
 def phase_grid_families(torch, result, device="cuda", over=None):
@@ -2530,9 +2667,11 @@ def phase_grid_families(torch, result, device="cuda", over=None):
     GRID_FAMILY_STEPS steps at tp = 1 in this process (its state freed
     after), then the same from the same seed on the (data 2, model 2) grid,
     four rank processes (one pool for the four; gloo when they share the
-    card, NCCL with a card each), held to tp = 1's by ``grid_gate``. The MoE
-    model's first step must drop assignments at capacity (the count on the
-    grid, summed over the data ranks, printed beside tp = 1's). whisper
+    card, NCCL with a card each), held to tp = 1's by ``grid_gate``;
+    GRID_SP_FAMILIES again with sequence parallelism (``grid_sp_run``). The
+    MoE model's first step must drop assignments at capacity (the count on
+    the grid, summed over the data ranks, printed beside tp = 1's; with
+    sequence parallelism the same count). whisper
     adds a checkpoint round trip on the grid (every rank saves, rank 0
     writes; every rank restores its shard, which must equal its state bit
     for bit). Step ms (the first step: the second's collectives run with
@@ -2606,6 +2745,21 @@ def phase_grid_families(torch, result, device="cuda", over=None):
                 if not ok:
                     failed.append(f"{arch}: a rank's restored shards differ from its state")
             entry[arch] = e
+            if arch in GRID_SP_FAMILIES:
+                if device == "cuda":
+                    torch.cuda.empty_cache()
+                sp, bad, sp_ranks = grid_sp_run(torch, pool, spec, one, ranks[0], cfg, label,
+                                                cfg.active_param_count(), device)
+                failed += bad
+                if cfg.family == "moe":
+                    sp["dropped"] = sum(r["dropped"] for r in sp_ranks[::2])
+                    log(f"  {arch} sequence parallel: the first step drops {sp['dropped']} "
+                        f"assignments at capacity, {one['dropped']} at tp=1")
+                    if sp["dropped"] != one["dropped"]:
+                        failed.append(f"{arch} sequence parallel: dropped {sp['dropped']} "
+                                      f"assignments, tp=1 {one['dropped']}")
+                e["sequence_parallel"] = sp
+                del sp_ranks
             del ranks, one
             if device == "cuda":
                 torch.cuda.empty_cache()

@@ -30,6 +30,9 @@ device mesh; here each rank is a process of its own, joined through
   in a world of that many ranks. ``RankPool(..., grids=[(pod, data,
   model), ...])`` builds each grid over its first ranks, and ``run(fn,
   grid=...)`` calls ``fn(grid_context, device, ...)`` in them.
+
+Each of them runs on the card (``device="cuda"``) unless the caller asks
+for the CPU.
 """
 from __future__ import annotations
 
@@ -71,7 +74,7 @@ def rank_device(rank: int, device: str) -> str:
 
 
 def make_tp_mesh(tp: int, *, rank: int = 0, init_method: Optional[str] = None,
-                 device: str = "cpu", timeout_s: float = GROUP_TIMEOUT_S) -> TPContext:
+                 device: str = "cuda", timeout_s: float = GROUP_TIMEOUT_S) -> TPContext:
     """Join this process to the ``tp``-rank group as ``rank`` and return its
     TPContext (tp = 1: the plain context, no group). ``init_method`` is the
     rendezvous address (``tcp://127.0.0.1:<port>``)."""
@@ -148,7 +151,7 @@ def grid_groups(shape, names, rank: int, backend: str, timeout_s: float = GROUP_
 
 
 def make_host_mesh(data: int = 1, model: int = 1, pod: int = 1, *, rank: int = 0,
-                   init_method: Optional[str] = None, device: str = "cpu",
+                   init_method: Optional[str] = None, device: str = "cuda",
                    timeout_s: float = GROUP_TIMEOUT_S) -> GridContext:
     """Join this process to a training grid of ``pod * data * model`` ranks
     as ``rank`` and return its GridContext (one rank: the layout, no group).
@@ -269,7 +272,7 @@ class RankPool:
     ``fn`` and its arguments must pickle (a module-level function). Use as
     a context manager, or call ``close``."""
 
-    def __init__(self, tp: int, device: str = "cpu", *, threads: int = 0,
+    def __init__(self, tp: int, device: str = "cuda", *, threads: int = 0,
                  sizes: Sequence[int] = (), grids: Sequence[Tuple[int, int, int]] = (),
                  timeout_s: float = GROUP_TIMEOUT_S):
         import multiprocessing as mp

@@ -17,7 +17,11 @@ Port of the dense, single-device paths of ``repro/nn/attention.py``:
 * decode — the new token's K/V are quantized on write into the
   heads-major (B, G, S, Dh) layer cache IN PLACE (the reference's vmapped
   ``dynamic_update_slice``), then attended through ``kv_flash_decode`` or
-  the dequantize-on-read fallback.
+  the dequantize-on-read fallback. A cache that is not quantized (a bf16
+  cache, the paged fallback's gathered pages, the static cross cache)
+  attends with q and p rounded to its dtype when
+  ``rcfg.serve_bf16_compute`` is set (``decode_attention``'s
+  ``bf16_compute``, where the reference passes it).
 * paged cache — the layer cache is a page POOL ((n_pages, G, ps, Dh) codes,
   global (G, 1, Dh) scales) read and written through per-slot block
   tables. Decode writes the new token through the table in place and
@@ -45,7 +49,11 @@ divide the kv heads: the rank then computes the kv heads its own query
 heads read (``_rank_kv``). Where it does not divide the query heads
 either, the attention runs whole on every rank, with no collective, and
 ``_out_proj`` cuts the rank's rows of the output (``take_block``) before a
-wo whose rows the model axis divides.
+wo whose rows the model axis divides. Under sequence parallelism (``sp``)
+x comes in as the rank's block along seq and is gathered whole
+(``nn.sharding.seq_in``: ``gather_seq`` in ``copy_in``'s place), and the
+output leaves as the rank's block (``seq_out``: ``scatter_seq`` in
+``reduce_out``'s place), so rotary and the causal mask see every position.
 """
 from __future__ import annotations
 
@@ -57,7 +65,7 @@ from repro_torch.core.quantizers import kv_dequantize, kv_quantize
 from repro_torch.kernels.ops import KernelSet
 from repro_torch.kernels.ref import gather_pages
 from .layers import apply_rotary, matmul_param, rmsnorm, rotary_cos_sin
-from .sharding import placed, take_block
+from .sharding import placed, seq_in, seq_out, take_block
 
 NEG_INF = -1e30
 
@@ -221,21 +229,30 @@ def flash_attention(q, k, v, *, causal: bool, q_chunk: int, kv_chunk: int,
     return _flash_fwd(causal, qc, kvc, bias_offset, q, k, v)
 
 
-def decode_attention(q, k_cache, v_cache, pos) -> torch.Tensor:
+def decode_attention(q, k_cache, v_cache, pos, bf16_compute: bool = False) -> torch.Tensor:
     """One-token attention against a heads-major (B, G, S, Dh) cache.
 
     q: (B, 1, G, R, Dh); ``pos`` is a scalar or (B,) valid-prefix length;
-    entries at or beyond a slot's pos are masked.
+    entries at or beyond a slot's pos are masked. ``bf16_compute`` (the
+    reference's ``serve_bf16_compute``) rounds q and the probabilities to
+    the cache's dtype before their products, which are summed in f32: each
+    product of two bf16 values is exact in f32, so the f32 einsum on the
+    rounded values is the reference's bf16 dot with
+    ``preferred_element_type=f32``. Off, q and p stay f32.
     """
     S = k_cache.shape[2]
     scale = q.shape[-1] ** -0.5
-    s = torch.einsum("bqgrd,bgsd->bgrqs", q.to(torch.float32),
-                     k_cache.to(torch.float32)) * scale
+    f32 = torch.float32
+
+    def rounded(t):
+        return t.to(k_cache.dtype).to(f32) if bf16_compute else t.to(f32)
+
+    s = torch.einsum("bqgrd,bgsd->bgrqs", rounded(q), k_cache.to(f32)) * scale
     valid = torch.arange(S, device=q.device)[None, :] < \
         torch.as_tensor(pos, device=q.device).reshape(-1, 1)
     s = torch.where(valid[:, None, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bgrqs,bgsd->bqgrd", p, v_cache.to(torch.float32))
+    o = torch.einsum("bgrqs,bgsd->bqgrd", rounded(p), v_cache.to(f32))
     return o.to(q.dtype)
 
 
@@ -304,7 +321,8 @@ def _cross_attn(p: dict, q: torch.Tensor, cfg, rcfg, *, xa, cache,
     if xa is None:
         if q.shape[1] != 1:
             raise ValueError(f"the static cross cache serves one token, got {q.shape[1]}")
-        y = decode_attention(q, cache["k_static"], cache["v_static"], cache["len"])
+        y = decode_attention(q, cache["k_static"], cache["v_static"], cache["len"],
+                             bf16_compute=rcfg.serve_bf16_compute)
         return y, None
     B, Se = xa.shape[:2]
     G, Dh = q.shape[2], q.shape[4]
@@ -327,7 +345,7 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
                  kv_scales: Optional[dict] = None,
                  pages: Optional[torch.Tensor] = None,
                  page_size: Optional[int] = None,
-                 paged_prefill: Optional[dict] = None, tp=None):
+                 paged_prefill: Optional[dict] = None, tp=None, sp=None, xsp=None):
     """Full attention layer. Returns (y, new_kv).
 
     Decode (``cache`` given, one token): ``cache`` is the layer's
@@ -348,16 +366,18 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
     holding "k_static", "v_static" and "len" (``_cross_attn``).
 
     ``tp`` (an ``nn.sharding.TPContext``, the model axis) all-reduces the
-    output projection of a rank's heads.
+    output projection of a rank's heads. Under sequence parallelism (a
+    training grid's ``sp``; ``xsp`` for the encoder states ``xa``) x is the
+    rank's block along seq: the layer attends over the whole sequence
+    (``seq_in``) and returns the rank's block (``_out_proj``).
     """
-    B, Sq, _ = x.shape
     Dh = cfg.d_head
     # the model axis where it cuts the query heads (None where they are whole)
     tp_h = placed(tp, p["wq"].shape[-2], cfg.n_heads)
-    if tp_h is not None:
-        x = tp_h.copy_in(x)
-        if xa is not None:
-            xa = tp_h.copy_in(xa)
+    x = seq_in(x, sp, tp_h)
+    if xa is not None:
+        xa = seq_in(xa, xsp, tp_h)
+    B, Sq, _ = x.shape
     wk, wv, G, R = _rank_kv(p, cfg, tp_h)
     H = G * R
     q = matmul_param(x, p["wq"], kernels=kernels).reshape(B, Sq, G, R, Dh)
@@ -368,7 +388,7 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
     if xa is not None or (cache is not None and "k_static" in cache):
         y, new_kv = _cross_attn(p, q, cfg, rcfg, xa=xa, cache=cache, kernels=kernels,
                                 wk=wk, wv=wv, norm_w=norm_w)
-        return _out_proj(p, y, x, cfg, kernels, tp), new_kv
+        return _out_proj(p, y, x, cfg, kernels, tp, sp), new_kv
     cos, sin = rotary_cos_sin(positions, Dh, cfg.rope_theta)
     q = apply_rotary(q.reshape(B, Sq, H, Dh), cos, sin).reshape(B, Sq, G, R, Dh)
     k = matmul_param(x, wk, kernels=kernels).reshape(B, Sq, G, Dh)
@@ -388,7 +408,8 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
             y = o[:, None].to(q.dtype)
         else:
             kf, vf = _paged_gather(cache, pages, kv_spec)
-            y = decode_attention(q, kf, vf, pos_b + 1)
+            y = decode_attention(q, kf, vf, pos_b + 1,
+                                 bf16_compute=not quant and rcfg.serve_bf16_compute)
     elif cache is not None and Sq == 1:
         quant = kv_spec is not None and "k_scale" in cache
         k_upd = k[:, 0]                                   # (B, G, Dh)
@@ -414,7 +435,8 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
             vf = kv_dequantize(cache["v"], kv_spec, cache["v_scale"])
             y = decode_attention(q, kf, vf, pos_b + 1)
         else:
-            y = decode_attention(q, cache["k"], cache["v"], pos_b + 1)
+            y = decode_attention(q, cache["k"], cache["v"], pos_b + 1,
+                                 bf16_compute=rcfg.serve_bf16_compute)
     elif paged_prefill is not None:
         if B != 1:
             raise ValueError(f"paged prefill is batch-1 (admission), got B={B}")
@@ -461,7 +483,7 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
             new_kv = {"k": k, "v": v}
         y = flash_attention(q, k, v, causal=causal, q_chunk=rcfg.attn_q_chunk,
                             kv_chunk=rcfg.attn_kv_chunk)
-    return _out_proj(p, y, x, cfg, kernels, tp), new_kv
+    return _out_proj(p, y, x, cfg, kernels, tp, sp), new_kv
 
 
 def _rank_kv(p: dict, cfg, tp):
@@ -483,15 +505,15 @@ def _rank_kv(p: dict, cfg, tp):
 
 
 def _out_proj(p: dict, y: torch.Tensor, x: torch.Tensor, cfg,
-              kernels: Optional[KernelSet], tp=None) -> torch.Tensor:
-    """Heads (B, Sq, G, R, Dh) -> (B, Sq, H * Dh) in x's dtype, through wo.
+              kernels: Optional[KernelSet], tp=None, sp=None) -> torch.Tensor:
+    """Heads (B, Sq, G, R, Dh) -> (B, Sq, d) in x's dtype, through wo.
     Where the model axis ``tp`` cuts wo's rows, the partial products are
-    summed over the ranks here (``reduce_out``), the attention block's one
-    all-reduce; heads that every rank computed whole are cut to the rank's
-    rows first (``take_block``)."""
+    summed over the ranks here (``reduce_out``, under sequence parallelism
+    ``scatter_seq``: ``seq_out``), the attention block's one collective;
+    heads that every rank computed whole are cut to the rank's rows first
+    (``take_block``)."""
     y = y.reshape(*x.shape[:2], -1).to(x.dtype)
     tp_o = placed(tp, p["wo"].shape[0], cfg.n_heads * cfg.d_head)
     if tp_o is not None and y.shape[-1] > p["wo"].shape[0]:
         y = take_block(y, tp_o, -1)
-    out = matmul_param(y, p["wo"], kernels=kernels)
-    return out if tp_o is None else tp_o.reduce_out(out)
+    return seq_out(matmul_param(y, p["wo"], kernels=kernels), sp, tp_o)

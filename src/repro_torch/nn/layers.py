@@ -14,6 +14,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.quantizers import QuantizedTensor, dequantize
 from repro_torch.kernels.ops import KernelSet, out_channel_scale, quant_matmul
+from .sharding import seq_in, seq_out
 
 Param = Union[torch.Tensor, QuantizedTensor]
 
@@ -87,7 +88,7 @@ def is_gated(act: str) -> bool:
 
 
 def mlp_forward(p: dict, x: torch.Tensor, act: str,
-                kernels: Optional[KernelSet] = None, tp=None) -> torch.Tensor:
+                kernels: Optional[KernelSet] = None, tp=None, sp=None) -> torch.Tensor:
     """Gated (silu/gelu: wg, wu, wo) or plain (relu2/gelu_plain: wi, wo) MLP.
     Under tensor parallelism (``tp``, an ``nn.sharding.TPContext``: the
     caller passes it where the model axis cuts the hidden dim, None where
@@ -95,17 +96,17 @@ def mlp_forward(p: dict, x: torch.Tensor, act: str,
     and the down-projection row-sharded over the rank's d_ff: its partial
     products are all-reduced, the block's one MLP collective
     (``reduce_out``; in training x comes in through ``copy_in``, whose
-    backward sums the ranks' partial gradients)."""
+    backward sums the ranks' partial gradients). Under sequence parallelism
+    (``sp``) x is the rank's block along seq: the MLP reads it through
+    ``seq_in`` and returns through ``seq_out``."""
     fn = activation(act)
-    if tp is not None:
-        x = tp.copy_in(x)
+    x = seq_in(x, sp, tp)
     if is_gated(act):
         h = fn(matmul_param(x, p["wg"], kernels=kernels)) \
             * matmul_param(x, p["wu"], kernels=kernels)
     else:
         h = fn(matmul_param(x, p["wi"], kernels=kernels))
-    out = matmul_param(h, p["wo"], kernels=kernels)
-    return out if tp is None else tp.reduce_out(out)
+    return seq_out(matmul_param(h, p["wo"], kernels=kernels), sp, tp)
 
 
 def mlp_logical(act: str) -> dict:

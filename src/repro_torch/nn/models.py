@@ -78,8 +78,18 @@ are gathered over model (``gather_replicated``), so the loss is the tp = 1
 loss on the rank's rows. Under ``grad_compression="posit8*"`` the
 embedding's vocab dim replicates, as the reference's ``LM.logical`` has
 it. An MoE layer routes the rank's rows as part of the batch that
-``batch_axes`` names (``moe.moe_forward``). ``sequence_parallel`` with a
-model axis raises NotImplementedError (ROADMAP A8c).
+``batch_axes`` names (``moe.moe_forward``). Under ``sequence_parallel``
+the rules shard "seq" over model (``train_rules``), and where the model
+axis divides the sequence (``seq_ctx``; an odd length or S = 1
+replicates, as the reference's lenient spec has it, and the step is the
+step without it) the residual stream between blocks is the rank's block
+along seq (Megatron-SP): the embedding's sum is a reduce-scatter
+(``scatter_seq``), each sublayer gathers the whole sequence and hands back
+the rank's block, the norms on the residual (the blocks', ``ln_f``,
+``enc_ln``) read their weights through ``copy_in``, and the unembedding
+reads the whole sequence (``gather_seq``). The encoder's frames are cut
+the same way along their own length, and each decoder layer's
+cross-attention gathers them. Serving never takes it.
 """
 from __future__ import annotations
 
@@ -100,7 +110,8 @@ from .attention import attn_logical, attn_shapes
 from .layers import matmul_param, mlp_logical, mlp_shapes, param_value, rmsnorm
 from .moe import moe_logical, moe_shapes
 from .sharding import (GridContext, TPContext, check_tp_shapes, fsdp_gather,
-                       gather_replicated, map_with_logical, shard_leaf)
+                       gather_replicated, map_with_logical, scatter_seq, seq_in,
+                       shard_leaf, take_block, train_rules)
 from .ssm import mamba_shapes
 
 __all__ = ["LM", "build_model", "apply_policy", "quantize_params", "ce_loss",
@@ -211,12 +222,11 @@ class LM:
         self.kv_spec = validate_kv_spec(self.kv_spec)
         if self.grid is not None:
             self.tp = self.grid.model
-            if self.rcfg.sequence_parallel and self.grid.sizes.get("model", 1) > 1:
-                raise NotImplementedError(
-                    "sequence_parallel on a grid with a model axis (the reference's "
-                    "\"seq\" rule over model) is not ported: ROADMAP A8c")
-            self._specs = map_with_logical(lambda name, shape, ax: self.grid.spec(ax, shape),
-                                           self.param_shapes(), self.logical())
+            self._rules = train_rules(self.grid.axis_names,
+                                      sequence_parallel=self.rcfg.sequence_parallel)
+            self._specs = map_with_logical(
+                lambda name, shape, ax: self.grid.spec(ax, shape, self._rules),
+                self.param_shapes(), self.logical())
         elif self.tp.size > 1:
             if self.cfg.family == "encdec":
                 raise ValueError("--tp needs the engine path (not --legacy / encdec)")
@@ -238,6 +248,16 @@ class LM:
         """Every parameter's spec on the grid (``GridContext.spec`` of its
         logical axes and tp = 1 shape), in ``logical()``'s structure."""
         return self._specs
+
+    def seq_ctx(self, seq_len: int) -> Optional[TPContext]:
+        """The model axis where sequence parallelism cuts a residual of
+        ``seq_len`` positions along seq (the "seq" rule's lenient spec), None
+        where it does not (off a grid, ``sequence_parallel`` off, a model
+        axis of one rank, or a length the model axis does not divide)."""
+        if (self.grid is None or self.tp.size == 1
+                or self.grid.spec(("seq",), (seq_len,), self._rules)[0] is None):
+            return None
+        return self.tp
 
     @property
     def n_kv_heads_local(self) -> int:
@@ -673,10 +693,11 @@ class LM:
 
     # -- serving --------------------------------------------------------------
 
-    def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
-        x = rmsnorm(x, params["ln_f"], self.cfg.norm_eps)
+    def _logits(self, params, x: torch.Tensor, sp=None) -> torch.Tensor:
+        ln_f = params["ln_f"] if sp is None else sp.copy_in(params["ln_f"])
+        x = rmsnorm(x, ln_f, self.cfg.norm_eps)
         if self.grid is not None:
-            return self._grid_logits(params, x)
+            return self._grid_logits(params, x, sp)
         if self.cfg.tie_embeddings:
             # the reference's tied branch: the plain datapath, no kernels
             return matmul_param(x, param_value(params["embed"], x.dtype).transpose(0, 1))
@@ -695,29 +716,35 @@ class LM:
         dims = [d for d, a in enumerate(specs) if a == "data"]
         return fsdp_gather(tree, data, dims[0]) if dims else tree
 
-    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, params, tokens: torch.Tensor, sp=None) -> torch.Tensor:
         """The embedding lookup; on a grid with the vocab over model, each
         rank looks up the tokens of its block of rows (the rest zero) and
-        the rows are summed over model."""
+        the rows are summed over model (under sequence parallelism ``sp``,
+        reduce-scattered along seq: the rank keeps its block of positions;
+        a table that every rank holds whole gives that block of the
+        lookup)."""
         emb = params["embed"]
         if self.grid is None:
             return T.embed_tokens(emb, tokens, self.act_dtype)
         spec = self._specs["embed"]
         emb = self._gather(emb, spec)
         if spec[0] is None:
-            return T.embed_tokens(emb, tokens, self.act_dtype)
+            x = T.embed_tokens(emb, tokens, self.act_dtype)
+            return x if sp is None else take_block(x, sp, 1)
         n = emb.shape[0]
         local = tokens - self.tp.rank * n
         inside = (local >= 0) & (local < n)
         rows = emb[local.clamp(0, n - 1)].to(self.act_dtype)
         rows = torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                                  device=rows.device))
-        return self.tp.reduce_out(rows)
+        return self.tp.reduce_out(rows) if sp is None else scatter_seq(rows, sp)
 
-    def _grid_logits(self, params, x: torch.Tensor) -> torch.Tensor:
+    def _grid_logits(self, params, x: torch.Tensor, sp=None) -> torch.Tensor:
         """Logits on a grid: the rank's vocab block through its (data-
         gathered) unembed or embed shard, gathered over model; the whole
-        vocab where it replicates."""
+        vocab where it replicates. Under sequence parallelism (``sp``) x is
+        the rank's block along seq, and the product reads the whole
+        sequence (``seq_in``)."""
         if self.cfg.tie_embeddings:
             spec = self._specs["embed"]
             w = param_value(self._gather(params["embed"], spec), x.dtype).transpose(0, 1)
@@ -727,8 +754,8 @@ class LM:
             w = self._gather(params["unembed"], spec)
             sharded = spec[1] is not None
         if not sharded:
-            return matmul_param(x, w)
-        logits = matmul_param(self.tp.copy_in(x), w)
+            return matmul_param(seq_in(x, sp, None), w)
+        logits = matmul_param(seq_in(x, sp, self.tp), w)
         return gather_replicated(logits, self.tp, logits.ndim - 1)
 
     def _remat(self):
@@ -749,7 +776,10 @@ class LM:
         each application and each mamba2 layer (the shared block's gradient
         sums over its applications). encdec needs ``frames`` (B, Se,
         d_model): without them it stops where the reference's forward
-        asserts, with its words."""
+        asserts, with its words. Under sequence parallelism (``seq_ctx``)
+        the residual between the blocks is the rank's block along seq; the
+        positions stay whole, as every sublayer attends over the whole
+        sequence."""
         cfg, rcfg = self.cfg, self.rcfg
         fam = cfg.family
         if fam == "encdec" and frames is None:
@@ -757,9 +787,10 @@ class LM:
         tokens = tokens.to(self.device).long()
         B, Sq = tokens.shape
         positions = torch.arange(Sq, device=self.device)[None, :].expand(B, Sq)
-        x = self._embed(params, tokens)
+        sp = self.seq_ctx(Sq)
+        x = self._embed(params, tokens, sp)
         run = self._remat()
-        kw = dict(positions=positions, kernels=self.kernels, tp=self.tp)
+        kw = dict(positions=positions, kernels=self.kernels, tp=self.tp, sp=sp)
         blocks = params["blocks"]
         # each layer's specs (FSDP's gathers) and, for an MoE layer, the
         # ranks that route the batch with this one
@@ -767,17 +798,17 @@ class LM:
         block_specs = specs.get("blocks", [None] * len(blocks))
         batch = self.grid.axis(*self.batch_axes) if self.grid is not None else None
 
-        def attn_block(lp, sp, h):
-            return T.block_forward(self._gather(lp, sp), h, cfg, rcfg, batch=batch, **kw)[0]
+        def attn_block(lp, ls, h):
+            return T.block_forward(self._gather(lp, ls), h, cfg, rcfg, batch=batch, **kw)[0]
 
-        def mamba_block(lp, sp, h):
-            return T.mamba_block_forward(self._gather(lp, sp), h, cfg, kernels=self.kernels,
+        def mamba_block(lp, ls, h):
+            return T.mamba_block_forward(self._gather(lp, ls), h, cfg, kernels=self.kernels,
                                          variant="mamba1" if fam == "ssm" else "mamba2",
-                                         tp=self.tp)[0]
+                                         tp=self.tp, sp=sp)[0]
 
-        def group(layers, sps, h):
-            for lp, sp in zip(layers, sps):
-                h = attn_block(lp, sp, h)
+        def group(layers, lss, h):
+            for lp, ls in zip(layers, lss):
+                h = attn_block(lp, ls, h)
             return h
 
         if fam in ("dense", "moe"):
@@ -785,25 +816,26 @@ class LM:
             for g in range(0, len(blocks), k):
                 x = run(group, blocks[g:g + k], block_specs[g:g + k], x)
         elif fam == "ssm":
-            for lp, sp in zip(blocks, block_specs):
-                x = run(mamba_block, lp, sp, x)
+            for lp, ls in zip(blocks, block_specs):
+                x = run(mamba_block, lp, ls, x)
         elif fam == "hybrid":
             first = 0
             for size in self._hybrid_chunks():
                 x = run(attn_block, params["shared"], specs.get("shared"), x)
-                for lp, sp in zip(blocks[first:first + size], block_specs[first:first + size]):
-                    x = run(mamba_block, lp, sp, x)
+                for lp, ls in zip(blocks[first:first + size], block_specs[first:first + size]):
+                    x = run(mamba_block, lp, ls, x)
                 first += size
         else:                                   # encdec
-            xa = self._encode(params, frames)
+            xsp = self.seq_ctx(frames.shape[1])
+            xa = self._encode(params, frames, xsp)
 
-            def xblock(lp, sp, h, xa):
-                return T.decoder_xblock_forward(self._gather(lp, sp), h, cfg, rcfg, xa=xa,
-                                                **kw)[0]
+            def xblock(lp, ls, h, xa):
+                return T.decoder_xblock_forward(self._gather(lp, ls), h, cfg, rcfg, xa=xa,
+                                                xsp=xsp, **kw)[0]
 
-            for lp, sp in zip(blocks, block_specs):
-                x = run(xblock, lp, sp, x, xa)
-        return self._logits(params, x)
+            for lp, ls in zip(blocks, block_specs):
+                x = run(xblock, lp, ls, x, xa)
+        return self._logits(params, x, sp)
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(mean cross-entropy of ``batch["tokens"]``'s logits against
@@ -814,26 +846,32 @@ class LM:
         nll = ce_loss(logits, batch["labels"].to(self.device))
         return nll, {"loss": nll}
 
-    def _encode(self, params, frames: torch.Tensor) -> torch.Tensor:
+    def _encode(self, params, frames: torch.Tensor, xsp=None) -> torch.Tensor:
         """encdec: the encoder over (B, Se, d_model) frames, in the
         activation dtype; rotary over the frame positions, no causal mask,
-        then ``enc_ln``. Each layer is remat'd as the decoder's are."""
+        then ``enc_ln``. Each layer is remat'd as the decoder's are. Under
+        sequence parallelism (``xsp``, the model axis where it cuts Se) the
+        frames enter as the rank's block along Se, and the states leave
+        so."""
         cfg, rcfg = self.cfg, self.rcfg
         xa = frames.to(self.device).to(self.act_dtype)
         B, Se, _ = xa.shape
         positions = torch.arange(Se, device=self.device)[None, :].expand(B, Se)
+        if xsp is not None:
+            xa = take_block(xa, xsp, 1)
         run = self._remat()
         enc = params["enc_blocks"]
         specs = self._specs["enc_blocks"] if self.grid is not None else [None] * len(enc)
 
-        def layer(lp, sp, h):
-            return T.dense_block_forward(self._gather(lp, sp), h, cfg, rcfg,
+        def layer(lp, ls, h):
+            return T.dense_block_forward(self._gather(lp, ls), h, cfg, rcfg,
                                          positions=positions, causal=False,
-                                         kernels=self.kernels, tp=self.tp)[0]
+                                         kernels=self.kernels, tp=self.tp, sp=xsp)[0]
 
-        for lp, sp in zip(enc, specs):
-            xa = run(layer, lp, sp, xa)
-        return rmsnorm(xa, params["enc_ln"], cfg.norm_eps)
+        for lp, ls in zip(enc, specs):
+            xa = run(layer, lp, ls, xa)
+        enc_ln = params["enc_ln"] if xsp is None else xsp.copy_in(params["enc_ln"])
+        return rmsnorm(xa, enc_ln, cfg.norm_eps)
 
     def _write_cross(self, lp, xa: torch.Tensor, lc) -> None:
         """encdec: the layer's static cross cache from the encoder states.

@@ -46,7 +46,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.ops import KernelSet
 from .layers import (activation, is_gated, mlp_forward, mlp_logical, mlp_shapes,
                      param_value)
-from .sharding import placed
+from .sharding import placed, seq_in, seq_out
 
 __all__ = ["moe_shapes", "moe_logical", "moe_capacity", "moe_forward",
            "router_aux_loss", "DROPPED"]
@@ -90,7 +90,8 @@ def moe_capacity(T: int, S: int, cfg) -> int:
 
 
 def moe_forward(p: dict, x: torch.Tensor, cfg,
-                kernels: Optional[KernelSet] = None, tp=None, batch=None) -> torch.Tensor:
+                kernels: Optional[KernelSet] = None, tp=None, batch=None,
+                sp=None) -> torch.Tensor:
     """x (B, S, d) -> (B, S, d).
 
     Under tensor parallelism (``tp``, where the model axis cuts the
@@ -104,16 +105,20 @@ def moe_forward(p: dict, x: torch.Tensor, cfg,
     in after that all-reduce (``mlp_forward`` reduces their own
     down-projection). ``batch`` (a TPContext, training on a grid): the
     ranks that each hold one block of the routed batch's rows, in row
-    order."""
-    B, S, d = x.shape
+    order. ``sp`` (sequence parallelism): x is the rank's block along seq;
+    the layer gathers the whole sequence first (``seq_in``), so it routes
+    exactly the tokens it routes without ``sp``, and returns the rank's
+    block (``seq_out``); the shared experts take their own pair."""
+    B, d = x.shape[0], x.shape[-1]
     E, k = cfg.n_experts, cfg.top_k
-    T = B * S
     dev = x.device
-    xt = x.reshape(T, d)
+    xt = x.reshape(-1, d)
     tp_e = placed(tp, p["wo"].shape[0], E)
-    xr, router = xt, p["router"]
-    if tp_e is not None:
-        xr, router = tp_e.copy_in(xt), tp_e.copy_in(router)
+    # the routed tokens: the rank's rows, under sp gathered whole along seq
+    xr = seq_in(xt, None, tp_e) if sp is None else seq_in(x, sp, tp_e).reshape(-1, d)
+    T = xr.shape[0]
+    S = T // B
+    router = p["router"] if tp_e is None else tp_e.copy_in(p["router"])
     # 1. route in f32 (a flipped choice changes a token's output entirely)
     logits = torch.matmul(xr.to(torch.float32), param_value(router, torch.float32))
     probs = torch.softmax(logits, dim=-1)
@@ -166,13 +171,15 @@ def moe_forward(p: dict, x: torch.Tensor, cfg,
     contrib = gathered * gates_sorted[:, None].to(x.dtype)
     unsorted = torch.empty_like(contrib)
     unsorted[order] = contrib
-    y = unsorted.reshape(T, k, d).sum(dim=1)
-    if tp_e is not None:
-        y = tp_e.reduce_out(y)       # the MoE block's one expert-combine collective
+    # the MoE block's one expert-combine collective
+    y = seq_out(unsorted.reshape(T, k, d).sum(dim=1).reshape(B, S, d), sp, tp_e)
     if cfg.n_shared_experts:
         tp_s = placed(tp, p["shared"]["wo"].shape[0], cfg.d_ff * cfg.n_shared_experts)
-        y = y + mlp_forward(p["shared"], xt, cfg.act, kernels=kernels, tp=tp_s)
-    return y.reshape(B, S, d)
+        # under sp the shared experts gather the sequence themselves
+        shared = mlp_forward(p["shared"], xt if sp is None else x, cfg.act,
+                             kernels=kernels, tp=tp_s, sp=sp)
+        y = y + shared.reshape(y.shape)
+    return y
 
 
 def router_aux_loss(p: dict, x: torch.Tensor, cfg) -> torch.Tensor:

@@ -31,15 +31,16 @@ cache-logical trees the port keeps only the rule that the head axis
 Training runs over a (pod, data, model) process grid (``GridContext``,
 made by ``launch.mesh.make_host_mesh``), one OS process a rank:
 
-* ``train_rules`` is ``make_ctx``'s table word for word (``sequence_
-  parallel`` is not ported): batch over (pod, data), ``p_embed`` over data
-  (FSDP); heads, kv_heads, mlp, experts, vocab and the mamba channel names
-  (d_inner, d_inner2, d_inner_r, heads_r) over model. ``GridContext.spec``
-  is the reference's lenient ``ShardingCtx.spec``: a dim that its mesh axes
-  do not divide replicates, and a mesh axis shards one dim of a leaf at
-  most. ``GridContext.shard`` cuts a rank's block along every named axis
-  (a dim over several axes indexes them row-major, as a mesh does), and
-  ``unshard`` puts every rank's blocks back together.
+* ``train_rules`` is ``make_ctx``'s table word for word: batch over (pod,
+  data), ``p_embed`` over data (FSDP); heads, kv_heads, mlp, experts, vocab
+  and the mamba channel names (d_inner, d_inner2, d_inner_r, heads_r) over
+  model; under ``sequence_parallel`` "seq" (the residual stream's sequence
+  dim) over model too. ``GridContext.spec`` is the reference's lenient
+  ``ShardingCtx.spec``: a dim that its mesh axes do not divide replicates,
+  and a mesh axis shards one dim of a leaf at most. ``GridContext.shard``
+  cuts a rank's block along every named axis (a dim over several axes
+  indexes them row-major, as a mesh does), and ``unshard`` puts every
+  rank's blocks back together.
 * Each leaf is placed on its own: the model code reads from a leaf's
   shape whether the model axis cuts it (``placed``), never from the family.
   A tensor between two steps of a block is either the rank's block or
@@ -57,6 +58,17 @@ made by ``launch.mesh.make_host_mesh``), one OS process a rank:
 * ``fsdp_gather``: an all-gather of a leaf's shards along its data-sharded
   dim, whose backward is the reduce-scatter (the sum of every data rank's
   gradient, cut to the rank's block).
+* Megatron's sequence parallelism (``sequence_parallel`` on a model axis
+  that divides the sequence): between blocks the residual stream is the
+  rank's block along seq (dim 1), and the norms on it run on that block
+  (their weights read through ``copy_in``: each rank's tokens give a
+  partial gradient). ``gather_seq`` (an all-gather along seq; backward, the
+  reduce-scatter) takes ``copy_in``'s place before a column-sharded
+  product, ``scatter_seq`` (a reduce-scatter along seq; backward, the
+  all-gather) ``reduce_out``'s after a row-sharded one. A product whose leaf
+  the model axis does not cut reads the whole sequence through
+  ``gather_replicated`` and hands its output back through ``take_block``,
+  both along seq, so its gradient stays whole on every rank.
 """
 from __future__ import annotations
 
@@ -72,8 +84,9 @@ from repro_torch.core.policy import layer_prefixes, validate_scale_sharding
 from repro_torch.core.quantizers import QuantizedTensor
 
 __all__ = ["TP_AXIS", "GRID_AXES", "TPContext", "GridContext", "train_rules",
-           "fsdp_gather", "gather_replicated", "take_block", "placed", "shard_leaf",
-           "shard_policy_params", "check_tp_shapes", "map_with_logical"]
+           "fsdp_gather", "gather_replicated", "take_block", "gather_seq", "scatter_seq",
+           "seq_in", "seq_out", "placed", "shard_leaf", "shard_policy_params",
+           "check_tp_shapes", "map_with_logical"]
 
 TP_AXIS = "tp"
 GRID_AXES = ("pod", "data", "model")
@@ -277,6 +290,63 @@ def take_block(x: torch.Tensor, tp: TPContext, dim: int) -> torch.Tensor:
     return _TakeBlock.apply(x, tp, dim)
 
 
+def gather_seq(x: torch.Tensor, tp: TPContext) -> torch.Tensor:
+    """Megatron-SP's all-gather: the whole sequence (dim 1) from the ranks'
+    blocks of the residual, for a column-sharded product. Its backward is
+    the reduce-scatter: the ranks' partial gradients of the whole sequence
+    summed, and the rank's block kept (``copy_in``'s sum, cut to the
+    block)."""
+    if tp.size == 1:
+        return x
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return tp.all_gather(x, 1)
+    return _Gather.apply(x, tp, 1, True)
+
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return tp.reduce_scatter(x, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.all_gather(g, 1), None
+
+
+def scatter_seq(x: torch.Tensor, tp: TPContext) -> torch.Tensor:
+    """Megatron-SP's reduce-scatter: the sum of the ranks' partial ``x``
+    (after a row-sharded product), of which the rank keeps its block along
+    seq (dim 1). Its backward is the all-gather of the blocks'
+    gradients."""
+    if tp.size == 1:
+        return x
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return tp.reduce_scatter(x, 1)
+    return _ScatterSeq.apply(x, tp)
+
+
+def seq_in(x: torch.Tensor, sp, tp) -> torch.Tensor:
+    """The input of a product under sequence parallelism (``sp``, the model
+    axis where it cuts the residual along seq): the whole sequence, through
+    ``gather_seq`` where ``tp`` cuts the product's leaf (its gradient is
+    partial, summed by the reduce-scatter), else ``gather_replicated``.
+    Without ``sp``, x through ``copy_in`` where ``tp`` cuts the leaf."""
+    if sp is not None:
+        return gather_seq(x, sp) if tp is not None else gather_replicated(x, sp, 1)
+    return x if tp is None else tp.copy_in(x)
+
+
+def seq_out(y: torch.Tensor, sp, tp) -> torch.Tensor:
+    """The output of a product, back to the residual's layout: summed over
+    the ranks where ``tp`` cut its contraction (``scatter_seq`` under
+    ``sp``, else ``reduce_out``), and under ``sp`` the rank's block along
+    seq of an output every rank holds whole (``take_block``)."""
+    if sp is not None:
+        return scatter_seq(y, sp) if tp is not None else take_block(y, sp, 1)
+    return y if tp is None else tp.reduce_out(y)
+
+
 def placed(tp: Optional[TPContext], local: int, full: int) -> Optional[TPContext]:
     """``tp`` where a leaf's dim of ``full`` entries holds ``local`` of them
     on this rank (the model axis cuts it: its products take Megatron's
@@ -288,10 +358,10 @@ def placed(tp: Optional[TPContext], local: int, full: int) -> Optional[TPContext
 # -- training over a (pod, data, model) grid ----------------------------------
 
 
-def train_rules(axis_names) -> dict:
+def train_rules(axis_names, sequence_parallel: bool = False) -> dict:
     """The training rules of the reference's ``make_ctx`` for a mesh with
-    ``axis_names``, at its defaults (``fsdp`` on, ``sequence_parallel``
-    off: ``LM`` refuses it on a grid with a model axis, ROADMAP A8c)."""
+    ``axis_names``, ``fsdp`` on: under ``sequence_parallel`` the residual
+    stream's "seq" dim shards over model (Megatron-SP)."""
     names = set(axis_names)
     batch = tuple(a for a in ("pod", "data") if a in names)
     data = ("data",) if "data" in names else ()
@@ -299,7 +369,7 @@ def train_rules(axis_names) -> dict:
     return {
         # activations
         "batch": batch,
-        "seq": (),
+        "seq": model if sequence_parallel else (),
         "seq_attn": (),
         "embed": (),
         "heads": model,
@@ -379,13 +449,14 @@ class GridContext:
     def rules(self) -> dict:
         return train_rules(self.axis_names)
 
-    def spec(self, logical, shape) -> Tuple:
+    def spec(self, logical, shape, rules=None) -> Tuple:
         """The reference's ``ShardingCtx.spec``: for each dim the mesh axis
-        (a name, a tuple of names, or None) it shards over. A dim that the
-        product of its axes does not divide replicates; an axis already used
-        by an earlier dim of the leaf is skipped."""
+        (a name, a tuple of names, or None) it shards over, by ``rules``
+        (``self.rules`` by default). A dim that the product of its axes does
+        not divide replicates; an axis already used by an earlier dim of the
+        leaf is skipped."""
         sizes = self.sizes
-        rules = self.rules
+        rules = self.rules if rules is None else rules
         used: set = set()
         out = []
         for name, dim in zip(tuple(logical) + (None,) * (len(shape) - len(logical)), shape):

@@ -34,7 +34,11 @@ over model. Mamba2 convolves the rank's block of x B C (gathered whole
 after), runs the rank's heads (A_log, dt_bias, D) on the shared B and C,
 takes the gated RMSNorm's mean square over every channel (its sum of
 squares summed over model) and sums out_proj's rows' partial products.
-A dim that the model axis does not divide is whole on every rank.
+A dim that the model axis does not divide is whole on every rank. Under
+sequence parallelism (``sp``) the mixer's input is the rank's block along
+seq: in_proj reads the whole sequence (``seq_in``), so the convolution and
+the scan run over all of it as without ``sp``, and out_proj hands back the
+rank's block (``seq_out``).
 """
 from __future__ import annotations
 
@@ -46,7 +50,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.ops import KernelSet
 from .layers import matmul_param, param_value, rmsnorm
-from .sharding import gather_replicated, placed, take_block
+from .sharding import gather_replicated, placed, seq_in, seq_out, take_block
 
 __all__ = ["mamba_init", "mamba_shapes", "mamba_init_cache", "mamba1_mix", "mamba1_forward",
            "mamba2_mix", "mamba2_forward", "mamba1_mix_ref", "mamba2_mix_ref",
@@ -266,36 +270,35 @@ def mamba1_mix(p: dict, xz: torch.Tensor, cfg, *, conv_state=None, ssm_state=Non
     return y.to(xz.dtype), new_conv, h
 
 
-def _in_proj(p: dict, x: torch.Tensor, width: int, kernels, tp) -> torch.Tensor:
+def _in_proj(p: dict, x: torch.Tensor, width: int, kernels, tp, sp) -> torch.Tensor:
     """x @ in_proj, whole on every rank: where the model axis ``tp`` cuts
-    in_proj's ``width`` columns, x goes in through ``copy_in`` and the
-    ranks' column blocks are gathered."""
+    in_proj's ``width`` columns, x goes in through ``copy_in`` (under
+    ``sp``, ``gather_seq``) and the ranks' column blocks are gathered."""
     tp = placed(tp, p["in_proj"].shape[-1], width)
-    if tp is None:
-        return matmul_param(x, p["in_proj"], kernels=kernels)
-    return gather_replicated(matmul_param(tp.copy_in(x), p["in_proj"], kernels=kernels),
-                             tp, -1)
+    y = matmul_param(seq_in(x, sp, tp), p["in_proj"], kernels=kernels)
+    return y if tp is None else gather_replicated(y, tp, -1)
 
 
-def _out_proj(p: dict, y: torch.Tensor, cfg, kernels, tp) -> torch.Tensor:
+def _out_proj(p: dict, y: torch.Tensor, cfg, kernels, tp, sp) -> torch.Tensor:
     """y @ out_proj, summed over model where the model axis cuts its rows
-    (y then holds the rank's channels)."""
+    (y then holds the rank's channels); under ``sp`` the rank's block
+    along seq (``seq_out``)."""
     out = matmul_param(y, p["out_proj"], kernels=kernels)
-    tp = placed(tp, p["out_proj"].shape[0], cfg.d_inner)
-    return out if tp is None else tp.reduce_out(out)
+    return seq_out(out, sp, placed(tp, p["out_proj"].shape[0], cfg.d_inner))
 
 
 def mamba1_forward(p: dict, x: torch.Tensor, cfg, *, cache: Optional[dict] = None,
-                   kernels: Optional[KernelSet] = None, tp=None):
+                   kernels: Optional[KernelSet] = None, tp=None, sp=None):
     """The whole mamba1 mixer. x (B, S, d); cache {"conv", "ssm"} or None;
-    ``tp``: the model axis of a training grid. Returns (out (B, S, d), new
+    ``tp``: the model axis of a training grid, ``sp`` that axis where
+    sequence parallelism cuts x along seq. Returns (out (B, S, d), new
     cache or None)."""
-    xz = _in_proj(p, x, 2 * cfg.d_inner, kernels, tp)
+    xz = _in_proj(p, x, 2 * cfg.d_inner, kernels, tp, sp)
     conv_s = cache["conv"] if cache else None
     ssm_s = cache["ssm"] if cache else None
     y, new_conv, new_ssm = mamba1_mix(p, xz, cfg, conv_state=conv_s, ssm_state=ssm_s,
                                       tp=tp)
-    out = _out_proj(p, y, cfg, kernels, tp)
+    out = _out_proj(p, y, cfg, kernels, tp, sp)
     return out, ({"conv": new_conv, "ssm": new_ssm} if cache is not None else None)
 
 
@@ -395,15 +398,15 @@ def mamba2_mix(p: dict, zxbcdt: torch.Tensor, cfg, *, conv_state=None,
 
 
 def mamba2_forward(p: dict, x: torch.Tensor, cfg, *, cache: Optional[dict] = None,
-                   kernels: Optional[KernelSet] = None, tp=None):
+                   kernels: Optional[KernelSet] = None, tp=None, sp=None):
     """The whole mamba2 mixer, as ``mamba1_forward``."""
     di, ds = cfg.d_inner, cfg.ssm_state
-    zxbcdt = _in_proj(p, x, 2 * di + 2 * ds + di // cfg.ssm_head_dim, kernels, tp)
+    zxbcdt = _in_proj(p, x, 2 * di + 2 * ds + di // cfg.ssm_head_dim, kernels, tp, sp)
     conv_s = cache["conv"] if cache else None
     ssm_s = cache["ssm"] if cache else None
     y, new_conv, new_ssm = mamba2_mix(p, zxbcdt, cfg, conv_state=conv_s, ssm_state=ssm_s,
                                       tp=tp)
-    out = _out_proj(p, y, cfg, kernels, tp)
+    out = _out_proj(p, y, cfg, kernels, tp, sp)
     return out, ({"conv": new_conv, "ssm": new_ssm} if cache is not None else None)
 
 

@@ -18,7 +18,11 @@ logical axes (``LM.logical``, read by ``nn.sharding``); ``tp`` (an
 MoE all-reduces, each taken where the model axis cuts that leaf
 (``nn.sharding.placed``). A mamba block serves replicated under tensor
 parallelism, as the reference's does (serving's rules name no mamba axis);
-on a training grid its channels are cut over model (``ssm``).
+on a training grid its channels are cut over model (``ssm``). ``sp`` (the
+model axis under sequence parallelism, training only) makes x the rank's
+block along seq: each norm on the residual runs on that block, its weight
+read through ``copy_in`` (the rank's tokens give a partial gradient), and
+each sublayer gathers the whole sequence and hands back the rank's block.
 """
 from __future__ import annotations
 
@@ -72,34 +76,42 @@ def mamba_block_logical(cfg) -> dict:
     return {"ln": ("p_unsharded",), "mix": mix}
 
 
-def _attn_residual(p, x, cfg, rcfg, **attn_kw):
-    h, new_kv = attn_forward(p["attn"], rmsnorm(x, p["ln1"], cfg.norm_eps), cfg,
-                             rcfg, **attn_kw)
+def _norm(x: torch.Tensor, w, cfg, sp) -> torch.Tensor:
+    """RMSNorm of the residual; under sequence parallelism (``sp``) x is the
+    rank's block along seq, so the weight's gradient is partial and is read
+    through ``copy_in``."""
+    return rmsnorm(x, w if sp is None else sp.copy_in(w), cfg.norm_eps)
+
+
+def _attn_residual(p, x, cfg, rcfg, sp=None, **attn_kw):
+    h, new_kv = attn_forward(p["attn"], _norm(x, p["ln1"], cfg, sp), cfg,
+                             rcfg, sp=sp, **attn_kw)
     return x + h, new_kv
 
 
 def dense_block_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
-                        kernels: Optional[KernelSet] = None, tp=None, **attn_kw):
+                        kernels: Optional[KernelSet] = None, tp=None, sp=None, **attn_kw):
     """``attn_kw`` goes to ``attn_forward`` (positions, the dense or paged
     cache, paged prefill, KV format and scales)."""
-    x, new_kv = _attn_residual(p, x, cfg, rcfg, kernels=kernels, tp=tp, **attn_kw)
-    return x + _mlp(p, x, cfg, kernels, tp), new_kv
+    x, new_kv = _attn_residual(p, x, cfg, rcfg, sp, kernels=kernels, tp=tp, **attn_kw)
+    return x + _mlp(p, x, cfg, kernels, tp, sp), new_kv
 
 
-def _mlp(p: dict, x: torch.Tensor, cfg, kernels, tp) -> torch.Tensor:
+def _mlp(p: dict, x: torch.Tensor, cfg, kernels, tp, sp) -> torch.Tensor:
     """The block's MLP on RMSNorm(x), with the model axis where it cuts d_ff."""
     tp = placed(tp, p["mlp"]["wo"].shape[0], cfg.d_ff)
-    return mlp_forward(p["mlp"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg.act,
-                       kernels=kernels, tp=tp)
+    return mlp_forward(p["mlp"], _norm(x, p["ln2"], cfg, sp), cfg.act,
+                       kernels=kernels, tp=tp, sp=sp)
 
 
 def moe_block_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
-                      kernels: Optional[KernelSet] = None, tp=None, batch=None, **attn_kw):
+                      kernels: Optional[KernelSet] = None, tp=None, batch=None, sp=None,
+                      **attn_kw):
     """Attention as in ``dense_block_forward``, then the MoE FFN (``batch``:
     ``moe_forward``'s)."""
-    x, new_kv = _attn_residual(p, x, cfg, rcfg, kernels=kernels, tp=tp, **attn_kw)
-    x = x + moe_forward(p["moe"], rmsnorm(x, p["ln2"], cfg.norm_eps), cfg,
-                        kernels=kernels, tp=tp, batch=batch)
+    x, new_kv = _attn_residual(p, x, cfg, rcfg, sp, kernels=kernels, tp=tp, **attn_kw)
+    x = x + moe_forward(p["moe"], _norm(x, p["ln2"], cfg, sp), cfg,
+                        kernels=kernels, tp=tp, batch=batch, sp=sp)
     return x, new_kv
 
 
@@ -113,37 +125,40 @@ def block_forward(p: dict, x: torch.Tensor, cfg, rcfg, batch=None, **kw):
 
 def decoder_xblock_forward(p: dict, x: torch.Tensor, cfg, rcfg, *, positions,
                            xa: Optional[torch.Tensor] = None, cache=None,
-                           cache_pos=None, kernels: Optional[KernelSet] = None, tp=None):
+                           cache_pos=None, kernels: Optional[KernelSet] = None, tp=None,
+                           sp=None, xsp=None):
     """Whisper decoder block: self-attention (with its cache), then
     cross-attention after ``ln_x``, then the MLP. Prefill passes the
     encoder states ``xa``; decode passes ``cache`` = the layer's {"k", "v"}
     and its static cross cache "xk", "xv" (B, G, Se, Dh) with its length
-    "xlen". ``tp``: the model axis of a training grid. Returns (x, the
-    self-attention's new_kv)."""
+    "xlen". ``tp``: the model axis of a training grid; ``sp`` and ``xsp``:
+    that axis where sequence parallelism cuts x and xa along seq. Returns
+    (x, the self-attention's new_kv)."""
     self_cache = None if cache is None else {"k": cache["k"], "v": cache["v"]}
-    x, new_kv = _attn_residual(p, x, cfg, rcfg, positions=positions,
+    x, new_kv = _attn_residual(p, x, cfg, rcfg, sp, positions=positions,
                                cache=self_cache, cache_pos=cache_pos,
                                kernels=kernels, tp=tp)
     xcache = None
     if cache is not None and "xk" in cache:
         xcache = {"k_static": cache["xk"], "v_static": cache["xv"],
                   "len": cache["xlen"]}
-    h, _ = attn_forward(p["xattn"], rmsnorm(x, p["ln_x"], cfg.norm_eps), cfg,
+    h, _ = attn_forward(p["xattn"], _norm(x, p["ln_x"], cfg, sp), cfg,
                         rcfg, positions=positions, xa=xa, cache=xcache,
-                        kernels=kernels, tp=tp)
+                        kernels=kernels, tp=tp, sp=sp, xsp=xsp)
     x = x + h
-    return x + _mlp(p, x, cfg, kernels, tp), new_kv
+    return x + _mlp(p, x, cfg, kernels, tp, sp), new_kv
 
 
 def mamba_block_forward(p: dict, x: torch.Tensor, cfg, *, cache=None,
                         kernels: Optional[KernelSet] = None, variant: str = "mamba1",
-                        tp=None):
+                        tp=None, sp=None):
     """x + mixer(RMSNorm(x)); ``cache`` {"conv", "ssm"} carries the layer's
-    recurrent state; ``tp``: the model axis of a training grid. Returns (x,
-    the new state or None)."""
+    recurrent state; ``tp``: the model axis of a training grid, ``sp`` that
+    axis where sequence parallelism cuts x along seq. Returns (x, the new
+    state or None)."""
     fwd = ssm.mamba1_forward if variant == "mamba1" else ssm.mamba2_forward
-    h, new_cache = fwd(p["mix"], rmsnorm(x, p["ln"], cfg.norm_eps), cfg,
-                       cache=cache, kernels=kernels, tp=tp)
+    h, new_cache = fwd(p["mix"], _norm(x, p["ln"], cfg, sp), cfg,
+                       cache=cache, kernels=kernels, tp=tp, sp=sp)
     return x + h, new_cache
 
 

@@ -60,13 +60,16 @@ def run_grid(pool, arch, grid, kw, ref, over=()):
     return res[0]["metrics"], state, res
 
 
-def three_steps(pool, arch, grid, quant, micro, over=(), frames=False, **bounds):
+def three_steps(pool, arch, grid, quant, micro, over=(), frames=False, run_kw=None,
+                **bounds):
     """The three steps on ``grid`` against the reference's tp = 1 step, held
     by ``assert_steps_match`` (``bounds``: its exemptions; ``wild`` only
     with posit8 moments, against the parameters before the first step).
-    Returns the ranks' results."""
+    ``run_kw``: more RunConfig fields of the port's run (``sequence_
+    parallel``). Returns the ranks' results."""
     ref = reference(arch, "none", quant, micro, over, frames)
-    tmet, got, res = run_grid(pool, arch, grid, step_kw(quant, micro), ref, over)
+    tmet, got, res = run_grid(pool, arch, grid, step_kw(quant, micro, **(run_kw or {})),
+                              ref, over)
     wild = bounds.pop("wild", None)
     assert_steps_match(quant, ref["jmet"], tmet, ref["m1"], ref["before"], ref["want"], got,
                        wild=wild if quant == "posit8" else None,
@@ -150,7 +153,8 @@ def reference(arch, comp, quant, micro, over=(), frames=False, steps=3, B=4, S=3
     """The reference's trajectory (the module docstring's composition;
     ``comp`` "none": the tp = 1 step) from its seed-0 ``make_train_state``,
     on ``torch_bridge.step_batches``. Returns the fields of
-    ``torch_bridge.reference_steps``, and for the pods "pod_grads1": each
+    ``torch_bridge.reference_steps`` (with posit8 moments also "opt_steps":
+    the optimizer state after each step), and for the pods "pod_grads1": each
     pod's first gradients (port leaf order) and, under posit8_ef, "ef": each
     pod's residuals after the last step."""
     jm, _ = train_models(arch, over, **step_kw(quant, micro, grad_compression=comp))
@@ -178,6 +182,8 @@ def reference(arch, comp, quant, micro, over=(), frames=False, steps=3, B=4, S=3
         params, opt, met = update(params, grads, opt)
         if s == 0 and quant == "none":
             out["m1"] = to_numpy_tree(opt["m"])
+        if quant == "posit8":
+            out.setdefault("opt_steps", []).append(to_numpy_tree(opt))
         out["jmet"].append({"loss": float(loss), **{k: float(v) for k, v in met.items()}})
     out["want"] = to_numpy_tree({"params": params, "opt": opt})
     if use_ef:
@@ -246,7 +252,8 @@ def reference_drops(arch, micro, over=(), B=4, S=32):
     return sum(dropped)
 
 
-def check_pod_case(pool, arch, grid, comp, quant, micro, over=(), flips=None, ef_flips=None):
+def check_pod_case(pool, arch, grid, comp, quant, micro, over=(), flips=None, ef_flips=None,
+                   run_kw=None):
     """Three steps on a grid with pods under ``grad_compression`` ``comp``
     against the reference's pod composition.
 
@@ -269,10 +276,11 @@ def check_pod_case(pool, arch, grid, comp, quant, micro, over=(), flips=None, ef
     0.1 % of entries past 2e-3 of the largest residual, none past twice
     it. ``flips`` goes to ``assert_steps_match``; ``ef_flips`` {leaf: n}
     lets a residual leaf hold n entries past 2e-3 beyond its 0.1 % (a
-    leaf of a few hundred entries, one code step apart)."""
+    leaf of a few hundred entries, one code step apart). ``run_kw``: more
+    RunConfig fields of the port's run."""
     from repro_torch.launch.train import spec_leaves
     ref = reference(arch, comp, quant, micro, over)
-    kw = step_kw(quant, micro, grad_compression=comp)
+    kw = step_kw(quant, micro, grad_compression=comp, **(run_kw or {}))
     tmet, got, res = run_grid(pool, arch, grid, kw, ref, over)
     model = layout_model(arch, grid, over, **kw)
     specs = spec_leaves(model)

@@ -70,6 +70,26 @@ def train_case(grid, device, case):
     return {"metrics": metrics, "state": host(state), "probes": probes, "dropped": dropped}
 
 
+def grads_case(grid, device, case):
+    """One forward and backward of the port's ``LM.loss`` on this rank's rows
+    of ``case["batch"]`` (one microbatch), from the seed-0 state drawn on
+    the grid (each rank its shard): (the loss, {leaf name: the rank's
+    gradient block}, numpy), each name the leaf's reference path with its
+    occurrence in ``named_leaves`` order ("blocks/ln1#1": the second
+    layer's)."""
+    from repro_torch.core.policy import named_leaves
+    from repro_torch.launch.train import make_train_state, rank_microbatches, value_and_grad
+    model = grid_model(grid, device, case["arch"], case["kw"], case.get("over"))
+    params = make_train_state(model, 0)["params"]
+    batch = {k: torch.from_numpy(np.asarray(v)) for k, v in case["batch"].items()}
+    loss, grads = value_and_grad(model, params, rank_microbatches(model, batch, 1)[0])
+    out, seen = {}, {}
+    for (name, _), g in zip(named_leaves(params), grads):
+        i = seen[name] = seen.get(name, -1) + 1
+        out[f"{name}#{i}"] = g.numpy()
+    return float(loss), out
+
+
 def checkpoint_case(grid, device, case):
     """A grid's checkpoints: one step from ``case["init"]``, the state saved
     by every rank (``CheckpointManager.save(..., model=)``) under

@@ -27,10 +27,10 @@ one module-scoped ``RankPool`` of 4 CPU processes (rank-side functions in
 ``tests/grid_ranks.py``, which imports no JAX). Also: every param, moment,
 ``ef`` and batch spec against the reference's ``make_ctx`` specs on fake
 meshes, for every family (the production ones included); shards drawn by
-``LM.init`` on a grid gather back to the tp = 1 leaves;
-``sequence_parallel`` with a model axis raises; the Megatron pair gives
-tp = 1's gradients for a column -> row MLP. The other families' grids are
-held in ``test_torch_train_grid_{moe,ssm,hybrid,encdec}.py``.
+``LM.init`` on a grid gather back to the tp = 1 leaves; the Megatron pair
+gives tp = 1's gradients for a column -> row MLP. The other families' grids
+are held in ``test_torch_train_grid_{moe,ssm,hybrid,encdec}.py``, sequence
+parallelism in ``test_torch_train_grid_sp*.py``.
 """
 from types import SimpleNamespace
 
@@ -223,17 +223,6 @@ def test_grid_shards_gather_back_to_the_tp1_leaves(grid):
     for path, a, b in walk(want, back):
         assert a.tobytes() == b.tobytes(), path
     assert train_state_from_numpy(want, device="cpu")["opt"]["count"].shape == ()
-
-
-@pytest.mark.parametrize("arch", ["yi-9b", "falcon-mamba-7b"])
-def test_sequence_parallel_on_a_model_axis_raises(arch):
-    """``sequence_parallel`` (the reference's "seq" rule over model) is not
-    ported: on a grid with a model axis it raises NotImplementedError naming
-    ROADMAP A8c (never a silent no-op); without one it changes nothing."""
-    rcfg = RunConfig(sequence_parallel=True)
-    with pytest.raises(NotImplementedError, match="sequence_parallel.*ROADMAP A8c"):
-        build_model(smoke(ARCHS[arch]), rcfg, device="cpu", grid=layout((1, 1, 2)))
-    build_model(smoke(ARCHS[arch]), rcfg, device="cpu", grid=layout((1, 2, 1)))
 
 
 def test_meshes_report_the_reference_shapes():
