@@ -43,14 +43,15 @@ Phases, one line each, any failure exits non-zero without the final line:
    one request evicted and resumed (its pages re-attached); prefix hits,
    copies and frees as the requests imply, and streams identical to the
    dense engine and to the all-plain paged engine;
-8. sampled serving: the serving CLI with MAIN_ARGV + ``--temperature 0.8
-   --top-k 40`` (yi-9b, 48 layers, bf16), dense twice (the same seed gives
-   the same streams) and with ``--paged --page-size 16`` (the dense
-   streams); launch counts, tok/s beside phase 3's, and the time the draw
-   adds to a decode step;
+8. sampled serving: the serving CLI with MAIN_ARGV + ``--layers 12
+   --temperature 0.8 --top-k 40`` (yi-9b, its first 12 layers, bf16),
+   dense twice (the same seed gives the same streams) and with ``--paged
+   --page-size 16`` (the dense streams); launch counts, tok/s beside phase
+   3's, and the time the draw adds to a decode step;
 9. MoE serving: the serving CLI with ``--arch moonshot-v1-16b-a3b --quant
-   pofx8 --kv-quant fxp8 --use-kernel`` and its defaults (48 layers,
-   d_model 2048, 64 experts top-6 + 2 shared, greedy), with launch counts
+   pofx8 --kv-quant fxp8 --use-kernel --layers 12`` and its defaults (12
+   of 48 layers, d_model 2048, 64 experts top-6 + 2 shared, greedy), with
+   launch counts
    (7 pofx_matmul a layer: q/k/v/o and the shared experts' gate/up/down,
    plus the unembed; one kv_flash_decode a layer and decode step), the
    first-token logits against the plain path and a decode-step profile
@@ -59,19 +60,20 @@ Phases, one line each, any failure exits non-zero without the final line:
    kernels against plain versions at f32 and 2 layers (identical streams)
    and a sampled run against its repeat (identical streams);
 10. SSM serving: the serving CLI with ``--arch falcon-mamba-7b`` and
-   MAIN_ARGV's other flags (64 mamba1 layers, d_model 4096, no attention)
-   and its defaults: launch counts (in_proj and out_proj a layer plus the
-   unembed, 129 pofx_matmul a forward; no kv_flash_decode), first-token
+   MAIN_ARGV's other flags and ``--layers 16`` (16 of 64 mamba1 layers,
+   d_model 4096, no attention) and its defaults: launch counts (in_proj
+   and out_proj a layer plus the unembed, 33 pofx_matmul a forward; no
+   kv_flash_decode), first-token
    logits against the plain path, a decode-step profile with the plain
    mixer (conv, x/dt products, recurrence: ``ssm.mamba1_mix``) in a
    ``record_function`` range; ``--paged`` refused; kernels against plain
    versions at f32 on the first 2 layers (identical streams) and a sampled
    run against its repeat on the first 8 (identical streams);
-11. hybrid serving: the same with ``--arch zamba2-1.2b`` (38 mamba2
-   layers, d_model 2048, one shared attention + MLP block before each run
-   of 6 layers, 7 a forward): 119 pofx_matmul a forward (38 x 2, 7 x 6
-   for the shared block, the unembed) and 7 kv_flash_decode a decode
-   step; the profile's range is ``ssm.mamba2_mix``; the sampled repeat on
+11. hybrid serving: the same with ``--arch zamba2-1.2b --layers 14`` (14
+   of 38 mamba2 layers, d_model 2048, one shared attention + MLP block
+   before each run of 6 layers, 3 a forward, the last run of 2): 47
+   pofx_matmul a forward (14 x 2, 3 x 6 for the shared block, the
+   unembed) and 3 kv_flash_decode a decode step; the profile's range is ``ssm.mamba2_mix``; the sampled repeat on
    the first 7 layers (two applications of the shared block);
 12. encdec serving: the serving CLI with ``--arch whisper-medium`` and
    MAIN_ARGV's other flags (24 encoder + 24 decoder layers, d_model 1024;
@@ -90,7 +92,7 @@ Phases, one line each, any failure exits non-zero without the final line:
    that path on layer 0's cross cache against its formula
    (``bf16_compute_check``);
 13. training, yi-9b full width: the training CLI (``python -m
-   repro_torch.launch.train --arch yi-9b --opt-quant posit8``, 48 layers,
+   repro_torch.launch.train --arch yi-9b --opt-quant posit8 --layers 12``,
    batch 8 x 128 tokens, bf16 weights, block remat) in a process of its
    own: finite losses and grad norms, step ms, tokens/s, the model-FLOP
    share of the bf16 peak, peak device memory and a profiled step split
@@ -108,10 +110,10 @@ Phases, one line each, any failure exits non-zero without the final line:
 14. training the other families at full width, with posit8 moments and
    the CLI's run configuration (batch 8 x 128, lr 1e-3, bf16, block
    remat): (a) ``python -m repro_torch.launch.train --arch falcon-mamba-7b
-   --opt-quant posit8 --steps 4 --profile`` in a process of its own (64
-   mamba1 layers, 7.27 B parameters; the fields of phase 13 and its
-   profiled split); (b) the same with ``--arch zamba2-1.2b --steps 3`` (38
-   layers); (c) moonshot-v1-16b-a3b on its first 2 layers and (d)
+   --opt-quant posit8 --steps 4 --profile --layers 16`` in a process of
+   its own (16 of 64 mamba1 layers; the fields of phase 13 and its
+   profiled split); (b) the same with ``--arch zamba2-1.2b --steps 3
+   --layers 14``; (c) moonshot-v1-16b-a3b on its first 2 layers and (d)
    whisper-medium on 6 + 6 layers (batches with frames drawn as the
    serving CLI draws them) through ``make_train_step`` in this process:
    finite losses, step ms, tokens/s, model-FLOP share, peak memory; (e) for
@@ -128,13 +130,12 @@ Phases, one line each, any failure exits non-zero without the final line:
    streams equal to the dense ones, and first-token logits of kernels
    against the plain path at f32 within 1e-3 of the largest logit.
 16. tensor-parallel serving at tp = 2 (``phase_tp``): (a) the serving CLI
-   with MAIN_ARGV + ``--tp 2`` (yi-9b, 48 layers, bf16; two rank
-   processes, on one card over gloo, with a card a rank over NCCL): each
-   rank launches exactly the tp = 1 counts (337 pofx_matmul a forward, 48
-   kv_flash_decode a decode step); the backend, tok/s, weight GiB a rank
-   and the all-reduce's share of a decode step (a profile in each rank);
-   the streams equal to phase 3's are counted, not gated (at bf16 a sum
-   split over ranks may flip a token); (b) at yi-9b width, 2 layers, f32,
+   with MAIN_ARGV + ``--layers 12 --tp 2`` (yi-9b, 12 layers, bf16; two
+   rank processes, on one card over gloo, with a card a rank over NCCL):
+   each rank launches exactly the tp = 1 counts (85 pofx_matmul a forward,
+   12 kv_flash_decode a decode step); the backend, tok/s, weight GiB a
+   rank and the all-reduce's share of a decode step (a profile in each
+   rank); (b) at yi-9b width, 2 layers, f32,
    kernels on, fxp8 KV: tp = 2 greedy, sampled, paged and evict -> resume
    streams equal tp = 1's; (c) moonshot on 2 layers and zamba2 on its
    first 7 (two applications of the shared block) at f32, tp = 2 against
@@ -200,6 +201,19 @@ Phases, one line each, any failure exits non-zero without the final line:
    tp = 1's; step ms (the first step), tokens/s, peak GiB a rank and the
    collectives' share of step 1 a run. Like the other training phases it
    launches none of the port's kernels.
+20. the dry run against the card (``phase_dryrun``, in a process of its
+   own, since a process joins one world): (a) yi-9b width on 4 layers,
+   8 x 128 tokens, bf16, block remat, posit8 moments, one rank: the dry
+   run's step on fake CUDA tensors (``launch.dryrun.dry_train_step``),
+   then three real steps after ``make_train_state``, with the peak
+   statistics reset before the state is made and read after the first
+   step; ``torch.cuda.max_memory_allocated`` must lie within
+   DRYRUN_PEAK_RTOL of the predicted
+   ``peak_memory_in_bytes``; the counted flops beside 8 N T and the
+   roofline's bound beside the measured step are printed; (b) the
+   production cell, ``python -m repro_torch.launch.dryrun --arch yi-9b
+   --shape train_4k --mesh single --device cuda``'s ``main`` (rank 0 of a
+   fake world of 256 on (16, 16)): its per-rank GiB and bound printed.
 
 Before torch is imported, the CUDA driver is asked to start in a process of
 its own (``wait_for_card``): a freshly booted host may refuse for a while
@@ -306,6 +320,17 @@ def first_logits(torch, model, params, prompt):
 
 
 MAIN_ARGV = ["--arch", "yi-9b", "--quant", "pofx8", "--kv-quant", "fxp8", "--use-kernel"]
+# the depth of every serving and training CLI run after the main path:
+# phase 3, and phase 6 whose streams equal it, serve all 48 of yi-9b's
+# layers; the later runs take an arch's first N layers at full width
+# (``--layers N``), so that the script keeps to half its time limit
+CUT_LAYERS = {"yi-9b": 12, "moonshot-v1-16b-a3b": 12, "falcon-mamba-7b": 16,
+              "zamba2-1.2b": 14}
+
+
+def cut(arch):
+    """``--layers`` for ``arch``'s depth in CUT_LAYERS."""
+    return ["--layers", str(CUT_LAYERS[arch])]
 
 
 def serve_cli_run(torch, argv, what="main path"):
@@ -880,15 +905,16 @@ def phase_paging(torch, result):
         raise AssertionError("paged streams differ from the dense or the all-plain engine")
 
 
-SAMPLED_ARGV = MAIN_ARGV + ["--temperature", "0.8", "--top-k", "40"]
+SAMPLED_ARGV = MAIN_ARGV + cut("yi-9b") + ["--temperature", "0.8", "--top-k", "40"]
 
 
 def phase_sampled(torch, result):
-    """Phase 8: the serving CLI with SAMPLED_ARGV (yi-9b, 48 layers, bf16),
+    """Phase 8: the serving CLI with SAMPLED_ARGV (yi-9b, 12 layers, bf16),
     dense, dense again with the same seed (the same streams), and with
     ``--paged --page-size 16`` (the dense streams); the kernels' launch
-    counts as on the greedy paths; tok/s and the decode-step profile beside
-    phase 3's; the draw alone timed on the card."""
+    counts as on the greedy paths; tok/s beside phase 3's; the decode-step
+    profile with the draw against the same model's greedy one; the draw
+    alone timed on the card."""
     from repro_torch.bench.common import Timer
     from repro_torch.core import prng
     from repro_torch.launch.engine import SamplingParams, sample_tokens
@@ -910,7 +936,7 @@ def phase_sampled(torch, result):
         want[attn] = cfg.n_layers * st["decode_steps"]
         if counts != want:
             raise AssertionError(f"sampled {name}: launch counts {counts} != expected {want}")
-        if cfg.n_layers != 48 or cfg.d_model != 4096 or len(done) != 8:
+        if cfg.n_layers != CUT_LAYERS["yi-9b"] or cfg.d_model != 4096 or len(done) != 8:
             raise AssertionError(f"sampled {name} ran {cfg.n_layers} layers, "
                                  f"d={cfg.d_model}, {len(done)} requests")
         for s in done:
@@ -925,12 +951,11 @@ def phase_sampled(torch, result):
         if name == "dense":
             result["sampled_decode_profile"] = profile_decode(torch, model, run.params,
                                                               sample=True)
+            greedy_prof = profile_decode(torch, model, run.params)
         del run, model, eng, done
         torch.cuda.empty_cache()
     same_repeat = sum(a == b for a, b in zip(streams["dense"], streams["repeat"]))
     same_paged = sum(a == b for a, b in zip(streams["dense"], streams["paged"]))
-    as_greedy = sum(a == b for s, g in zip(streams["dense"], result["main_streams"])
-                    for a, b in zip(s, g))
     # the draw alone: fold_in + sample_tokens on (4, 64000) bf16 logits
     dev = torch.device("cuda")
     logits = torch.randn(4, 64000, device=dev).to(torch.bfloat16)
@@ -941,7 +966,7 @@ def phase_sampled(torch, result):
     timer = Timer(dev)
     draw_ms = timer.ms(lambda: sample_tokens(logits, prng.fold_in(keys, pos), temps, topks))
     argmax_ms = timer.ms(lambda: torch.argmax(logits, dim=-1))
-    prof, base = result.get("sampled_decode_profile"), result.get("decode_profile")
+    prof, base = result.get("sampled_decode_profile"), greedy_prof
     added = None
     if prof and base:
         added = {"bare_wall_ms": prof["bare_wall_ms"] - base["bare_wall_ms"],
@@ -949,16 +974,16 @@ def phase_sampled(torch, result):
                  "device_busy_ms": prof["device_busy_ms"] - base["device_busy_ms"]}
     for name, r in runs.items():
         log(f"  sampled {name}: decode {r['decode_tok_s']:.1f} tok/s, prefill "
-            f"{r['prefill_tok_s']:.1f} tok/s (phase 3 greedy, same call: "
+            f"{r['prefill_tok_s']:.1f} tok/s (phase 3 greedy at 48 layers, same call: "
             f"{greedy['decode_tok_s']:.1f}, {greedy['prefill_tok_s']:.1f})")
     log(f"  streams: repeat {same_repeat}/8 and paged {same_paged}/8 identical to the dense "
-        f"sampled streams; {as_greedy}/256 tokens equal to phase 3's greedy streams")
+        f"sampled streams")
     log(f"  the draw alone (fold_in + sample_tokens, 4 x 64000 bf16, top-k 40): "
         f"{draw_ms:.4f} ms on the card (argmax {argmax_ms:.4f} ms); added to a decode "
-        f"step against phase 3's profile: {added}")
+        f"step against the same model's greedy profile: {added}")
     result["sampled"] = {"argv": SAMPLED_ARGV, "runs": runs,
                          "identical_repeat": same_repeat, "identical_paged": same_paged,
-                         "tokens_equal_to_greedy": as_greedy, "draw_ms": draw_ms,
+                         "draw_ms": draw_ms,
                          "argmax_ms": argmax_ms, "added_per_decode_step": added}
     if same_repeat != 8 or same_paged != 8:
         raise AssertionError("sampled streams differ between runs with the same seed "
@@ -966,8 +991,8 @@ def phase_sampled(torch, result):
 
 
 MOE_ARGV = ["--arch", "moonshot-v1-16b-a3b", "--quant", "pofx8", "--kv-quant", "fxp8",
-            "--use-kernel"]
-# phase 9's depths: the CLI and the paged engine serve all 48 layers; the
+            "--use-kernel"] + cut("moonshot-v1-16b-a3b")
+# phase 9's depths: the CLI and the paged engine serve the first 12 layers; the
 # f32 kernels-vs-plain check takes the first 2, the sampled repeat the first 4
 MOE_IDENTITY_LAYERS, MOE_SAMPLED_LAYERS = 2, 2
 
@@ -987,7 +1012,7 @@ def truncated(model, params, n_layers, enc_layers=None, **rcfg):
 
 def phase_moe(torch, result):
     """Phase 9: MoE serving of moonshot-v1-16b-a3b at full width. The CLI
-    at 48 layers with its defaults (launch counts, 32 in-vocab tokens a
+    on its first 12 layers with its defaults (launch counts, 32 in-vocab tokens a
     request, first-token logits against the plain path, a decode-step
     profile with the MoE FFN split out); then, on the same weights, the
     paged engine (page size 16: the dense streams), kernels against plain
@@ -1009,7 +1034,8 @@ def phase_moe(torch, result):
             "kv_flash_paged_decode": 0, "fxp_matmul": 0, "pofx_decode": 0}
     if counts != want or counts["kv_flash_decode"] <= 0:
         raise AssertionError(f"MoE launch counts {counts} != expected {want}")
-    if (cfg.name != "moonshot-v1-16b-a3b" or cfg.n_layers != 48 or cfg.d_model != 2048
+    if (cfg.name != "moonshot-v1-16b-a3b" or cfg.n_layers != CUT_LAYERS[cfg.name]
+            or cfg.d_model != 2048
             or len(done) != 8):
         raise AssertionError(f"MoE path ran {cfg.name}, {cfg.n_layers} layers, "
                              f"d={cfg.d_model}, {len(done)} requests")
@@ -1096,8 +1122,8 @@ def phase_moe(torch, result):
 
 # (arch, layers, d_model, pofx_matmul launches a forward, kv_flash_decode
 # launches a decode step)
-SSM_ARCHS = {10: ("falcon-mamba-7b", 64, 4096, 64 * 2 + 1, 0),
-             11: ("zamba2-1.2b", 38, 2048, 38 * 2 + 7 * 6 + 1, 7)}
+SSM_ARCHS = {10: ("falcon-mamba-7b", 16, 4096, 16 * 2 + 1, 0),
+             11: ("zamba2-1.2b", 14, 2048, 14 * 2 + 3 * 6 + 1, 3)}
 # the f32 kernels-vs-plain check's depth; the CLI serves every layer, the
 # sampled run and its repeat the first SSM_SAMPLED_LAYERS (zamba2's 7: two
 # applications of the shared block; every layer until the time limit
@@ -1108,8 +1134,8 @@ SSM_SAMPLED_LAYERS = {"falcon-mamba-7b": 8, "zamba2-1.2b": 7}
 
 def phase_ssm(torch, result, arch, n_layers, d_model, want_pofx, want_kv):
     """Phases 10 and 11: ssm (falcon-mamba-7b) and hybrid (zamba2-1.2b)
-    serving at full width and depth through the serving CLI with
-    MAIN_ARGV's flags and its defaults. Launch counts (in_proj and out_proj
+    serving at full width on ``n_layers`` layers through the serving CLI
+    with MAIN_ARGV's flags and its defaults. Launch counts (in_proj and out_proj
     a mamba layer, q/k/v/o, wi and wo a shared-block application, the
     unembed; one kv_flash_decode a shared-block application and decode
     step), 32 in-vocab tokens a request, first-token logits against the
@@ -1123,7 +1149,7 @@ def phase_ssm(torch, result, arch, n_layers, d_model, want_pofx, want_kv):
     from repro_torch.kernels.ops import PLAIN
     from repro_torch.launch import serve as serve_cli
     from repro_torch.launch.engine import SamplingParams
-    argv = ["--arch", arch] + MAIN_ARGV[2:]
+    argv = ["--arch", arch] + MAIN_ARGV[2:] + cut(arch)
     run, counts, summary = serve_cli_run(torch, argv, f"{arch} path")
     model, params, eng, done = run.model, run.params, run.engine, run.done
     cfg = model.cfg
@@ -1393,11 +1419,11 @@ def bf16_compute_check(torch, model, params, cache):
     return out
 
 
-# phase 13: the CLI at full width and depth (its last step profiled, so
+# phase 13: the CLI at full width on 12 layers (its last step profiled, so
 # steps 1-3 are timed bare), f32 moments at 2 layers, oracles and the
 # checkpoint round trip at 2
 TRAIN_ARGV = ["--arch", "yi-9b", "--opt-quant", "posit8", "--steps", "5",
-              "--log-every", "1", "--profile"]
+              "--log-every", "1", "--profile"] + cut("yi-9b")
 TRAIN_F32_LAYERS, TRAIN_SMALL_LAYERS = 2, 2
 BF16_PEAK = 989e12        # dense bf16 FLOP/s of one H100 SXM (data sheet)
 GRAD_RTOL = 1e-4          # LM.loss gradients, flash vs materialized softmax, f32
@@ -1432,8 +1458,9 @@ def train_cli(torch, argv):
     forward, backward; N the active parameters), peak memory and the
     profile's split. Returns them."""
     from statistics import median
-    from repro_torch.configs import ARCHS
+    from repro_torch.configs import ARCHS, truncate
     arch, steps = argv[argv.index("--arch") + 1], int(argv[argv.index("--steps") + 1])
+    layers = int(argv[argv.index("--layers") + 1]) if "--layers" in argv else 0
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     log(f"  this process holds {torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved; "
@@ -1450,7 +1477,7 @@ def train_cli(torch, argv):
     if proc.returncode:
         raise AssertionError(f"the training CLI exited {proc.returncode}:\n{proc.stderr[-4000:]}")
     run = json.loads(next(l for l in proc.stdout.splitlines() if l.startswith("train: "))[7:])
-    cfg = ARCHS[arch]
+    cfg = truncate(ARCHS[arch], layers)
     n_params = cfg.active_param_count()
     losses, gnorms = run["loss"], run["grad_norm"]
     if run["steps"] != list(range(steps)) or not all(map(math.isfinite, losses + gnorms)):
@@ -1638,9 +1665,9 @@ def phase_train(torch, result):
 # keep the script within its time limit); (e) card against CPU gradients at
 # ORACLE_LAYERS layers
 FALCON_TRAIN_ARGV = ["--arch", "falcon-mamba-7b", "--opt-quant", "posit8", "--steps", "4",
-                     "--log-every", "1", "--profile"]
+                     "--log-every", "1", "--profile"] + cut("falcon-mamba-7b")
 ZAMBA_TRAIN_ARGV = ["--arch", "zamba2-1.2b", "--opt-quant", "posit8", "--steps", "3",
-                    "--log-every", "1"]
+                    "--log-every", "1"] + cut("zamba2-1.2b")
 MOE_TRAIN_LAYERS, WHISPER_TRAIN_LAYERS, FAMILY_TRAIN_STEPS, ORACLE_LAYERS = 2, 6, 3, 2
 ORACLE_ARCHS = ("falcon-mamba-7b", "zamba2-1.2b", "moonshot-v1-16b-a3b", "whisper-medium")
 CPU_GRAD_RTOL = 1e-4      # card vs CPU gradients, f32, of each leaf's largest entry
@@ -1761,12 +1788,12 @@ def phase_train_families(torch, result):
     from repro_torch.kernels import LAUNCHES
     from repro_torch.nn.models import build_model
     entry = result["train_families"] = {}
-    # (a) falcon-mamba-7b, full width and depth, the last step profiled;
-    # (b) zamba2-1.2b, full depth
+    # (a) falcon-mamba-7b, full width, the last step profiled; (b) zamba2-1.2b;
+    # each on its first CUT_LAYERS layers
     entry["falcon-mamba-7b"] = train_cli(torch, FALCON_TRAIN_ARGV)
     entry["zamba2-1.2b"] = train_cli(torch, ZAMBA_TRAIN_ARGV)
-    if entry["falcon-mamba-7b"]["n_layers"] != 64 or entry["zamba2-1.2b"]["n_layers"] != 38:
-        raise AssertionError("the CLI runs did not train every layer")
+    if any(entry[a]["n_layers"] != CUT_LAYERS[a] for a in ("falcon-mamba-7b", "zamba2-1.2b")):
+        raise AssertionError("the CLI runs did not train the layers asked for")
     before = dict(LAUNCHES)
     # the CLI's run configuration: lr 1e-3, posit8 moments, bf16, block remat
     rcfg = RunConfig(learning_rate=1e-3, total_steps=FAMILY_TRAIN_STEPS, warmup_steps=1,
@@ -1887,7 +1914,7 @@ def phase_nemotron(torch, result):
 # phase 16: tensor-parallel serving, tp = 2. On a one-card machine both ranks
 # share cuda:0 over gloo (NCCL refuses two ranks on one device), so no speed-up
 # is claimed; (d) reruns (b) over NCCL where each rank has a card of its own.
-TP_ARGV = MAIN_ARGV + ["--tp", "2"]
+TP_ARGV = MAIN_ARGV + cut("yi-9b") + ["--tp", "2"]
 TP_IDENTITY_LAYERS = 2          # (b), yi-9b width, f32
 TP_MOE_LAYERS = 2               # (c), moonshot at f32
 TP_ZAMBA_LAYERS = 7             # (c), zamba2: two applications of the shared block
@@ -1992,12 +2019,10 @@ def tp_compare(torch, spec, label, pool, want=None):
 
 def phase_tp(torch, result):
     """Phase 16: tensor-parallel serving at tp = 2. (a) the serving CLI with
-    MAIN_ARGV + ``--tp 2`` (yi-9b, full width and depth, bf16): each rank
-    launches exactly the tp = 1 counts (337 pofx_matmul a forward, 48
+    MAIN_ARGV + ``--layers 12 --tp 2`` (yi-9b, full width, bf16): each rank
+    launches exactly the tp = 1 counts (85 pofx_matmul a forward, 12
     kv_flash_decode a decode step), prints the backend, tok/s, weight GiB a
-    rank and the all-reduce's share of a decode step; the streams equal to
-    phase 3's are counted, not gated (at bf16 TP reorders sums, DESIGN.md
-    §9). (b) at 2 layers, f32, kernels on, fxp8 KV: tp = 2 greedy, sampled,
+    rank and the all-reduce's share of a decode step. (b) at 2 layers, f32, kernels on, fxp8 KV: tp = 2 greedy, sampled,
     paged and evict -> resume streams equal tp = 1's. (c) moonshot on 2
     layers and zamba2 on its first 7 at f32, tp = 2 against tp = 1; then
     moonshot at bf16 on 2 layers with the CLI's workload, its launch
@@ -2011,32 +2036,29 @@ def phase_tp(torch, result):
     run = serve_cli.main(TP_ARGV, rank_hook=tp_cli_hook)
     wall = time.perf_counter() - t0
     st = run.stats
-    per_fwd = 7 * 48 + 1
+    n_layers = CUT_LAYERS["yi-9b"]
+    per_fwd = 7 * n_layers + 1
     want = {"pofx_matmul": per_fwd * (st["prefill_sampled_tokens"] + st["decode_steps"]),
-            "kv_flash_decode": 48 * st["decode_steps"], "kv_flash_paged_decode": 0,
+            "kv_flash_decode": n_layers * st["decode_steps"], "kv_flash_paged_decode": 0,
             "fxp_matmul": 0, "pofx_decode": 0}
     n_prompt = sum(len(s.context) for s in run.done)
     prof = run.rank_hooks[0]["profile"] or {}
     ar_ms = prof.get("region_host_ms", {}).get("tp_all_reduce")
     share = ar_ms / prof["wall_ms"] if ar_ms is not None and prof.get("wall_ms") else None
-    main = result.get("main_streams")
-    same_main = (sum(s.out == m for s, m in zip(run.done, main)) if main else None)
     a = {"argv": TP_ARGV, "backend": run.backend, "tp": run.tp, "wall_s": wall,
          "launches": run.rank_launches, "prefill_tok_s": n_prompt / st["prefill_time_s"],
          "decode_tok_s": st["decode_tok_per_s"], "decode_steps": st["decode_steps"],
          "weight_gib": [h["weight_gib"] for h in run.rank_hooks],
          "peak_gib": [h["peak_gib"] for h in run.rank_hooks],
          "decode_profile": prof or None, "all_reduce_ms_a_step": ar_ms,
-         "all_reduce_share": share, "identical_to_phase3": same_main,
+         "all_reduce_share": share,
          "streams": [s.out for s in run.done]}
     log(f"  tp=2 over {run.backend}: prefill {a['prefill_tok_s']:.1f} tok/s, decode "
         f"{a['decode_tok_s']:.1f} tok/s, weights "
         f"{', '.join(f'{g:.2f}' for g in a['weight_gib'])} GiB a rank, peak "
         f"{', '.join(f'{g:.2f}' for g in a['peak_gib'])} GiB a rank; all-reduce "
         + (f"{ar_ms:.2f} ms of a {prof['wall_ms']:.2f} ms decode step ({100 * share:.1f}%)"
-           if share is not None else "not measured")
-        + f"; streams equal to phase 3's: "
-        + (f"{same_main}/8 (bf16: counted, not gated)" if main else "phase 3 not run"))
+           if share is not None else "not measured"))
     log(f"  launches a rank: {run.rank_launches}")
     entry["cli"] = a
     result["tp"] = entry
@@ -2971,10 +2993,121 @@ def phase_analysis(torch, result, device="cuda", over=None):
         raise AssertionError("; ".join(failed))
 
 
+DRYRUN_PEAK_RTOL = 0.10
+DRYRUN_LAYERS = 4
+
+
+def dryrun_child(out_path: str) -> int:
+    """Phase 20's process: (a) the dry run's prediction of a step of yi-9b
+    width on DRYRUN_LAYERS layers at one rank, and three real steps (the
+    peak read after the first, the others timed), (b) the yi-9b train_4k
+    cell through the dry run's CLI entry point. Writes the readings to
+    ``out_path`` as JSON."""
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import ARCHS, RunConfig
+    from repro_torch.launch import dryrun, hlo_analysis
+    from repro_torch.launch.train import make_train_state, make_train_step
+    from repro_torch.nn.models import TensorSpec, build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(ARCHS["yi-9b"], n_layers=DRYRUN_LAYERS)
+    model = build_model(cfg, RunConfig(remat="block", opt_state_quant="posit8"), device="cuda")
+    B, S = 8, 128
+    specs = {"tokens": TensorSpec((B, S), torch.int32), "labels": TensorSpec((B, S), torch.int32)}
+    cost, trace_s = dryrun.dry_train_step(model, specs)
+    pred = dryrun.memory_record(cost)
+    n_active = cfg.active_param_count()
+    roof = hlo_analysis.roofline_terms(cost.flops_per_device, cost.bytes_per_device,
+                                       cost.wire_bytes_per_device, 6.0 * n_active * B * S, 1)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    state = make_train_state(model, 0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda",
+                              dtype=torch.int32) for k in specs}
+    step = make_train_step(model)
+    steps_ms = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        steps_ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            peak = torch.cuda.max_memory_allocated() - base
+    if not math.isfinite(loss):
+        raise AssertionError(f"phase 20 (a): the real step's loss is {loss}")
+    a = {"layers": DRYRUN_LAYERS, "tokens": B * S, "predicted_peak_bytes": pred["peak_memory_in_bytes"],
+         "predicted": pred, "measured_peak_bytes": peak, "flops": cost.flops_per_device,
+         "flops_8NT": 8.0 * n_active * B * S, "bytes": cost.bytes_per_device,
+         "roofline": roof, "steps_ms": steps_ms, "trace_s": trace_s, "n_ops": cost.n_ops}
+    out_dir = ROOT / "build" / "phase20"
+    t0 = time.perf_counter()
+    rc = dryrun.main(["--arch", "yi-9b", "--shape", "train_4k", "--mesh", "single",
+                      "--device", "cuda", "--out", str(out_dir)])
+    b = json.loads((out_dir / "yi-9b__train_4k__single__bf16.json").read_text())
+    b["main_rc"], b["wall_s"] = rc, time.perf_counter() - t0
+    shutil.rmtree(out_dir, ignore_errors=True)
+    Path(out_path).write_text(json.dumps({"a": a, "b": b}))
+    return 0
+
+
+def phase_dryrun(torch, result):
+    """Phase 20: ``dryrun_child`` in a process of its own (this process's
+    caches emptied first); gates the predicted peak within DRYRUN_PEAK_RTOL
+    of the measured one and the production cell's record."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = ROOT / "build" / "phase20.json"
+    out.parent.mkdir(exist_ok=True)
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-child",
+                           str(out)], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    for line in proc.stdout.splitlines():
+        log(f"    {line}")
+    if proc.returncode:
+        raise AssertionError(f"phase 20's process exited {proc.returncode}:\n"
+                             f"{proc.stderr[-4000:]}")
+    got = json.loads(out.read_text())
+    out.unlink()
+    result["dryrun"] = got
+    a, b = got["a"], got["b"]
+    gib = 2 ** 30
+    rel = a["measured_peak_bytes"] / a["predicted_peak_bytes"] - 1
+    r = a["roofline"]
+    step_ms = min(a["steps_ms"][1:])
+    log(f"  (a) yi-9b width, {a['layers']} layers, {a['tokens']} tokens, posit8 moments: peak "
+        f"{a['measured_peak_bytes'] / gib:.3f} GiB measured (max_memory_allocated) vs "
+        f"{a['predicted_peak_bytes'] / gib:.3f} GiB predicted ({100 * rel:+.2f} %); flops "
+        f"{a['flops'] / 1e12:.3f} T counted vs 8NT {a['flops_8NT'] / 1e12:.3f} T; bound "
+        f"{r['step_lower_bound_s'] * 1e3:.2f} ms ({r['bound']}) vs step {step_ms:.2f} ms "
+        f"(steps {[round(x, 2) for x in a['steps_ms']]} ms); traced in {a['trace_s']:.1f} s")
+    m, rb = b["memory"], b["roofline"]
+    log(f"  (b) yi-9b train_4k, rank 0 of 256 on (16, 16): args "
+        f"{m['argument_size_in_bytes'] / gib:.2f} GiB, peak {m['peak_memory_in_bytes'] / gib:.2f} "
+        f"GiB a rank (fits 80 GiB: {b['fits']}); compute {rb['compute_s'] * 1e3:.1f} ms, memory "
+        f"{rb['memory_s'] * 1e3:.1f} ms, collective {rb['collective_s'] * 1e3:.1f} ms; bound "
+        f"{rb['bound']} {rb['step_lower_bound_s'] * 1e3:.1f} ms, mfu_bound "
+        f"{rb['mfu_bound']:.3f}; traced in {b['trace_s']:.1f} s ({b['wall_s']:.1f} s in main)")
+    bad = []
+    if abs(rel) > DRYRUN_PEAK_RTOL:
+        bad.append(f"(a) the measured peak is {100 * rel:+.2f} % off the predicted one "
+                   f"(gate {100 * DRYRUN_PEAK_RTOL:.0f} %)")
+    if b["main_rc"] != 0 or not b.get("ok") or b.get("device") != "cuda":
+        bad.append(f"(b) the cell's record: rc {b['main_rc']}, ok {b.get('ok')}, "
+                   f"device {b.get('device')}")
+    if bad:
+        raise AssertionError("; ".join(bad))
+
+
 def main(argv) -> int:
+    if argv[:1] == ["--dryrun-child"]:
+        return dryrun_child(argv[1])
     import argparse
     ap = argparse.ArgumentParser(description="drive the port on one card")
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20",
                     help="comma-separated phases after the build (default: all)")
     want = {int(p) for p in ap.parse_args(argv).phases.split(",")}
     state = wait_for_card()
@@ -3007,7 +3140,8 @@ def main(argv) -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
-    result = {"card": card, "build_s": info["seconds"]}
+    phase_s = {}
+    result = {"card": card, "build_s": info["seconds"], "phase_s": phase_s}
     failed = []
     rows = []
 
@@ -3032,17 +3166,17 @@ def main(argv) -> int:
          lambda: result.__setitem__("paged_counts", phase_paged_main(torch, result))),
         ("phase 7: paging machinery, 4 layers, f32",
          lambda: phase_paging(torch, result)),
-        ("phase 8: sampled serving, yi-9b full width and depth",
+        ("phase 8: sampled serving, yi-9b full width, 12 layers",
          lambda: phase_sampled(torch, result)),
-        ("phase 9: MoE serving, moonshot-v1-16b-a3b full width and depth",
+        ("phase 9: MoE serving, moonshot-v1-16b-a3b full width, 12 layers",
          lambda: result.__setitem__("moe_counts", phase_moe(torch, result))),
-        ("phase 10: SSM serving, falcon-mamba-7b full width and depth",
+        ("phase 10: SSM serving, falcon-mamba-7b full width, 16 layers",
          lambda: phase_ssm(torch, result, *SSM_ARCHS[10])),
-        ("phase 11: hybrid serving, zamba2-1.2b full width and depth",
+        ("phase 11: hybrid serving, zamba2-1.2b full width, 14 layers",
          lambda: phase_ssm(torch, result, *SSM_ARCHS[11])),
         ("phase 12: encdec serving, whisper-medium full width and depth",
          lambda: result.__setitem__("encdec_counts", phase_encdec(torch, result))),
-        ("phase 13: training, yi-9b full width",
+        ("phase 13: training, yi-9b full width, 12 layers",
          lambda: phase_train(torch, result)),
         ("phase 14: training the moe, ssm, hybrid and encdec families, full width",
          lambda: phase_train_families(torch, result)),
@@ -3056,6 +3190,8 @@ def main(argv) -> int:
          lambda: phase_analysis(torch, result)),
         ("phase 19: training the moe, ssm, hybrid and encdec families on a (data 2, "
          "model 2) grid", lambda: phase_grid_families(torch, result)),
+        ("phase 20: the dry run against the card (yi-9b width 4 layers; yi-9b train_4k "
+         "on (16, 16))", lambda: phase_dryrun(torch, result)),
     ]
     for label, fn in phases:
         if int(label.split()[1].rstrip(":")) not in want:
@@ -3068,6 +3204,7 @@ def main(argv) -> int:
         except Exception:
             failed.append(label)
             log(f"{label}: FAILED\n{traceback.format_exc()}")
+        phase_s[label.split(":")[0]] = time.perf_counter() - t0
     mixed = result.get("mixed_counts", {})
     if mixed and mixed.get("fxp_matmul", 0) <= 0:
         failed.append("phase 5: fxp_matmul was not launched")
@@ -3079,7 +3216,7 @@ def main(argv) -> int:
     if failed:
         log(f"FAILED: {failed}")
         return 1
-    if want != set(range(2, 20)):
+    if want != set(range(2, 21)):
         log(f"ran phases {sorted(want)} only: no result line")
         return 1
     main_counts = result["main_counts"]

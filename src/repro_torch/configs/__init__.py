@@ -11,7 +11,7 @@ from . import (
     yi_9b,
     zamba2_1_2b,
 )
-from .base import SHAPES, ModelConfig, RunConfig, ShapeConfig, smoke  # noqa: F401
+from .base import SHAPES, ModelConfig, RunConfig, ShapeConfig, smoke, truncate  # noqa: F401
 
 ARCHS = {
     "llama3-405b": llama3_405b.CONFIG,

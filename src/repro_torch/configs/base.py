@@ -153,6 +153,15 @@ class RunConfig:
     seed: int = 0
 
 
+def truncate(cfg: ModelConfig, n_layers: int) -> ModelConfig:
+    """``cfg`` on its first ``n_layers`` layers (an encoder's too, where it
+    has one) at full width; 0 keeps the published depth."""
+    if n_layers <= 0:
+        return cfg
+    return dataclasses.replace(cfg, n_layers=min(cfg.n_layers, n_layers),
+                               n_enc_layers=min(cfg.n_enc_layers, n_layers))
+
+
 def smoke(cfg: ModelConfig) -> ModelConfig:
     """Reduced same-family config for CPU smoke tests."""
     return dataclasses.replace(

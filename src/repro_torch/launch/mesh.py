@@ -56,6 +56,12 @@ __all__ = ["make_tp_mesh", "make_host_mesh", "make_production_mesh", "grid_layou
 # draw their models side by side, so they reach the first one together)
 GROUP_TIMEOUT_S = 300.0
 
+# backends whose groups serve as their own host groups: gloo takes CPU
+# tensors, and the dry run's "fake" world has no peers for a gloo twin to
+# wait for (its collectives return at once and its host checks are off,
+# ``TPContext.host_checks``)
+SELF_HOSTED = ("gloo", "fake")
+
 
 def pick_backend(tp: int, device: str) -> str:
     """gloo on the CPU; on CUDA, NCCL when each of the ``tp`` ranks has a
@@ -88,8 +94,8 @@ def make_tp_mesh(tp: int, *, rank: int = 0, init_method: Optional[str] = None,
     dist.init_process_group(backend, init_method=init_method, rank=rank,
                             world_size=tp, timeout=timeout)
     group = dist.group.WORLD
-    host = group if backend == "gloo" else dist.new_group(backend="gloo",
-                                                          timeout=timeout)
+    host = group if backend in SELF_HOSTED else dist.new_group(backend="gloo",
+                                                               timeout=timeout)
     return TPContext(rank=rank, size=tp, group=group, host_group=host,
                      backend=backend)
 
@@ -118,9 +124,10 @@ def grid_groups(shape, names, rank: int, backend: str, timeout_s: float = GROUP_
     """A TPContext for every set of GRID_SETS, less its axes of one rank
     (keyed by what is left, empty sets dropped): the ranks that share this
     rank's coordinates on the other axes. Under NCCL each group has a gloo
-    twin for host-side checks (``TPContext.host``). Every process of the
-    world takes part in making every group, in one order (ranks past the
-    grid's size too); a rank outside the grid gets {}."""
+    twin for host-side checks (``TPContext.host``); a gloo or "fake" group
+    is its own (SELF_HOSTED), and a fake group's host checks are off. Every
+    process of the world takes part in making every group, in one order
+    (ranks past the grid's size too); a rank outside the grid gets {}."""
     import torch.distributed as dist
     timeout = datetime.timedelta(seconds=timeout_s)
     sizes = dict(zip(names, shape))
@@ -142,11 +149,12 @@ def grid_groups(shape, names, rank: int, backend: str, timeout_s: float = GROUP_
                     r = r * sizes[a] + c[a]
                 ranks.append(r)
             group = dist.new_group(ranks, backend=backend, timeout=timeout)
-            host = group if backend == "gloo" else dist.new_group(
+            host = group if backend in SELF_HOSTED else dist.new_group(
                 ranks, backend="gloo", timeout=timeout)
             if rank < n and rank in ranks:
                 out[sub] = TPContext(rank=ranks.index(rank), size=len(ranks), group=group,
-                                     host_group=host, backend=backend)
+                                     host_group=host, backend=backend,
+                                     host_checks=backend != "fake")
     return out
 
 

@@ -68,7 +68,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs import ARCHS, RunConfig, smoke as smoke_cfg
+from repro_torch.configs import ARCHS, RunConfig, smoke as smoke_cfg, truncate
 from repro_torch.core import prng
 from repro_torch.core.policy import (QuantPolicy, add_kv_quant_arg,
                                      add_policy_arg, format_spec,
@@ -196,6 +196,9 @@ def _parser() -> argparse.ArgumentParser:
         description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", default="yi-9b", choices=sorted(ARCHS))
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="serve the arch's first N layers at full width "
+                         "(0 = every layer)")
     ap.add_argument("--device", default="cuda")
     add_policy_arg(ap, default="pofx8")
     ap.add_argument("--use-kernel", action="store_true",
@@ -269,7 +272,7 @@ def main(argv=None, rank_hook=None) -> ServeRun:
 
 
 def _config(args):
-    cfg = ARCHS[args.arch]
+    cfg = truncate(ARCHS[args.arch], args.layers)
     return smoke_cfg(cfg) if args.smoke else cfg
 
 

@@ -60,7 +60,7 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
-from repro_torch.configs import ARCHS, RunConfig, smoke as smoke_cfg
+from repro_torch.configs import ARCHS, RunConfig, smoke as smoke_cfg, truncate
 from repro_torch.core.policy import named_leaves
 from repro_torch.core.quantizers import QuantizedTensor
 from repro_torch.nn.models import LM, build_model
@@ -70,8 +70,8 @@ from repro_torch.optim import (OptConfig, apply_updates, init_opt_state,
 from repro_torch.optim.adamw import _POSIT8
 from repro_torch.runtime.compression import compressed_grad_transform
 
-__all__ = ["make_train_state", "make_train_step", "opt_config_from_run",
-           "state_shardings", "batch_shardings", "rank_microbatches", "spec_leaves", "leaf_groups",
+__all__ = ["make_train_state", "abstract_train_state", "make_train_step",
+           "opt_config_from_run", "state_shardings", "batch_shardings", "rank_microbatches", "spec_leaves", "leaf_groups",
            "value_and_grad"]
 
 # elements a bucket of one gradient all-reduce (f32: 256 MiB)
@@ -101,6 +101,16 @@ def make_train_state(model: LM, seed: int = 0) -> Dict[str, Any]:
         state["ef"] = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                      device=p.device), params)
     return state
+
+
+def abstract_train_state(model: LM, fake_mode=None) -> Dict[str, Any]:
+    """``make_train_state(model)`` as fake tensors: every leaf's shape, dtype
+    and device (on a grid, the rank's shard), nothing allocated. The leaves
+    belong to ``fake_mode`` (a ``FakeTensorMode``; a new one if None), under
+    which the step that takes them must run."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    with fake_mode or FakeTensorMode():
+        return make_train_state(model, model.rcfg.seed)
 
 
 def state_shardings(model: LM) -> Dict[str, Any]:
@@ -368,6 +378,9 @@ def main(argv=None) -> Dict[str, Any]:
     ap.add_argument("--arch", default="yi-9b", choices=sorted(ARCHS))
     ap.add_argument("--smoke", action="store_true",
                     help="reduced same-family config (CPU-sized)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="train the arch's first N layers at full width "
+                         "(0 = every layer)")
     ap.add_argument("--steps", type=int, default=50)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -386,7 +399,7 @@ def main(argv=None) -> Dict[str, Any]:
     from repro_torch.data import DataConfig, synthetic_batch
     from repro_torch.runtime import CheckpointManager, StepTimeMonitor
 
-    cfg = ARCHS[args.arch]
+    cfg = truncate(ARCHS[args.arch], args.layers)
     if args.smoke:
         cfg = smoke_cfg(cfg)
     rcfg = RunConfig(learning_rate=args.lr, total_steps=args.steps,

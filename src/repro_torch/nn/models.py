@@ -75,9 +75,10 @@ neither (the rank computes it whole, and its gradient is whole on every
 rank). The embedding lookup is vocab-parallel (rows outside the rank's
 block masked, then reduce_out), and the logits of the rank's vocab block
 are gathered over model (``gather_replicated``), so the loss is the tp = 1
-loss on the rank's rows. Under ``grad_compression="posit8*"`` the
-embedding's vocab dim replicates, as the reference's ``LM.logical`` has
-it. An MoE layer routes the rank's rows as part of the batch that
+loss on the rank's rows; ``loss`` gathers them a chunk of positions at a
+time (``CE_CHUNK``), so no rank holds the whole logits at once. Under
+``grad_compression="posit8*"`` the embedding's vocab dim replicates, as
+the reference's ``LM.logical`` has it. An MoE layer routes the rank's rows as part of the batch that
 ``batch_axes`` names (``moe.moe_forward``). Under ``sequence_parallel``
 the rules shard "seq" over model (``train_rules``), and where the model
 axis divides the sequence (``seq_ctx``; an odd length or S = 1
@@ -94,7 +95,7 @@ cross-attention gathers them. Serving never takes it.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -115,7 +116,7 @@ from .sharding import (GridContext, TPContext, check_tp_shapes, fsdp_gather,
 from .ssm import mamba_shapes
 
 __all__ = ["LM", "build_model", "apply_policy", "quantize_params", "ce_loss",
-           "kv_decode_bytes_per_token", "resolve_device"]
+           "kv_decode_bytes_per_token", "resolve_device", "input_specs", "TensorSpec"]
 
 _NEVER_QUANT = ("ln", "norm", "A_log", "dt_bias", "D", "router", "conv_w",
                 "conv_b", "q_norm", "k_norm")
@@ -131,14 +132,25 @@ def ce_loss(logits: torch.Tensor, labels: torch.Tensor, *,
     """Mean cross-entropy over every position, in f32 over the padded
     vocab, with the max taken out of the gradient (a stop-gradient, as the
     reference's); ``z_weight`` adds z_weight * mean(lse^2)."""
-    lg = logits.to(torch.float32)
-    m = lg.amax(dim=-1, keepdim=True).detach()
-    lse = torch.log(torch.exp(lg - m).sum(dim=-1)) + m[..., 0]
-    ll = lg.gather(-1, labels.long()[..., None])[..., 0]
+    lse, ll = _lse_ll(logits, labels)
     nll = (lse - ll).mean()
     if z_weight:
         nll = nll + z_weight * torch.square(lse).mean()
     return nll
+
+
+def _lse_ll(logits: torch.Tensor, labels: torch.Tensor):
+    """Each position's log-sum-exp (the max out of the gradient) and its
+    label's logit, in f32."""
+    lg = logits.to(torch.float32)
+    m = lg.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(lg - m).sum(dim=-1)) + m[..., 0]
+    return lse, lg.gather(-1, labels.long()[..., None])[..., 0]
+
+
+# elements of the gathered logits that one chunk of a grid's loss holds at
+# once (f32: 512 MiB)
+CE_CHUNK = 1 << 27
 
 
 def resolve_device(device) -> torch.device:
@@ -527,6 +539,34 @@ class LM:
                                                 len(self._hybrid_chunks()))
         return cache
 
+    def cache_logical(self) -> Dict[str, Any]:
+        """Logical axes of every leaf of ``init_cache``'s tree (the
+        reference's ``cache_logical`` on the port's layout, one L axis for
+        every attention layer): the KV sequence is "kv_seq" (sharded over
+        model on a training grid's rules), its head axis "kv_heads_c" (the
+        serving TP's); a quantized cache's scales share the codes' axes but
+        the sequence."""
+        fam = self.cfg.family
+        kv = {"k": ("layers", "batch", "kv_heads_c", "kv_seq", "head_dim"),
+              "v": ("layers", "batch", "kv_heads_c", "kv_seq", "head_dim")}
+        if self.kv_spec is not None:
+            kv["k_scale"] = ("layers", "batch", "kv_heads_c", None, "head_dim")
+            kv["v_scale"] = ("layers", "batch", "kv_heads_c", None, "head_dim")
+        out: Dict[str, Any] = {"pos": ()}
+        if fam in ("dense", "moe", "encdec"):
+            out["kv"] = kv
+            if fam == "encdec":
+                out["cross"] = {"k": kv["k"], "v": kv["v"]}
+                out["xlen"] = ()
+        elif fam == "ssm":
+            out["ssm"] = {"conv": ("layers", "batch", "conv", "d_inner"),
+                          "ssm": ("layers", "batch", "d_inner", "state")}
+        else:
+            out["ssm"] = {"conv": ("layers", "batch", "conv", "d_inner2"),
+                          "ssm": ("layers", "batch", "heads_r", None, "state")}
+            out["shared_kv"] = kv
+        return out
+
     # -- paged cache ----------------------------------------------------------
 
     def _paged_pool(self, n_pages: int, page_size: int,
@@ -693,9 +733,12 @@ class LM:
 
     # -- serving --------------------------------------------------------------
 
-    def _logits(self, params, x: torch.Tensor, sp=None) -> torch.Tensor:
+    def _final_norm(self, params, x: torch.Tensor, sp=None) -> torch.Tensor:
         ln_f = params["ln_f"] if sp is None else sp.copy_in(params["ln_f"])
-        x = rmsnorm(x, ln_f, self.cfg.norm_eps)
+        return rmsnorm(x, ln_f, self.cfg.norm_eps)
+
+    def _logits(self, params, x: torch.Tensor, sp=None) -> torch.Tensor:
+        x = self._final_norm(params, x, sp)
         if self.grid is not None:
             return self._grid_logits(params, x, sp)
         if self.cfg.tie_embeddings:
@@ -740,11 +783,17 @@ class LM:
         return self.tp.reduce_out(rows) if sp is None else scatter_seq(rows, sp)
 
     def _grid_logits(self, params, x: torch.Tensor, sp=None) -> torch.Tensor:
-        """Logits on a grid: the rank's vocab block through its (data-
-        gathered) unembed or embed shard, gathered over model; the whole
-        vocab where it replicates. Under sequence parallelism (``sp``) x is
-        the rank's block along seq, and the product reads the whole
-        sequence (``seq_in``)."""
+        """Logits on a grid: the rank's vocab block (``_grid_block_logits``)
+        gathered over model; the whole vocab where it replicates."""
+        logits, sharded = self._grid_block_logits(params, x, sp)
+        return gather_replicated(logits, self.tp, logits.ndim - 1) if sharded else logits
+
+    def _grid_block_logits(self, params, x: torch.Tensor, sp=None) -> Tuple[torch.Tensor, bool]:
+        """(the logits of the rank's vocab block through its (data-gathered)
+        unembed or embed shard, True), or (the whole vocab's, False) where
+        the model axis does not cut the vocab. Under sequence parallelism
+        (``sp``) x is the rank's block along seq, and the product reads the
+        whole sequence (``seq_in``)."""
         if self.cfg.tie_embeddings:
             spec = self._specs["embed"]
             w = param_value(self._gather(params["embed"], spec), x.dtype).transpose(0, 1)
@@ -753,10 +802,7 @@ class LM:
             spec = self._specs["unembed"]
             w = self._gather(params["unembed"], spec)
             sharded = spec[1] is not None
-        if not sharded:
-            return matmul_param(seq_in(x, sp, None), w)
-        logits = matmul_param(seq_in(x, sp, self.tp), w)
-        return gather_replicated(logits, self.tp, logits.ndim - 1)
+        return matmul_param(seq_in(x, sp, self.tp if sharded else None), w), sharded
 
     def _remat(self):
         """``fn(*args)``, under ``torch.utils.checkpoint`` when
@@ -780,6 +826,12 @@ class LM:
         the residual between the blocks is the rank's block along seq; the
         positions stay whole, as every sublayer attends over the whole
         sequence."""
+        x, sp = self._trunk(params, tokens, frames)
+        return self._logits(params, x, sp)
+
+    def _trunk(self, params, tokens: torch.Tensor, frames=None):
+        """``forward`` up to the final norm: (the residual after the last
+        block, the sequence-parallel context it is cut by)."""
         cfg, rcfg = self.cfg, self.rcfg
         fam = cfg.family
         if fam == "encdec" and frames is None:
@@ -835,16 +887,48 @@ class LM:
 
             for lp, ls in zip(blocks, block_specs):
                 x = run(xblock, lp, ls, x, xa)
-        return self._logits(params, x, sp)
+        return x, sp
 
     def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(mean cross-entropy of ``batch["tokens"]``'s logits against
         ``batch["labels"]``, {"loss": the same}); encdec reads
         ``batch["frames"]``. As the reference's, it adds no MoE router
-        loss (``moe.router_aux_loss`` is a function apart)."""
-        logits = self.forward(params, batch["tokens"], frames=batch.get("frames"))
-        nll = ce_loss(logits, batch["labels"].to(self.device))
+        loss (``moe.router_aux_loss`` is a function apart). On a grid whose
+        model axis cuts the vocab, the logits are gathered whole a chunk of
+        positions at a time (``_chunked_ce``)."""
+        labels = batch["labels"].to(self.device)
+        if self.grid is None:
+            logits = self.forward(params, batch["tokens"], frames=batch.get("frames"))
+            nll = ce_loss(logits, labels)
+            return nll, {"loss": nll}
+        x, sp = self._trunk(params, batch["tokens"], batch.get("frames"))
+        logits, sharded = self._grid_block_logits(params, self._final_norm(params, x, sp), sp)
+        nll = self._chunked_ce(logits, labels) if sharded else ce_loss(logits, labels)
         return nll, {"loss": nll}
+
+    def _chunked_ce(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """``ce_loss`` of the rank's vocab block of the logits gathered over
+        model, CE_CHUNK gathered elements at a time: each chunk of positions
+        is gathered, its loss summed and the sum kept, under
+        ``torch.utils.checkpoint`` (the backward gathers the chunk again),
+        so no rank holds the whole logits at once. It is ``ce_loss`` of the
+        whole gather up to rounding: a gathered chunk's layout changes the
+        order of a row's sums. Where one chunk holds every position it is
+        ``ce_loss`` of the whole gather."""
+        tp = self.tp
+        rows = logits.shape[:-1].numel()
+        step = max(CE_CHUNK // (logits.shape[-1] * tp.size), 1)
+        if rows <= step:
+            return ce_loss(gather_replicated(logits, tp, logits.ndim - 1), labels)
+        flat, lab = logits.reshape(rows, -1), labels.reshape(rows)
+
+        def chunk(lg, lb):
+            lse, ll = _lse_ll(gather_replicated(lg, tp, 1), lb)
+            return (lse - ll).sum()
+
+        total = sum(checkpoint(chunk, flat[i:i + step], lab[i:i + step], use_reentrant=False)
+                    for i in range(0, rows, step))
+        return total / rows
 
     def _encode(self, params, frames: torch.Tensor, xsp=None) -> torch.Tensor:
         """encdec: the encoder over (B, Se, d_model) frames, in the
@@ -1004,6 +1088,26 @@ def kv_decode_bytes_per_token(cfg: ModelConfig, context_len: int,
         "scale_bytes": float(n_attn * 2 * G * Dh * 4) if kv_spec is not None
         else 0.0,
     }
+
+
+class TensorSpec(NamedTuple):
+    """A tensor's shape and dtype, nothing allocated (the reference's
+    ``jax.ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def input_specs(cfg: ModelConfig, shape) -> Dict[str, TensorSpec]:
+    """The abstract global batch of one (arch, shape) cell: train/prefill
+    {tokens, labels[, frames]}, decode {tokens (B, 1)}."""
+    B, Sq = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind in ("train", "prefill"):
+        spec = {"tokens": TensorSpec((B, Sq), i32), "labels": TensorSpec((B, Sq), i32)}
+        if cfg.family == "encdec":
+            spec["frames"] = TensorSpec((B, Sq, cfg.d_model), torch.bfloat16)
+        return spec
+    return {"tokens": TensorSpec((B, 1), i32)}
 
 
 def build_model(cfg: ModelConfig, rcfg: RunConfig, *, device="cuda",

@@ -9,8 +9,9 @@ reference):
   2. a stable sort of the T*k (token, expert) assignments by expert;
   3. the position of each within its expert by ``searchsorted``; those at
      or past the capacity C drop (C = T*k at decode, S == 1: drop-free);
-  4. dispatch into a fixed (E*C + 1, d) buffer whose last row takes the
-     dropped ones -> per-expert batched products -> gather back.
+  4. dispatch into a fixed (E_loc*C + 1, d) buffer (the rank's experts'
+     rows) whose last row takes the dropped ones and the other ranks'
+     -> per-expert batched products -> gather back.
 
 The expert products run on every expert's dequantized weights in plain
 PyTorch, as the reference computes them outside any Pallas kernel; the
@@ -21,7 +22,7 @@ indexing, no ``.item()``, so a step adds no host wait. The combine does not
 scatter-add (float atomics on the card would change the sum order from run
 to run): the sorted contributions are put back in (token, choice) order, a
 permutation, and summed over the k choices. In the backward, the dropped
-assignments' row E*C is cut off before the expert products and their
+assignments' last row is cut off before the expert products and their
 gathers are masked, so their gradient is zero; the permutation's backward
 is a gather, with nothing to accumulate.
 
@@ -34,7 +35,7 @@ assignments, in row order, i.e. the local one plus the assignments to the
 same expert of the ranks ahead (an exclusive prefix sum of the ranks'
 per-expert counts, all-gathered over the ``batch`` group). Each token's
 expert output depends on its own row alone, so the rank computes its own
-rows of the global (E, C, d) dispatch.
+rows of its experts' block of the global (E, C, d) dispatch.
 """
 from __future__ import annotations
 
@@ -96,10 +97,10 @@ def moe_forward(p: dict, x: torch.Tensor, cfg,
 
     Under tensor parallelism (``tp``, where the model axis cuts the
     experts) the expert leaves hold the rank's E_loc = E / tp experts, from
-    e0 = rank * E_loc. Routing and dispatch run over the global expert ids
-    on every rank; the rank computes its experts' rows of the dispatch,
-    scatters them into a zero global (E*C, d) layout, combines as at tp = 1
-    and all-reduces the combine (``reduce_out``; in training x and the
+    e0 = rank * E_loc. Routing and capacity run over the global expert ids
+    on every rank; the rank dispatches into and computes only its experts'
+    (E_loc, C, d) rows, combines as at tp = 1 (the other experts'
+    contributions zero) and all-reduces the combine (``reduce_out``; in training x and the
     router are read through ``copy_in``, since the combine's gradient
     reaches the gates of the rank's experts alone). The shared experts add
     in after that all-reduce (``mlp_forward`` reduces their own
@@ -140,32 +141,29 @@ def moe_forward(p: dict, x: torch.Tensor, cfg,
     keep = pos < C
     if DROPPED is not None:
         DROPPED.append(((~keep).sum(), T * k))
-    slot = torch.where(keep, sorted_expert * C + pos, torch.full_like(pos, E * C))
-    token_of = order // k
-    # 4. dispatch -> (E, C, d); dropped rows land (as zeros) on row E*C
-    disp = torch.zeros((E * C + 1, d), dtype=x.dtype, device=dev)
-    disp[slot] = xr[token_of] * keep[:, None].to(x.dtype)
-    disp = disp[:-1].reshape(E, C, d)
-    # 5. expert FFNs, batched over the rank's experts
+    # 4. dispatch -> the rank's experts' rows (E_loc, C, d) of the global
+    # (E, C, d) layout; the dropped assignments and those to the other
+    # ranks' experts land (as zeros) on row E_loc*C
     E_loc = p["wo"].shape[0]
     e0 = tp_e.rank * E_loc if tp_e is not None else 0
-    disp_e = disp[e0:e0 + E_loc]
+    mine = keep & (sorted_expert >= e0) & (sorted_expert < e0 + E_loc)
+    slot = torch.where(mine, (sorted_expert - e0) * C + pos, torch.full_like(pos, E_loc * C))
+    token_of = order // k
+    disp = torch.zeros((E_loc * C + 1, d), dtype=x.dtype, device=dev)
+    disp[slot] = xr[token_of] * mine[:, None].to(x.dtype)
+    disp_e = disp[:-1].reshape(E_loc, C, d)
+    # 5. expert FFNs, batched over the rank's experts
     fn = activation(cfg.act)
     if is_gated(cfg.act):
         h = fn(torch.bmm(disp_e, param_value(p["wg"], x.dtype))) \
             * torch.bmm(disp_e, param_value(p["wu"], x.dtype))
     else:
         h = fn(torch.bmm(disp_e, param_value(p["wi"], x.dtype)))
-    out_e = torch.bmm(h, param_value(p["wo"], x.dtype))
-    if E_loc != E:
-        # the other ranks' experts' rows stay zero; the all-reduce below
-        # sums the disjoint partials into the full mixture
-        full = torch.zeros((E, C, d), dtype=out_e.dtype, device=dev)
-        full[e0:e0 + E_loc] = out_e
-        out_e = full
-    out_flat = out_e.reshape(E * C, d)
-    # 6. gather back, weight, and combine in (token, choice) order
-    gathered = torch.where(keep[:, None], out_flat[slot.clamp(0, E * C - 1)],
+    out_flat = torch.bmm(h, param_value(p["wo"], x.dtype)).reshape(E_loc * C, d)
+    # 6. gather back, weight, and combine in (token, choice) order; the other
+    # ranks' experts' contributions stay zero, and the all-reduce below sums
+    # the disjoint partials into the full mixture
+    gathered = torch.where(mine[:, None], out_flat[slot.clamp(0, E_loc * C - 1)],
                            torch.zeros((), dtype=out_flat.dtype, device=dev))
     gates_sorted = gate_vals.reshape(-1)[order]
     contrib = gathered * gates_sorted[:, None].to(x.dtype)

@@ -72,6 +72,7 @@ made by ``launch.mesh.make_host_mesh``), one OS process a rank:
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import math
@@ -84,12 +85,34 @@ from repro_torch.core.policy import layer_prefixes, validate_scale_sharding
 from repro_torch.core.quantizers import QuantizedTensor
 
 __all__ = ["TP_AXIS", "GRID_AXES", "TPContext", "GridContext", "train_rules",
-           "fsdp_gather", "gather_replicated", "take_block", "gather_seq", "scatter_seq",
+           "set_collective_hook", "fsdp_gather", "gather_replicated", "take_block", "gather_seq", "scatter_seq",
            "seq_in", "seq_out", "placed", "shard_leaf", "shard_policy_params",
            "check_tp_shapes", "map_with_logical"]
 
 TP_AXIS = "tp"
 GRID_AXES = ("pod", "data", "model")
+
+# hook(kind, result, tp): a context manager around each collective of a
+# TPContext, if set (``launch.op_cost.count_step`` counts a step's bytes on
+# the wire with it, and takes the collective as one op: what the backend
+# dispatches inside it, gloo's copies on the CPU, is the backend's own)
+_collective_hook = None
+
+
+def set_collective_hook(hook):
+    """Install ``hook`` (or None) for every TPContext collective; returns the
+    hook it replaces."""
+    global _collective_hook
+    prev, _collective_hook = _collective_hook, hook
+    return prev
+
+
+def _counted(kind: str, out: torch.Tensor, tp):
+    """The hook's context around one collective of ``kind`` whose result is
+    ``out`` (none without a hook)."""
+    if _collective_hook is None:
+        return contextlib.nullcontext()
+    return _collective_hook(kind, out, tp)
 
 
 def _tp_rules() -> dict:
@@ -111,12 +134,16 @@ class TPContext:
     """One rank's view of the tensor-parallel group: its ``rank`` of
     ``size``, the process ``group`` that the all-reduces run over, and
     ``host_group``, a gloo group for host-side agreement checks (the same
-    group when the backend is gloo). ``TPContext()`` is tp = 1."""
+    group when the backend is gloo). ``host_checks`` False turns those
+    checks off: the dry run's fake world (backend "fake") has no peers to
+    exchange objects with, so ``check_equal`` checks nothing and
+    ``gather_objects`` raises. ``TPContext()`` is tp = 1."""
     rank: int = 0
     size: int = 1
     group: Any = None
     host_group: Any = None
     backend: str = "none"
+    host_checks: bool = True
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
         """Sum partial results over the ranks (the identity at tp = 1).
@@ -127,7 +154,8 @@ class TPContext:
         if self.size == 1:
             return x
         x = x.contiguous()
-        torch.distributed.all_reduce(x, group=self.group)
+        with _counted("all-reduce", x, self):
+            torch.distributed.all_reduce(x, group=self.group)
         return x
 
     def host(self) -> "TPContext":
@@ -142,7 +170,8 @@ class TPContext:
         y = x.clone(memory_format=torch.contiguous_format)
         if self.size > 1:
             red = torch.distributed.ReduceOp.MAX if op == "max" else torch.distributed.ReduceOp.SUM
-            torch.distributed.all_reduce(y, op=red, group=self.group)
+            with _counted("all-reduce", y, self):
+                torch.distributed.all_reduce(y, op=red, group=self.group)
         return y
 
     def all_gather(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -151,7 +180,8 @@ class TPContext:
             return x
         src = x.movedim(dim, 0).contiguous()
         out = src.new_empty((self.size * src.shape[0], *src.shape[1:]))
-        torch.distributed.all_gather_into_tensor(out, src, group=self.group)
+        with _counted("all-gather", out, self):
+            torch.distributed.all_gather_into_tensor(out, src, group=self.group)
         return out.movedim(0, dim)
 
     def reduce_scatter(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
@@ -161,7 +191,8 @@ class TPContext:
             return x
         src = x.movedim(dim, 0).contiguous()
         out = src.new_empty((src.shape[0] // self.size, *src.shape[1:]))
-        torch.distributed.reduce_scatter_tensor(out, src, group=self.group)
+        with _counted("reduce-scatter", out, self):
+            torch.distributed.reduce_scatter_tensor(out, src, group=self.group)
         return out.movedim(0, dim)
 
     def copy_in(self, x: torch.Tensor) -> torch.Tensor:
@@ -186,6 +217,9 @@ class TPContext:
         on the others, over the host group."""
         if self.size == 1:
             return [value]
+        if not self.host_checks:
+            raise RuntimeError("gather_objects: this group's host checks are off "
+                               f"(backend {self.backend!r}: no peers to gather from)")
         out = [None] * self.size if self.rank == 0 else None
         dst = torch.distributed.get_global_rank(self.host_group, 0)
         torch.distributed.gather_object(value, out, dst=dst, group=self.host_group)
@@ -195,8 +229,9 @@ class TPContext:
         """Raise on every rank unless every rank holds the same ``value``
         (a numpy array or a picklable object) as rank 0: a rank whose
         streams part from rank 0's is an error, never a hang (the group's
-        timeout ends a rank that stops calling)."""
-        if self.size == 1:
+        timeout ends a rank that stops calling). Nothing is checked where
+        ``host_checks`` is off."""
+        if self.size == 1 or not self.host_checks:
             return
         got = [None] * self.size
         torch.distributed.all_gather_object(got, value, group=self.host_group)

@@ -161,3 +161,44 @@ def megatron_mlp(grid, device, w, x, probe):
     loss = (mlp_forward(p, xt, "silu", tp=tp) * torch.tensor(probe)).sum()
     loss.backward()
     return (loss.item(), xt.grad.numpy(), {k: t.grad.numpy() for k, t in p.items()})
+
+
+def cost_case(grid, device, arch, run_kw, batch):
+    """``op_cost.count_step`` of one ``make_train_step`` on this rank (the
+    smoke ``arch`` at its default bf16 weights, ``run_kw`` its RunConfig's
+    other fields) from the seed-0 state drawn on the grid, on ``batch``
+    (the whole batch, tensors): the StepCost's counts (flops, bytes, bytes
+    on the wire by kind, collectives), as the dry run's fake world is held
+    to them. The caches the step reads are put in a first step's state
+    first, as the dry run puts them (``dryrun.prepare_host_tables``)."""
+    from repro_torch.launch.dryrun import prepare_host_tables
+    from repro_torch.launch.op_cost import count_step
+    from repro_torch.launch.train import make_train_state
+    model = build_model(smoke(ARCHS[arch]), RunConfig(**run_kw), device=device, grid=grid)
+    state = make_train_state(model, 0)
+    prepare_host_tables()
+    cost = count_step(make_train_step(model, grid), state, batch)
+    return {"flops": cost.flops_per_device, "bytes": cost.bytes_per_device,
+            "wire_by_kind": cost.wire_by_kind, "n_collectives": cost.n_collectives,
+            "wire": cost.wire_bytes_per_device}
+
+
+def chunked_loss_case(grid, device, arch, chunk, batch):
+    """``LM.loss`` and its gradients on this rank's rows of ``batch`` (one
+    microbatch) from the seed-0 state at f32, with the grid's logits
+    gathered whole at once and then ``chunk`` elements at a time
+    (``models.CE_CHUNK``): (loss, gradients) numpy for each."""
+    from repro_torch.launch.train import make_train_state, rank_microbatches, value_and_grad
+    from repro_torch.nn import models
+    model = grid_model(grid, device, arch, {})
+    params = make_train_state(model, 0)["params"]
+    mb = rank_microbatches(model, batch, 1)[0]
+    out = []
+    for ce_chunk in (models.CE_CHUNK, chunk):
+        saved, models.CE_CHUNK = models.CE_CHUNK, ce_chunk
+        try:
+            loss, grads = value_and_grad(model, params, mb)
+        finally:
+            models.CE_CHUNK = saved
+        out.append((float(loss), [g.numpy() for g in grads]))
+    return out
