@@ -215,6 +215,25 @@ Phases, one line each, any failure exits non-zero without the final line:
    --shape train_4k --mesh single --device cuda``'s ``main`` (rank 0 of a
    fake world of 256 on (16, 16)): its per-rank GiB and bound printed.
 
+21. serving on a (pod, data, model) grid (``phase_grid_serve``): yi-9b at
+   full width on 1 layer, pofx8 weights, fxp8 KV cache, kernels on, f32
+   activations, 8 slots: ragged prompts of 100-140 tokens in a 256-position
+   cache (128 positions a model rank; three prompts end past the boundary,
+   two cross it while decoding) and short prompts in a 4096-position cache
+   (model rank 1's block empty), each prefilled and decoded 16 greedy steps
+   at tp = 1 in this process and on (data 2, model 2) in four rank
+   processes (gloo on one card, NCCL with a card each): every rank's
+   streams equal tp = 1's, with the kernels and with their plain versions;
+   first-token logits within 1e-3 of the largest; each rank's KV codes its
+   block of tp = 1's (at most 0.1 % one step apart); per rank exactly 8
+   pofx_matmul a forward and one kv_flash_decode (with its lse output) a
+   decode step; decode ms a step, the combine's share of a step
+   (``combine_partials`` in a ``record_function`` range, profiled) and peak
+   GiB a rank. The lse output itself is held against its plain form in
+   phase 2 at a rank's shapes, local lengths of 0 included
+   (``bench.kernels.GRID_KV_SHAPES``), where kv_flash_paged_decode (whose
+   shared body passes no lse) stays bit-equal to the dense kernel.
+
 Before torch is imported, the CUDA driver is asked to start in a process of
 its own (``wait_for_card``): a freshly booted host may refuse for a while
 (CUDA_ERROR_SYSTEM_NOT_READY until its fabric manager is up), and a start
@@ -3102,12 +3121,244 @@ def phase_dryrun(torch, result):
         raise AssertionError("; ".join(bad))
 
 
+# phase 21: serving on a (pod, data, model) grid: yi-9b at full width on
+# GRID_LAYERS layers (phase 17's), 8 slots on (data 2, model 2), greedy
+GRID_SERVE_SLOTS = 8
+GRID_SERVE_STEPS = 16
+GRID_SERVE_CALLS = {
+    # max_len 256, 128 positions a model rank: ragged prompts, the last three
+    # past the block boundary, two more crossing it while they decode
+    "ragged": (256, (100, 106, 112, 118, 124, 129, 135, 140)),
+    # max_len 4096, short prompts: model rank 1's block (2048-4095) holds
+    # no valid position
+    "long": (4096, (8, 11, 14, 17, 20, 23, 26, 29)),
+}
+GRID_SERVE_LOGIT_RTOL = 1e-3    # grid vs tp = 1 first-token logits, of the largest logit
+GRID_SERVE_CODE_SHARE = 1e-3    # KV codes one step apart from tp = 1's, at most
+GRID_SERVE_PROFILE_STEPS = 4
+
+
+def grid_serve_inputs(torch, vocab: int, prompts, device):
+    """The 8 prompts (lengths ``prompts``, tokens from seed 3) right-padded
+    into one (8, max) batch, and their lengths."""
+    g = torch.Generator().manual_seed(3)
+    tokens = torch.zeros((len(prompts), max(prompts)), dtype=torch.long)
+    for i, n in enumerate(prompts):
+        tokens[i, :n] = torch.randint(0, vocab, (n,), generator=g)
+    return tokens.to(device), torch.tensor(prompts, dtype=torch.int32, device=device)
+
+
+def sync(torch, device) -> None:
+    """Wait for the card (nothing on the CPU)."""
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def grid_serve_call(torch, model, params, tokens, length, max_len):
+    """``prefill`` and GRID_SERVE_STEPS greedy ``decode_step``s; returns
+    (streams (8, steps), first-token logits, the cache, decode ms a step)."""
+    cache = model.init_cache(tokens.shape[0], max_len)
+    cache, logits = model.prefill(params, tokens, cache=cache, length=length)
+    first = logits.float().cpu()
+    out = []
+    sync(torch, model.device)
+    t0 = time.perf_counter()
+    for _ in range(GRID_SERVE_STEPS):
+        nxt = logits.argmax(-1)[:, None]
+        out.append(nxt)
+        cache, logits = model.decode_step(params, cache, nxt)
+    sync(torch, model.device)
+    step_ms = (time.perf_counter() - t0) * 1e3 / GRID_SERVE_STEPS
+    return torch.cat(out, 1).cpu(), first, cache, step_ms
+
+
+def grid_serve_rank(grid, device, spec):
+    """Phase 21's rank side (in a rank process; at tp = 1 in this one, with
+    ``grid`` None): yi-9b at full width on GRID_LAYERS layers, f32
+    activations, pofx8 weights from seed 1 (a rank draws each whole leaf
+    and keeps its codes' block), an fxp8 KV cache, kernels on. For each call
+    of GRID_SERVE_CALLS: ``prefill`` of the 8 right-padded prompts
+    (``length``) and GRID_SERVE_STEPS greedy decode steps with the launches
+    counted from 0, then again with every kernel's plain version (PLAIN).
+    Returns each call's streams, first-token logits, the rank's KV codes,
+    launches, decode ms a step and peak GiB; on the grid also decode steps
+    profiled with ``combine_partials`` in a ``record_function`` range."""
+    import torch
+    from repro_torch.configs import ARCHS, RunConfig
+    from repro_torch.core.policy import QuantPolicy, parse_spec
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.ops import PLAIN
+    from repro_torch.nn import attention
+    from repro_torch.nn.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(ARCHS["yi-9b"], n_layers=GRID_LAYERS, **spec.get("over", {}))
+    model = build_model(cfg, RunConfig(remat="none", activation_dtype="f32"), device=device,
+                        use_kernel=True, kv_spec=parse_spec("fxp8"), grid=grid)
+    params = model.init(1, policy=QuantPolicy.from_string("pofx8"))
+    plain = dataclasses.replace(model, kernel_set=PLAIN)
+    out = {"rank": 0 if grid is None else grid.rank}
+    card = torch.device(device).type == "cuda"
+    for name, (max_len, prompts) in GRID_SERVE_CALLS.items():
+        tokens, length = grid_serve_inputs(torch, cfg.vocab_size, prompts, device)
+        if card:
+            torch.cuda.reset_peak_memory_stats(device)
+        reset_launches()
+        streams, first, cache, step_ms = grid_serve_call(torch, model, params, tokens, length,
+                                                         max_len)
+        launches = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(device) / 2**30 if card else 0.0
+        kv = {k: cache["kv"][k].cpu().numpy() for k in ("k", "v")}
+        del cache
+        plain_streams = grid_serve_call(torch, plain, params, tokens, length, max_len)[0]
+        out[name] = {"streams": streams.tolist(), "plain_streams": plain_streams.tolist(),
+                     "first": first.numpy() if out["rank"] == 0 else None, "kv": kv,
+                     "launches": launches, "step_ms": step_ms, "peak_gib": peak}
+    if grid is not None:
+        out["profile"] = grid_serve_profile(torch, model, params, cfg.vocab_size, device,
+                                            attention)
+    return out
+
+
+def grid_serve_profile(torch, model, params, vocab, device, attention):
+    """GRID_SERVE_PROFILE_STEPS decode steps of the "ragged" call under
+    torch.profiler with ``combine_partials`` in a ``record_function``
+    range: a step's wall ms and the combine's host and device ms a step."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    max_len, prompts = GRID_SERVE_CALLS["ragged"]
+    tokens, length = grid_serve_inputs(torch, vocab, prompts, device)
+    cache, logits = model.prefill(params, tokens, cache=model.init_cache(len(prompts), max_len),
+                                  length=length)
+    nxt = logits.argmax(-1)[:, None]
+    cache, logits = model.decode_step(params, cache, nxt)
+    saved = attention.combine_partials
+    attention.combine_partials = annotated(torch, "combine_partials", saved)
+    card = torch.device(device).type == "cuda"
+    try:
+        sync(torch, device)
+        with profile(activities=[ProfilerActivity.CPU]
+                     + ([ProfilerActivity.CUDA] if card else [])) as prof:
+            t0 = time.perf_counter()
+            for _ in range(GRID_SERVE_PROFILE_STEPS):
+                cache, logits = model.decode_step(params, cache, logits.argmax(-1)[:, None])
+            sync(torch, device)
+            wall = (time.perf_counter() - t0) * 1e3 / GRID_SERVE_PROFILE_STEPS
+    finally:
+        attention.combine_partials = saved
+    spans = [e for e in prof.events()
+             if e.name == "combine_partials" and e.device_type == DeviceType.CPU]
+    return {"wall_ms": wall,
+            "combine_host_ms": sum(e.cpu_time_total for e in spans) / 1e3
+            / GRID_SERVE_PROFILE_STEPS,
+            "combine_device_ms": sum(e.device_time_total for e in spans) / 1e3
+            / GRID_SERVE_PROFILE_STEPS}
+
+
+def grid_serve_check(torch, one, ranks, layout, name, failed, card=True):
+    """Phase 21's checks of one call: every rank's streams (kernels and
+    plain) equal tp = 1's, first-token logits within GRID_SERVE_LOGIT_RTOL
+    of the largest, each rank's KV codes its block of tp = 1's (at most
+    GRID_SERVE_CODE_SHARE one step apart), and on the ``card`` the expected
+    launches a rank (on the CPU the wrappers launch nothing). Returns the
+    call's record."""
+    import numpy as np
+    want_s = one[name]["streams"]
+    for r, res in enumerate(ranks):
+        got = res[name]
+        if got["streams"] != want_s:
+            failed.append(f"{name}: rank {r}'s streams differ from tp = 1's")
+        if got["plain_streams"] != got["streams"]:
+            failed.append(f"{name}: rank {r}'s plain streams differ from its kernels'")
+    a, b = ranks[0][name]["first"], one[name]["first"]
+    logit_err = float(np.abs(a - b).max() / np.abs(b).max())
+    if logit_err > GRID_SERVE_LOGIT_RTOL:
+        failed.append(f"{name}: first-token logits {logit_err:.2e} of the largest apart")
+    flips, worst = 0.0, 0
+    for r, res in enumerate(ranks):
+        r0, nb = layout[r]["rows"]
+        m, M = layout[r]["model"]
+        for k, leaf in res[name]["kv"].items():
+            whole = one[name]["kv"][k]
+            S_l = whole.shape[3] // M
+            want = whole[:, r0:r0 + nb, :, m * S_l:(m + 1) * S_l].astype(np.int32)
+            d = np.abs(leaf.astype(np.int32) - want)
+            flips = max(flips, float((d != 0).mean()))
+            worst = max(worst, int(d.max()))
+    if flips > GRID_SERVE_CODE_SHARE or worst > 1:
+        failed.append(f"{name}: KV codes {flips:.2e} apart from tp = 1's (largest {worst})")
+    per_fwd = 7 * GRID_LAYERS + 1
+    want = {"pofx_matmul": per_fwd * (1 + GRID_SERVE_STEPS),
+            "kv_flash_decode": GRID_LAYERS * GRID_SERVE_STEPS, "kv_flash_paged_decode": 0,
+            "fxp_matmul": 0, "pofx_decode": 0}
+    for r, res in enumerate(ranks):
+        if card and res[name]["launches"] != want:
+            failed.append(f"{name}: rank {r} launched {res[name]['launches']}, not {want}")
+    rec = {"step_ms": [res[name]["step_ms"] for res in ranks],
+           "tp1_step_ms": one[name]["step_ms"],
+           "peak_gib": [res[name]["peak_gib"] for res in ranks],
+           "tp1_peak_gib": one[name]["peak_gib"], "launches": ranks[0][name]["launches"],
+           "first_logit_err": logit_err, "kv_code_share_apart": flips,
+           "streams_equal": all(res[name]["streams"] == want_s for res in ranks)}
+    log(f"  {name} (max_len {GRID_SERVE_CALLS[name][0]}): decode "
+        f"{', '.join(f'{x:.2f}' for x in rec['step_ms'])} ms a step a rank (tp=1 "
+        f"{rec['tp1_step_ms']:.2f}); peak {', '.join(f'{x:.2f}' for x in rec['peak_gib'])} "
+        f"GiB a rank (tp=1 {rec['tp1_peak_gib']:.2f}); streams = tp=1: "
+        f"{rec['streams_equal']}; first logits {logit_err:.2e} of the largest apart; KV "
+        f"codes {flips:.2e} apart; launches a rank {rec['launches']}")
+    return rec
+
+
+def phase_grid_serve(torch, result, device="cuda", over=None):
+    """Phase 21: serving on a (data 2, model 2) grid. yi-9b at full width on
+    GRID_LAYERS layers, pofx8 weights, an fxp8 KV cache, kernels on, f32
+    activations: GRID_SERVE_CALLS (8 ragged prompts of 100-140 tokens in a
+    256-position cache, 128 a model rank, and short prompts in a 4096-
+    position cache, model rank 1's block empty), each prefilled and decoded
+    GRID_SERVE_STEPS greedy steps at tp = 1 in this process and on the grid
+    (four rank processes, ``RankPool(grids=)``: gloo when they share the
+    card, NCCL with a card each); held by ``grid_serve_check``. Reports
+    decode ms a step, the combine's share of a step (``combine_partials``
+    in a ``record_function`` range), peak GiB a rank. Every check runs
+    before a failure is raised."""
+    from repro_torch.launch.mesh import RankPool, grid_layout, pick_backend
+    from repro_torch.nn.sharding import GridContext
+    spec = {"over": over or {}}
+    t0 = time.perf_counter()
+    one = grid_serve_rank(None, device, spec)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    with RankPool(4, device, grids=[(1, 2, 2)]) as pool:
+        if pool.backend != pick_backend(4, device):
+            raise AssertionError(f"the grid took {pool.backend}")
+        log(f"  tp=1 and 4 ranks over {pool.backend} ({time.perf_counter() - t0:.0f} s)")
+        ranks = pool.run(grid_serve_rank, spec, grid=(1, 2, 2))
+    shape, names = grid_layout(1, 2, 2)
+    layout = []
+    for r in range(4):
+        lay = GridContext(shape, names, rank=r)
+        layout.append({"rows": lay.rows(GRID_SERVE_SLOTS), "model": (lay.coords["model"], 2)})
+    failed = []
+    entry = {"backend": pool.backend, "layers": GRID_LAYERS}
+    for name in GRID_SERVE_CALLS:
+        entry[name] = grid_serve_check(torch, one, ranks, layout, name, failed,
+                                       card=torch.device(device).type == "cuda")
+    prof = ranks[0]["profile"]
+    prof["combine_share"] = prof["combine_host_ms"] / prof["wall_ms"]
+    entry["profile"] = prof
+    log(f"  combine_partials: {prof['combine_host_ms']:.3f} ms of a {prof['wall_ms']:.2f} ms "
+        f"decode step on the host ({100 * prof['combine_share']:.1f}%), "
+        f"{prof['combine_device_ms']:.3f} ms on the device (rank 0, profiled)")
+    result["grid_serve"] = entry
+    if failed:
+        raise AssertionError("; ".join(failed))
+
+
 def main(argv) -> int:
     if argv[:1] == ["--dryrun-child"]:
         return dryrun_child(argv[1])
     import argparse
     ap = argparse.ArgumentParser(description="drive the port on one card")
-    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20",
+    ap.add_argument("--phases", default="2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18,19,20,21",
                     help="comma-separated phases after the build (default: all)")
     want = {int(p) for p in ap.parse_args(argv).phases.split(",")}
     state = wait_for_card()
@@ -3192,6 +3443,8 @@ def main(argv) -> int:
          "model 2) grid", lambda: phase_grid_families(torch, result)),
         ("phase 20: the dry run against the card (yi-9b width 4 layers; yi-9b train_4k "
          "on (16, 16))", lambda: phase_dryrun(torch, result)),
+        ("phase 21: serving on a (data 2, model 2) grid, yi-9b width",
+         lambda: phase_grid_serve(torch, result)),
     ]
     for label, fn in phases:
         if int(label.split()[1].rstrip(":")) not in want:
@@ -3216,7 +3469,7 @@ def main(argv) -> int:
     if failed:
         log(f"FAILED: {failed}")
         return 1
-    if want != set(range(2, 21)):
+    if want != set(range(2, 22)):
         log(f"ran phases {sorted(want)} only: no result line")
         return 1
     main_counts = result["main_counts"]
@@ -3236,6 +3489,16 @@ def main(argv) -> int:
                                      "src/repro/kernels/kv_flash_paged_decode.py:142"),
            "pofx_decode": ("src/repro_torch/csrc/pofx_decode.cu",
                            "src/repro/kernels/pofx_decode.py:45")}
+    # phase 21's path: kv_flash_decode with its lse output over each grid
+    # rank's block (rank 0's launches over both calls), its row at a rank's
+    # shapes beside the main path's
+    grid_serve = result["grid_serve"]
+    lse_shape = "lse fxp8 B=4 G=4 R=8 S=128 Dh=128 pos=[0, 37, 100, 128]"
+    lse_row = next(r for r in rows if r["name"] == "kv_flash_decode" and r["shape"] == lse_shape)
+    grid_launches = sum(grid_serve[c]["launches"]["kv_flash_decode"] for c in GRID_SERVE_CALLS)
+    if grid_launches <= 0:
+        log("FAILED: kv_flash_decode was not launched on the grid's path")
+        return 1
     kernels = []
     for name, (shape, launches) in pick.items():
         if launches <= 0:
@@ -3248,6 +3511,11 @@ def main(argv) -> int:
                         "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                         "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                         "shape": shape})
+        if name == "kv_flash_decode":
+            kernels[-1]["grid_lse"] = {
+                "launches": grid_launches, "shape": lse_shape,
+                **{k: lse_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")}}
     log(f"total {result['seconds']:.1f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

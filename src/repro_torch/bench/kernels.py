@@ -40,7 +40,9 @@ size. The rows:
     R = 12, Dh = 192 (two row groups of 8 a (b, g)); and at the shapes a
     rank serves at tensor parallelism tp = 2: pofx_matmul at m = 4 and 64 on
     yi-9b's, moonshot's and zamba2's weight shards (``TP2_SHAPES_POFX``) and
-    both flash-decode kernels (fxp8) at yi-9b's G = 2, R = 8;
+    both flash-decode kernels (fxp8) at yi-9b's G = 2, R = 8; and at a
+    (data 2, model 2) grid rank's block of yi-9b's cache, kv_flash_decode
+    with its lse output (``GRID_KV_SHAPES``, local lengths of 0 included);
 (c) pofx_decode at the five yi-9b weight shapes, (N, ES) = (8, 2), and at
     the mlp shape with (9, 2).
 
@@ -107,6 +109,10 @@ POFX_SPECS = [(N, ES) for N in (6, 7, 8) for ES in (1, 2, 3)]
 DECODE_PARAMS = [(N, ES, M) for N in range(3, 10) for ES in range(5) for M in range(1, 9)]
 KV_SHAPES = ((96, [65, 80, 90, 96]), (1000, [1, 333, 999, 1000]),
              (4096, [1, 1365, 4095, 4096]))   # the last: yi-9b's 4096-token context
+# a grid rank's block of positions (chip_smoke's phase 21: model rank 1 of
+# 2 holds positions 128-255 of 256, or 2048-4095 of 4096) and the local
+# lengths clamp(pos + 1 - start, 0, S) of rows before, inside and past it
+GRID_KV_SHAPES = ((128, [0, 37, 100, 128]), (2048, [0, 0, 0, 0]))
 
 
 def log(msg: str) -> None:
@@ -269,7 +275,11 @@ class KernelBench:
                         library_ms_clean_l2=lib)
 
     def kv_flash_decode_row(self, spec_s: str, S: int, pos_list, G: int = 4,
-                            R: int = 8, Dh: int = 128) -> Dict:
+                            R: int = 8, Dh: int = 128, lse: bool = False) -> Dict:
+        """One kv_flash_decode row; ``lse`` calls it with its log-sum-exp
+        output, held against the plain version's (raising beyond 1e-5 +
+        1e-5 |lse|), at the shapes of a grid rank's block of positions
+        (a length of 0: a block past a row's position)."""
         spec = parse_spec(spec_s)
         B = 4
         dev = self.dev
@@ -280,8 +290,18 @@ class KernelBench:
         vc = kv_quantize(self.randn(B, G, S, Dh), spec, vs)
         pos = torch.tensor(pos_list, dtype=torch.int32, device=dev)
         args = (q, kc, ks, vc, vs, pos, spec)
-        got = kv_flash_decode(*args)
-        want = kv_flash_decode_ref(*args)
+        if lse:
+            (got, got_lse), (want, want_lse) = (kv_flash_decode(*args, with_lse=True),
+                                                kv_flash_decode_ref(*args, with_lse=True))
+            lse_err = (got_lse - want_lse).abs()
+            # an empty row's lse is -inf in both
+            if not ((got_lse == want_lse) | (lse_err <= 1e-5 + 1e-5 * want_lse.abs())).all():
+                raise AssertionError(f"kv_flash_decode's lse {spec_s} S={S} pos={pos_list} "
+                                     f"differs from the plain version's by "
+                                     f"{lse_err.max().item()}")
+        else:
+            got = kv_flash_decode(*args)
+            want = kv_flash_decode_ref(*args)
         err = (got - want).abs().max().item()
         # f32 online softmax vs a one-pass softmax: a few ulps of |v|
         tol = 1e-5 + 1e-4 * want.abs().max().item()
@@ -289,11 +309,17 @@ class KernelBench:
         vf = kv_dequantize(vc, spec, vs)
         mask = (torch.arange(S, device=dev)[None, :] < pos[:, None].long())[:, None, None, :]
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        valid = sum(min(p, S) for p in pos_list)
-        nbytes = 2 * G * valid * Dh + 2 * B * G * R * Dh * 4 + 2 * B * G * Dh * 4 + B * 4
-        return self.add("kv_flash_decode", f"{spec_s} B={B} G={G} R={R} S={S} Dh={Dh} pos={pos_list}",
-                        err=err, tol=tol, kernel=lambda: kv_flash_decode(*args),
-                        plain=lambda: kv_flash_decode_ref(*args),
+        # the slots' valid positions; a length of 0 (only in the lse rows: a
+        # block wholly past the slot's position) reads nothing, not even q
+        live = [min(p, S) for p in pos_list if p > 0]
+        valid = sum(live)
+        nbytes = (2 * G * valid * Dh + len(live) * (G * R * Dh * 4 + 2 * G * Dh * 4)
+                  + B * G * R * Dh * 4 + B * 4 + (B * G * R * 4 if lse else 0))
+        kw = {"with_lse": True} if lse else {}
+        return self.add("kv_flash_decode", ("lse " if lse else "")
+                        + f"{spec_s} B={B} G={G} R={R} S={S} Dh={Dh} pos={pos_list}",
+                        err=err, tol=tol, kernel=lambda: kv_flash_decode(*args, **kw),
+                        plain=lambda: kv_flash_decode_ref(*args, **kw),
                         library=lambda: sdpa(q, kf, vf, attn_mask=mask),
                         library_name="scaled_dot_product_attention on dequantized K/V",
                         nbytes=nbytes, ops=4 * G * R * valid * Dh, kind="f32",
@@ -420,6 +446,10 @@ def run(device="cuda", *, smoke: bool = False, timer: Optional[Timer] = None) ->
     for S, pos_list in KV_SHAPES:
         bench.kv_flash_decode_row("fxp8", S, pos_list, G=2, R=8)
         bench.kv_flash_paged_decode_row("fxp8", S, pos_list, G=2, R=8)
+    # a (data 2, model 2) grid rank's block of yi-9b's cache, with the lse
+    # output: 4 of 8 slots, 128 (or 2048) of 256 (4096) positions
+    for S, pos_list in GRID_KV_SHAPES:
+        bench.kv_flash_decode_row("fxp8", S, pos_list, lse=True)
     # (c) pofx_decode at the yi-9b weight shapes; at the mlp shape also with
     # N = 9, whose 256-byte table has two words a bank (N = 8: one)
     for k, n in SHAPES_POFX:

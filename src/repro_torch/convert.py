@@ -138,10 +138,22 @@ def rank_params_from_numpy(tree: Dict[str, Any], model) -> Dict[str, Any]:
     """The reference's parameter tree (numpy) -> the shard that ``model``
     (one rank's LM: its ``tp`` context and device) serves: the whole tree
     converted, then every leaf cut to the rank's slice of codes and
-    scale."""
+    scale. On a grid (``model.grid``) each leaf is cut by its spec
+    (``LM.specs``), a quantized leaf's codes alone: its scale stays
+    whole, as ``LM.init`` places it."""
     from repro_torch.nn.sharding import shard_policy_params
-    full = params_from_numpy(tree, device=model.device)
-    return shard_policy_params(full, model.logical(), model.tp)
+    if model.grid is None:
+        full = params_from_numpy(tree, device=model.device)
+        return shard_policy_params(full, model.logical(), model.tp)
+    grid, dev = model.grid, model.device
+
+    def one(spec, leaf):
+        if isinstance(leaf, QuantizedTensor):
+            return QuantizedTensor(grid.shard(leaf.codes, spec).to(dev), leaf.scale.to(dev),
+                                   leaf.spec)
+        return grid.shard(leaf, spec).to(dev)
+
+    return _zip_map(one, model.specs(), params_from_numpy(tree, device="cpu"))
 
 
 def train_state_from_numpy(tree: Dict[str, Any], *, device) -> Dict[str, Any]:

@@ -39,12 +39,20 @@
 // the combine. All within the stated tolerance (1e-5 + 1e-4 max |out|).
 //
 // Masking is the plain version's: scores at idx >= pos[b] are -1e30 and
-// positions past S weigh 0; pos <= 0 or pos > S attends over all S rows
-// (s_end = S), else the walk stops at s_end = pos. A chunk that starts at
+// positions past S weigh 0; pos > S, or pos <= 0 without the lse output
+// below, attends over all S rows (s_end = S), else the walk stops at s_end = pos. A chunk that starts at
 // or past s_end writes the neutral partial (m = -inf, l = 0, acc = 0),
 // which the combine adds exactly. So the result depends on the positions
 // below s_end and on L only: dense and paged give the same bits when their
 // plans give the same L.
+//
+// Where P.lse is set, each row's log-sum-exp of its (scaled, masked)
+// scores, m + log(l), is written beside the normalized output (f32,
+// (B, G, R)): a caller that holds one block of a cache's positions combines
+// its rows with the other blocks' (nn.sharding.combine_partials). There a
+// row with no valid position (pos <= 0: the block lies wholly past the
+// row's position) reads nothing: its blocks write out = 0 and lse = -inf
+// at once, a weight of exactly 0 in the combine.
 //
 // A Cache policy says where position t's code row and a slot's scales are:
 //   size_t row(int b, int g, int bg, int t)   codes at row * Dh .. + Dh
@@ -79,6 +87,7 @@ struct Params {
   int* counters;                  // B * G zeros
   int G, R, S, L, n_splits, pos_stride, q_bf16;
   float qk_scale, step;           // step 0: decode through the table
+  float* lse;                     // (B, G, R) f32 m + log(l) per row, or nullptr
 };
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -208,7 +217,16 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params P, const Cache 
   const float* table = fxp ? nullptr : tab;
 
   const int p = P.pos[(size_t)b * P.pos_stride];
-  // pos <= 0 masks everything: the plain version then averages all S rows
+  // pos <= 0 masks everything: the plain version then averages all S rows;
+  // with the lse output the rows are empty, written by split 0 alone (the
+  // block's threads all return here, before any barrier or counter)
+  if (p <= 0 && P.lse) {
+    if (split == 0) {
+      for (int e = tid; e < nr * Dh; e += NT) P.out[((size_t)bg * R + rb) * Dh + e] = 0.f;
+      if (tid < nr) P.lse[(size_t)bg * R + rb + tid] = -INFINITY;
+    }
+    return;
+  }
   const int s_end = (p <= 0 || p > S) ? S : p;
   const int c0 = split * L;
   const int c1 = min(c0 + L, s_end);
@@ -388,7 +406,10 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params P, const Cache 
       wacc[(((size_t)bg * n + split) * R + rb + r) * Dh + d] = a;
     }
   }
-  if (n == 1) return;
+  if (n == 1) {
+    if (P.lse && tid < nr) P.lse[(size_t)bg * R + rb + tid] = mls[2 * tid] + logf(mls[2 * tid + 1]);
+    return;
+  }
   if (tid < 2 * nr) wml[2 * (((size_t)bg * n + split) * R + rb) + tid] = mls[tid];
 
   __threadfence();
@@ -435,6 +456,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(const Params P, const Cache 
       }
     }
     if (sr < nr) {
+      if (P.lse && sq == 0) P.lse[(size_t)bg * R + r] = mx + logf(lsum);
       const float inv = 1.f / fmaxf(lsum, 1e-30f);
       float* o = P.out + ((size_t)bg * R + r) * Dh + sq * QL;
 #pragma unroll

@@ -6,7 +6,9 @@
 //
 //   q (B, G, R, Dh) f32 or bf16; k/v codes (B, G, S, Dh) int8 (fxp) or uint8
 //   (pofx); k/v scales (B, G, 1, Dh) f32; pos (B,) int32 valid lengths (stride 0:
-//   one for all) -> out (B, G, R, Dh) f32.
+//   one for all) -> out (B, G, R, Dh) f32, and where lse is not null each
+//   row's log-sum-exp of its masked scores (B, G, R) f32, for a caller that
+//   combines blocks of a cache's positions held apart.
 //
 // Design for the H100 (the body is kv_flash_common.cuh, shared with
 // kv_flash_paged_decode.cu): split-S flash-decoding. The grid is (B * G,
@@ -25,7 +27,8 @@
 //
 // Bound: the code bytes, 2 * S_valid * Dh per (b, g) per layer per step;
 // the arithmetic is a few flops per byte. Chunks past pos[b] write a neutral
-// partial and read nothing.
+// partial and read nothing; with the lse output a slot with pos[b] <= 0 (a
+// grid rank's block wholly past the slot's position) reads nothing at all.
 //
 // This file supplies where a slot's rows live: contiguous, row b*G*S +
 // g*S + t, and one scale row per (b, g).
@@ -44,7 +47,7 @@ struct DenseCache {
 extern "C" int kv_flash_decode(const void* q, const void* kc, const void* ks,
                                const void* vc, const void* vs, const void* pos,
                                const void* table, void* out, void* ws,
-                               void* counters, int B, int G, int R, int S,
+                               void* counters, void* lse, int B, int G, int R, int S,
                                int Dh, int L, int n_splits, int pos_stride,
                                int q_bf16, float qk_scale, float step,
                                void* stream) {
@@ -52,6 +55,6 @@ extern "C" int kv_flash_decode(const void* q, const void* kc, const void* ks,
                            (const uint8_t*)vc, (const float*)vs,
                            (const int*)pos, (const float*)table, (float*)out,
                            (float*)ws, (int*)counters, G, R, S, L, n_splits,
-                           pos_stride, q_bf16, qk_scale, step};
+                           pos_stride, q_bf16, qk_scale, step, (float*)lse};
   return kv_flash::dispatch(P, B, Dh, DenseCache{S}, stream);
 }

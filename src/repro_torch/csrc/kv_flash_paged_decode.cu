@@ -62,6 +62,7 @@ extern "C" int kv_flash_paged_decode(const void* q, const void* kpool,
                            (const uint8_t*)vpool, (const float*)vs,
                            (const int*)pos, (const float*)table, (float*)out,
                            (float*)ws, (int*)counters, G, R, max_pages * ps, L,
-                           n_splits, pos_stride, q_bf16, qk_scale, step};
+                           n_splits, pos_stride, q_bf16, qk_scale, step,
+                           nullptr};  // no lse
   return kv_flash::dispatch(P, B, Dh, cache, stream);
 }

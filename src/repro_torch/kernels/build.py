@@ -99,7 +99,7 @@ _SIGNATURES = {
         name: [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
         for name in ("pofx_matmul_f32", "pofx_matmul_bf16")},
     "kv_flash_decode": {
-        "kv_flash_decode": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+        "kv_flash_decode": [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
         + [ctypes.c_float] * 2 + [ctypes.c_void_p]},
     "fxp_matmul": {
         "fxp_matmul": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4

@@ -11,7 +11,10 @@ and acc in f32) over its chunk, streaming code bytes with 16-byte
 two calls give the same bits; one launch and one count per call.
 
 Bound on the card: the code bytes, 2 * S_valid * Dh per (b, g) per layer
-and step; chunks past ``pos[b]`` read nothing.
+and step; chunks past ``pos[b]`` read nothing. ``with_lse`` adds each row's
+log-sum-exp, written by the block that normalizes the row, for a grid rank
+that holds one block of the cache's positions; there a slot of length
+<= 0 (the block wholly past its position) reads nothing: out 0, lse -inf.
 """
 from __future__ import annotations
 
@@ -145,12 +148,17 @@ def _byte_table(spec: QuantSpec, device: str) -> torch.Tensor:
 
 def kv_flash_decode(q: torch.Tensor, k_codes: torch.Tensor,
                     k_scale: torch.Tensor, v_codes: torch.Tensor,
-                    v_scale: torch.Tensor, pos, spec: QuantSpec) -> torch.Tensor:
+                    v_scale: torch.Tensor, pos, spec: QuantSpec,
+                    with_lse: bool = False):
     """One-token attention against a quantized heads-major cache.
 
     q (B, G, R, Dh); codes (B, G, S, Dh) int8/uint8; scales (B, G, 1, Dh);
     pos scalar or (B,) valid lengths (mask ``arange(S) < pos``).
-    Returns (B, G, R, Dh) f32.
+    Returns (B, G, R, Dh) f32; with ``with_lse`` also each row's
+    log-sum-exp of its masked scores, (B, G, R) f32 (a block of a cache's
+    positions held apart from the others: ``nn.sharding.combine_partials``
+    weighs the blocks by it); a slot of length <= 0 then gives out 0 and
+    lse -inf, as ``kv_flash_decode_ref``.
     """
     B, G, R, Dh = q.shape
     S = k_codes.shape[2]
@@ -164,7 +172,7 @@ def kv_flash_decode(q: torch.Tensor, k_codes: torch.Tensor,
                 f"(..., {G}, 1, {Dh}); got {tuple(sc.shape)}")
     if not q.is_cuda:
         return kv_flash_decode_ref(q, k_codes, k_scale, v_codes, v_scale,
-                                   pos, spec)
+                                   pos, spec, with_lse=with_lse)
     pos = torch.as_tensor(pos, device=q.device)
     require_cuda("kv_flash_decode", q, k_codes, k_scale, v_codes, v_scale, pos)
     if tuple(k_codes.shape[:2]) != (B, G) or k_codes.shape[3] != Dh:
@@ -181,11 +189,14 @@ def kv_flash_decode(q: torch.Tensor, k_codes: torch.Tensor,
     ks = k_scale.to(torch.float32).expand(B, G, 1, Dh).contiguous()
     vs = v_scale.to(torch.float32).expand(B, G, 1, Dh).contiguous()
     table, out, ws, counters, p, step, stream = _launch_args(q, spec, B, G, R, Dh, S)
+    lse = (torch.empty((B, G, R), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     check(library("kv_flash_decode").kv_flash_decode(
         qk.data_ptr(), kc.data_ptr(), ks.data_ptr(), vc.data_ptr(),
         vs.data_ptr(), pos_b.data_ptr(), table.data_ptr(), out.data_ptr(),
-        ws.data_ptr(), counters.data_ptr(), B, G, R, S, Dh, p.chunk, p.splits,
-        pos_stride, int(qk.dtype == torch.bfloat16), Dh ** -0.5, step, stream),
+        ws.data_ptr(), counters.data_ptr(), lse.data_ptr() if with_lse else None,
+        B, G, R, S, Dh, p.chunk, p.splits, pos_stride,
+        int(qk.dtype == torch.bfloat16), Dh ** -0.5, step, stream),
         "kv_flash_decode")
     LAUNCHES["kv_flash_decode"] += 1
-    return out
+    return (out, lse) if with_lse else out

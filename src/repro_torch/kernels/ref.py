@@ -12,7 +12,7 @@ from repro_torch.core.pofx import pofx_normalized
 from repro_torch.core.quantizers import QuantSpec, _codes_to_values, kv_dequantize
 
 __all__ = ["decode_norm_to_fxp", "pofx_decode_ref", "pofx_matmul_ref", "fxp_matmul_ref",
-           "kv_flash_decode_ref", "gather_pages", "kv_flash_paged_decode_ref"]
+           "kv_flash_decode_ref", "empty_rows", "gather_pages", "kv_flash_paged_decode_ref"]
 
 
 def decode_norm_to_fxp(codes: torch.Tensor, N: int, ES: int,
@@ -61,11 +61,16 @@ def fxp_matmul_ref(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def kv_flash_decode_ref(q, k_codes, k_scale, v_codes, v_scale, pos,
-                        spec: QuantSpec) -> torch.Tensor:
+                        spec: QuantSpec, with_lse: bool = False):
     """Dequantize the whole cache, then masked softmax attention in f32.
 
     q: (B, G, R, Dh); codes: (B, G, S, Dh); scales: (B, G, 1, Dh);
-    pos: scalar or (B,) valid lengths.
+    pos: scalar or (B,) valid lengths. With ``with_lse`` also each row's
+    log-sum-exp of its masked scores, (B, G, R). A row with no valid
+    position (pos <= 0) averages every row of v, as the reference's mask
+    does; with ``with_lse`` (a block of a cache wholly past the row's
+    position) it is 0 and its lse -inf, a weight of 0 beside the other
+    blocks (``nn.sharding.merge_partials``).
     """
     S = k_codes.shape[2]
     k = kv_dequantize(k_codes, spec, k_scale, torch.float32)
@@ -76,7 +81,17 @@ def kv_flash_decode_ref(q, k_codes, k_scale, v_codes, v_scale, pos,
     valid = torch.arange(S, device=q.device)[None, :] < pos
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
-    return torch.einsum("bgrs,bgsd->bgrd", p, v)
+    out = torch.einsum("bgrs,bgsd->bgrd", p, v)
+    return empty_rows(out, torch.logsumexp(s, dim=-1), pos[:, 0]) if with_lse else out
+
+
+def empty_rows(out, lse, pos):
+    """(out, lse) of a block's attention, out (B, ..., Dh) and lse (B, ...),
+    with the rows of the slots whose valid length ``pos`` (B,) is <= 0 set
+    to 0 and -inf: a block wholly past a row's position reads nothing."""
+    empty = (pos <= 0).reshape(-1, *([1] * (lse.dim() - 1)))
+    return (torch.where(empty[..., None], torch.zeros_like(out), out),
+            torch.where(empty, torch.full_like(lse, float("-inf")), lse))
 
 
 def gather_pages(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:

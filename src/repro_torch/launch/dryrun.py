@@ -22,12 +22,17 @@ no compiled artifact, so a cell runs its step itself, once, as one rank:
   4. it prices the counts with ``launch.hlo_analysis.roofline_terms`` and
      writes a JSON record under OUT_DIR (git-ignored).
 
-The serving cells (prefill_32k, decode_32k, long_500k) are skipped: the
-port has no serving step on a (pod, data, model) grid yet (the reference's
-rules cut the decode cache's sequence over "model", which needs a softmax
-combine across ranks in decode attention). A serve cell still records the
-rank's argument bytes from the grid's specs: the params under the
-``--quant`` policy's codes and scales, the decode cache and the batch.
+A serving cell (prefill_32k, decode_32k, and long_500k for the
+long-context archs) runs the same way through the serving entry points
+(``dry_serve_step``): the rank's params under the ``--quant`` policy (codes
+cut like the parameter, the scale whole), ``init_cache``'s block (its
+rows over (pod, data), its sequence over model) and the whole batch's
+tokens, then one ``prefill`` or ``decode_step`` under ``count_step``, on
+the plain path (the reference's dry run keeps the kernels out), with
+``serve_bf16_compute``. Its model flops are 2 N D; its argument bytes are
+the rank's arguments as the reference places them (``serve_arguments``:
+the batch's rows of the rank), and the trace's own (the whole batch's
+tokens, which every rank is given) are kept beside them.
 
 Usage (no card needed with ``--device cpu``):
 
@@ -37,10 +42,11 @@ Usage (no card needed with ``--device cpu``):
         --device cpu [--jobs 4] [--force]
     PYTHONPATH=src python -m repro_torch.launch.dryrun --summary
 
-``--all`` runs each cell in a fresh subprocess (each cell joins its own
+``--all`` (``--shape`` a comma-separated list of the shapes to sweep, every
+shape by default) runs each cell in a fresh subprocess (each cell joins its own
 fake world, and a crash in one cell cannot end the sweep), ``--jobs`` at a
 time, and skips cells whose JSON already exists unless ``--force``; it ends
-with ``--summary``'s table of the train cells.
+with ``--summary``'s tables of the train and serve cells.
 """
 from __future__ import annotations
 
@@ -58,7 +64,8 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-__all__ = ["run_cell", "dry_train_step", "serve_arguments", "spec_bytes", "memory_record",
+__all__ = ["run_cell", "dry_train_step", "dry_serve_step", "serve_arguments", "spec_bytes",
+           "memory_record",
            "fake_world", "abstract_mode", "prepare_host_tables", "analytic_model_flops",
            "train_run_config", "summary", "TRAIN_KNOBS", "main"]
 
@@ -83,11 +90,6 @@ TRAIN_KNOBS: Dict[str, Dict[str, Any]] = {
     "whisper-medium":           dict(microbatch=1, sequence_parallel=True, opt="none"),
     "zamba2-1.2b":              dict(microbatch=1, sequence_parallel=False, opt="none"),
 }
-
-SERVE_SKIP = ("serving on a production grid: the port has no serving step on a (pod, data, "
-              "model) grid yet (prefill, and decode with the cache's sequence over model "
-              "through a cross-rank combine in the flash-decode kernels)")
-
 
 def _cell_path(out_dir: str, arch: str, shape: str, mesh_kind: str,
                quant: str) -> str:
@@ -128,30 +130,41 @@ def fake_world(rank: int, world_size: int):
         dist.destroy_process_group()
 
 
-def prepare_host_tables() -> None:
-    """Put the caches a train step reads in the state a first step finds
-    them in, whether its tensors are real or fake: the host table that the
-    step turns into numpy (posit8's values, for posit8 moments) made (a
-    fake tensor has no numpy), and the optimizer's device table dropped (so
-    that the step makes it, and no tensor of another mode is reused)."""
+def prepare_host_tables(policy=None) -> None:
+    """Put the caches a step reads in the state a first step finds them in,
+    whether its tensors are real or fake: the host tables that the step
+    turns into numpy made (a fake tensor has no numpy): posit8's values
+    (for posit8 moments) and the pofx decode table of each pofx format of
+    ``policy`` (a QuantPolicy; its KV rule too); and the device tables
+    made from them dropped (the optimizer's posit8 values, the pofx decode
+    tables), so that the step makes them and no tensor of another mode is
+    reused."""
+    from repro_torch.core import quantizers
+    from repro_torch.core.pofx import pofx_norm_lut
     from repro_torch.core.posit import posit_value_table
     from repro_torch.optim import adamw
     posit_value_table(adamw._POSIT8.N, adamw._POSIT8.ES)
+    for _, spec in (policy.rules if policy is not None else ()):
+        if spec is not None and spec.kind == "pofx":
+            pofx_norm_lut(spec.N, spec.ES, spec.M, spec.rounding)
     adamw._posit8_values.cache_clear()
+    quantizers._lut_on.cache_clear()
 
 
 @contextlib.contextmanager
-def abstract_mode():
+def abstract_mode(policy=None):
     """A ``FakeTensorMode`` for one dry step, the caches prepared on entry
-    (``prepare_host_tables``) and the optimizer's device table dropped on
+    (``prepare_host_tables(policy)``) and the device tables dropped on
     exit, so that no fake tensor outlives the mode in a cache."""
     from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.core import quantizers
     from repro_torch.optim import adamw
-    prepare_host_tables()
+    prepare_host_tables(policy)
     try:
         yield FakeTensorMode()
     finally:
         adamw._posit8_values.cache_clear()
+        quantizers._lut_on.cache_clear()
 
 
 def dry_train_step(model, batch_specs, mesh=None):
@@ -171,6 +184,39 @@ def dry_train_step(model, batch_specs, mesh=None):
     return cost, time.perf_counter() - t0
 
 
+def serve_run_config():
+    """The reference's run configuration of the serving cells."""
+    from repro_torch.configs import RunConfig
+    return RunConfig(remat="none", sequence_parallel=False, serve_bf16_compute=True)
+
+
+def dry_serve_step(model, shape, policy):
+    """One ``prefill`` (prefill cells) or ``decode_step`` (decode cells) of
+    ``model`` (one rank's, on a grid) on fake tensors under
+    ``op_cost.count_step``: the params drawn under ``policy`` (``LM.init``:
+    the rank's codes, whole scales), ``init_cache`` of the cell's global
+    batch and length, and the whole batch's tokens (and frames, encdec),
+    which the rank cuts to its rows. Returns (StepCost, seconds)."""
+    from repro_torch.launch.op_cost import count_step
+    B, S = shape.global_batch, shape.seq_len
+    t0 = time.perf_counter()
+    with abstract_mode(policy) as mode:
+        with mode:
+            params = model.init(model.rcfg.seed, policy=policy)
+            cache = model.init_cache(B, S)
+            dev = model.device
+            if shape.kind == "prefill":
+                tokens = torch.zeros((B, S), dtype=torch.int32, device=dev)
+                frames = (torch.zeros((B, S, model.cfg.d_model), dtype=torch.bfloat16,
+                                      device=dev) if model.cfg.family == "encdec" else None)
+                cost = count_step(lambda p, c, t, f: model.prefill(p, t, cache=c, frames=f),
+                                  params, cache, tokens, frames)
+            else:
+                tokens = torch.zeros((B, 1), dtype=torch.int32, device=dev)
+                cost = count_step(model.decode_step, params, cache, tokens)
+    return cost, time.perf_counter() - t0
+
+
 def memory_record(cost) -> Dict[str, int]:
     """The reference's ``memory_analysis`` keys from a StepCost: the
     arguments, the outputs, the outputs that are arguments updated in place
@@ -187,16 +233,6 @@ def memory_record(cost) -> Dict[str, int]:
 
 
 # -- serving cells: the rank's arguments from the grid's specs ----------------
-
-
-def _rank_shape(grid, spec, shape) -> Tuple[int, ...]:
-    out = []
-    for axes, d in zip(spec, shape):
-        if axes is not None:
-            axes = (axes,) if isinstance(axes, str) else axes
-            d //= math.prod(grid.sizes[a] for a in axes)
-        out.append(d)
-    return tuple(out)
 
 
 def _quantized_layout(name: str, ndim: int, policy):
@@ -236,7 +272,7 @@ def serve_arguments(model, shape, quant: str, grid) -> Dict[str, Any]:
         cache = model.init_cache(shape.global_batch, shape.seq_len)
 
     def local(logical, full) -> Tuple[int, ...]:
-        return _rank_shape(grid, grid.spec(logical, full, rules), full)
+        return grid.local_shape(grid.spec(logical, full, rules), full)
 
     layouts: Dict[Tuple[str, int], Any] = {}
 
@@ -282,13 +318,12 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single", quant: str =
              rank: int = 0) -> Dict[str, Any]:
     """Trace one cell as ``rank`` of its production grid on ``device``
     (fake tensors: nothing is allocated there) and return its record."""
-    from repro_torch.configs import ARCHS, LONG_CONTEXT_ARCHS, RunConfig
+    from repro_torch.configs import ARCHS, LONG_CONTEXT_ARCHS
     from repro_torch.configs.base import SHAPES
     from repro_torch.core.policy import QuantPolicy
     from repro_torch.launch import hlo_analysis
-    from repro_torch.launch.mesh import grid_layout, make_production_mesh
+    from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.nn.models import build_model, input_specs
-    from repro_torch.nn.sharding import GridContext
 
     cfg = ARCHS[arch]
     shape = SHAPES[shape_name]
@@ -305,32 +340,33 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single", quant: str =
     multi = mesh_kind == "multi"
     n_dev = 512 if multi else 256
 
-    if shape.kind != "train":
-        rcfg = RunConfig(remat="none", sequence_parallel=False, serve_bf16_compute=True)
-        kv_spec = None
-        if quant not in ("bf16", "fp32") and cfg.family != "encdec":
-            kv_spec = QuantPolicy.from_string(quant).kv_spec
-            rec["kv_quant"] = bool(kv_spec)
-        t0 = time.perf_counter()
-        grid = GridContext(*grid_layout(2 if multi else 1, 16, 16), rank=rank)
-        model = build_model(cfg, rcfg, device=device, kv_spec=kv_spec)
-        args = serve_arguments(model, shape, quant, grid)
-        rec["memory"] = {"argument_size_in_bytes": spec_bytes(args),
-                         "arguments_by_part": {k: spec_bytes(v) for k, v in args.items()}}
-        rec.update(ok=False, skipped=True, reason=SERVE_SKIP, n_devices=n_dev,
-                   trace_s=time.perf_counter() - t0)
-        if verbose:
-            print(f"[skipped] {SERVE_SKIP}\n[arguments/device] "
-                  f"{rec['memory']['argument_size_in_bytes'] / 2**30:.2f} GiB")
-        return rec
-
-    rcfg = train_run_config(arch)
-    with fake_world(rank, n_dev):
-        mesh = make_production_mesh(multi_pod=multi)
-        model = build_model(cfg, rcfg, device=device, grid=mesh)
-        cost, trace_s = dry_train_step(model, input_specs(cfg, shape), mesh)
+    serve = shape.kind != "train"
+    if serve:
+        rcfg = serve_run_config()
+        kv_spec, policy = None, None
+        if quant not in ("bf16", "fp32"):
+            policy = QuantPolicy.from_string(quant)
+            if cfg.family != "encdec":
+                kv_spec = policy.kv_spec
+                rec["kv_quant"] = bool(kv_spec)
+        whole = build_model(cfg, rcfg, device=device, kv_spec=kv_spec)
+        with fake_world(rank, n_dev):
+            mesh = make_production_mesh(multi_pod=multi)
+            args = serve_arguments(whole, shape, quant, mesh)
+            model = build_model(cfg, rcfg, device=device, kv_spec=kv_spec, grid=mesh)
+            cost, trace_s = dry_serve_step(model, shape, policy)
+    else:
+        rcfg = train_run_config(arch)
+        with fake_world(rank, n_dev):
+            mesh = make_production_mesh(multi_pod=multi)
+            model = build_model(cfg, rcfg, device=device, grid=mesh)
+            cost, trace_s = dry_train_step(model, input_specs(cfg, shape), mesh)
     rec["trace_s"] = trace_s
     mem = memory_record(cost)
+    if serve:
+        mem["traced_argument_bytes"] = mem["argument_size_in_bytes"]
+        mem["argument_size_in_bytes"] = spec_bytes(args)
+        mem["arguments_by_part"] = {k: spec_bytes(v) for k, v in args.items()}
     rec["memory"] = mem
     rec["fits"] = mem["peak_memory_in_bytes"] <= hlo_analysis.HBM_BYTES
     rec["cost"] = {"flops_per_device": cost.flops_per_device,
@@ -346,28 +382,35 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str = "single", quant: str =
     rec["roofline"] = hlo_analysis.roofline_terms(
         cost.flops_per_device, cost.bytes_per_device, cost.wire_bytes_per_device, mf, n_dev,
         wire_bytes_in_node=cost.wire_bytes_in_node)
-    rec["run_config"] = {"microbatch": rcfg.microbatch,
-                         "sequence_parallel": rcfg.sequence_parallel,
-                         "opt_state_quant": rcfg.opt_state_quant,
-                         "remat": rcfg.remat}
+    rec["run_config"] = ({"remat": rcfg.remat, "serve_bf16_compute": rcfg.serve_bf16_compute,
+                          "use_kernel": False} if serve else
+                         {"microbatch": rcfg.microbatch,
+                          "sequence_parallel": rcfg.sequence_parallel,
+                          "opt_state_quant": rcfg.opt_state_quant, "remat": rcfg.remat})
     rec["ok"] = True
     if verbose:
-        gib = 2 ** 30
-        print(f"[memory/device] args={mem['argument_size_in_bytes'] / gib:.2f}GiB "
-              f"out={mem['output_size_in_bytes'] / gib:.2f}GiB "
-              f"temp={mem['temp_size_in_bytes'] / gib:.2f}GiB "
-              f"peak={mem['peak_memory_in_bytes'] / gib:.2f}GiB "
-              f"live={mem['live_bytes_per_device'] / gib:.2f}GiB "
-              f"(of {hlo_analysis.HBM_BYTES / gib:.0f} GiB)")
-        print("[op cost/device]")
-        print(cost.summary())
-        r = rec["roofline"]
-        print(f"[roofline] compute={r['compute_s'] * 1e3:.2f}ms "
-              f"memory={r['memory_s'] * 1e3:.2f}ms "
-              f"collective={r['collective_s'] * 1e3:.2f}ms "
-              f"bound={r['bound']} mfu_bound={r['mfu_bound']:.3f} "
-              f"useful_flops_ratio={r['useful_flops_ratio']:.3f} (traced in {trace_s:.1f}s)")
+        _print_cost(rec, cost, trace_s)
     return rec
+
+
+def _print_cost(rec, cost, trace_s) -> None:
+    """A cell's memory, op cost and roofline lines."""
+    from repro_torch.launch import hlo_analysis
+    mem, gib = rec["memory"], 2 ** 30
+    print(f"[memory/device] args={mem['argument_size_in_bytes'] / gib:.2f}GiB "
+          f"out={mem['output_size_in_bytes'] / gib:.2f}GiB "
+          f"temp={mem['temp_size_in_bytes'] / gib:.2f}GiB "
+          f"peak={mem['peak_memory_in_bytes'] / gib:.2f}GiB "
+          f"live={mem['live_bytes_per_device'] / gib:.2f}GiB "
+          f"(of {hlo_analysis.HBM_BYTES / gib:.0f} GiB)")
+    print("[op cost/device]")
+    print(cost.summary())
+    r = rec["roofline"]
+    print(f"[roofline] compute={r['compute_s'] * 1e3:.2f}ms "
+          f"memory={r['memory_s'] * 1e3:.2f}ms "
+          f"collective={r['collective_s'] * 1e3:.2f}ms "
+          f"bound={r['bound']} mfu_bound={r['mfu_bound']:.3f} "
+          f"useful_flops_ratio={r['useful_flops_ratio']:.3f} (traced in {trace_s:.1f}s)")
 
 
 def _save(rec: Dict[str, Any], out_dir: str) -> str:
@@ -379,10 +422,11 @@ def _save(rec: Dict[str, Any], out_dir: str) -> str:
 
 
 def summary(out_dir: str = OUT_DIR) -> str:
-    """Two tables of the records in ``out_dir``: the train cells' per-rank
-    argument and peak GiB, the roofline's three terms and bound, mfu_bound,
-    useful_flops_ratio and trace seconds; the skipped serve cells' per-rank
-    argument GiB on each grid."""
+    """Two tables of the records in ``out_dir``, the train cells' and the
+    serve cells': per-rank argument and peak GiB, whether the peak fits,
+    the roofline's three terms and bound (the train cells' mfu_bound and
+    useful_flops_ratio too) and trace seconds; a skipped or failed cell
+    says why."""
     recs = []
     for name in sorted(os.listdir(out_dir)) if os.path.isdir(out_dir) else []:
         if name.endswith(".json"):
@@ -392,30 +436,28 @@ def summary(out_dir: str = OUT_DIR) -> str:
     train = ["| arch | mesh | args GiB | peak GiB | fits 80 GiB | compute ms | memory ms | "
              "collective ms | bound | bound ms | mfu_bound | useful_flops_ratio | trace_s |",
              "|---|---|---|---|---|---|---|---|---|---|---|---|---|"]
-    serve: Dict[Tuple[str, str], Dict[str, str]] = {}
+    serve = ["| arch | shape | mesh | args GiB | peak GiB | fits 80 GiB | compute ms | "
+             "memory ms | collective ms | bound | bound ms | trace_s |",
+             "|---|---|---|---|---|---|---|---|---|---|---|---|"]
     for rec in recs:
-        if rec.get("kind") != "train":
-            args = rec.get("memory", {}).get("argument_size_in_bytes")
-            serve.setdefault((rec["arch"], rec["shape"]), {})[rec["mesh"]] = (
-                f"{args / gib:.2f}" if args is not None else "skipped")
-            continue
+        is_train = rec.get("kind") == "train"
+        head = (f"| {rec['arch']} | {rec['mesh']} |" if is_train
+                else f"| {rec['arch']} | {rec['shape']} | {rec['mesh']} |")
+        rows = train if is_train else serve
         if not rec.get("ok"):
-            train.append(f"| {rec['arch']} | {rec['mesh']} | FAILED: "
-                         f"{str(rec.get('error', ''))[:80]} |")
+            why = rec.get("reason") if rec.get("skipped") else f"FAILED: {rec.get('error', '')}"
+            rows.append(f"{head} {str(why)[:80]} |")
             continue
         m, r = rec["memory"], rec["roofline"]
-        train.append(f"| {rec['arch']} | {rec['mesh']} | "
-                     f"{m['argument_size_in_bytes'] / gib:.2f} | "
-                     f"{m['peak_memory_in_bytes'] / gib:.2f} | "
-                     f"{'yes' if rec['fits'] else 'no'} | "
-                     f"{r['compute_s'] * 1e3:.1f} | {r['memory_s'] * 1e3:.1f} | "
-                     f"{r['collective_s'] * 1e3:.1f} | {r['bound']} | "
-                     f"{r['step_lower_bound_s'] * 1e3:.1f} | {r['mfu_bound']:.3f} | "
-                     f"{r['useful_flops_ratio']:.3f} | {rec['trace_s']:.1f} |")
-    rows = ["| arch | shape | args GiB (16, 16) | args GiB (2, 16, 16) |", "|---|---|---|---|"]
-    rows += [f"| {arch} | {shape} | {m.get('single', '')} | {m.get('multi', '')} |"
-             for (arch, shape), m in sorted(serve.items())]
-    return "\n".join(train) + "\n\nServe cells (skipped):\n\n" + "\n".join(rows)
+        line = (f"{head} {m['argument_size_in_bytes'] / gib:.2f} | "
+                f"{m['peak_memory_in_bytes'] / gib:.2f} | {'yes' if rec['fits'] else 'no'} | "
+                f"{r['compute_s'] * 1e3:.1f} | {r['memory_s'] * 1e3:.1f} | "
+                f"{r['collective_s'] * 1e3:.1f} | {r['bound']} | "
+                f"{r['step_lower_bound_s'] * 1e3:.1f} |")
+        if is_train:
+            line += f" {r['mfu_bound']:.3f} | {r['useful_flops_ratio']:.3f} |"
+        rows.append(line + f" {rec['trace_s']:.1f} |")
+    return "\n".join(train) + "\n\nServe cells:\n\n" + "\n".join(serve)
 
 
 def _sweep(args) -> int:
@@ -426,7 +468,7 @@ def _sweep(args) -> int:
         [SRC] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
     todo = []
     for arch in ARCHS:
-        for shape in SHAPES:
+        for shape in (args.shape.split(",") if args.shape else SHAPES):
             for mk in meshes:
                 quant = args.quant
                 if quant == "auto":
@@ -473,7 +515,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch")
-    ap.add_argument("--shape")
+    ap.add_argument("--shape", help="a shape; under --all, the shapes (comma-separated) "
+                    "to sweep (default: every shape)")
     ap.add_argument("--mesh", default="single", choices=["single", "multi", "both"])
     from repro_torch.core.policy import add_policy_arg
     add_policy_arg(ap, default="auto", extra_help="'auto' = bf16 train / pofx8 serve")
@@ -485,7 +528,7 @@ def main(argv=None) -> int:
     ap.add_argument("--rank", type=int, default=0, help="the rank of the grid to trace")
     ap.add_argument("--jobs", type=int, default=1, help="cells at a time under --all")
     ap.add_argument("--summary", action="store_true",
-                    help="print the table of the train cells under --out and exit")
+                    help="print the tables of the cells under --out and exit")
     args = ap.parse_args(argv)
 
     if args.summary:

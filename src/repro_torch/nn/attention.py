@@ -61,11 +61,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.quantizers import kv_dequantize, kv_quantize
+from repro_torch.core.quantizers import QuantizedTensor, kv_dequantize, kv_quantize
 from repro_torch.kernels.ops import KernelSet
-from repro_torch.kernels.ref import gather_pages
+from repro_torch.kernels.ref import empty_rows, gather_pages
 from .layers import apply_rotary, matmul_param, rmsnorm, rotary_cos_sin
-from .sharding import placed, seq_in, seq_out, take_block
+from .sharding import combine_partials, placed, seq_in, seq_out, take_block
 
 NEG_INF = -1e30
 
@@ -229,7 +229,8 @@ def flash_attention(q, k, v, *, causal: bool, q_chunk: int, kv_chunk: int,
     return _flash_fwd(causal, qc, kvc, bias_offset, q, k, v)
 
 
-def decode_attention(q, k_cache, v_cache, pos, bf16_compute: bool = False) -> torch.Tensor:
+def decode_attention(q, k_cache, v_cache, pos, bf16_compute: bool = False,
+                     with_lse: bool = False):
     """One-token attention against a heads-major (B, G, S, Dh) cache.
 
     q: (B, 1, G, R, Dh); ``pos`` is a scalar or (B,) valid-prefix length;
@@ -238,7 +239,11 @@ def decode_attention(q, k_cache, v_cache, pos, bf16_compute: bool = False) -> to
     the cache's dtype before their products, which are summed in f32: each
     product of two bf16 values is exact in f32, so the f32 einsum on the
     rounded values is the reference's bf16 dot with
-    ``preferred_element_type=f32``. Off, q and p stay f32.
+    ``preferred_element_type=f32``. Off, q and p stay f32. ``with_lse``
+    returns (the output in f32, each row's log-sum-exp of its masked
+    scores (B, 1, G, R)): the partial of a block of the cache's positions
+    that ``nn.sharding.combine_partials`` merges with the others'; a slot
+    with no valid position there gives 0 and -inf (``empty_rows``).
     """
     S = k_cache.shape[2]
     scale = q.shape[-1] ** -0.5
@@ -253,6 +258,9 @@ def decode_attention(q, k_cache, v_cache, pos, bf16_compute: bool = False) -> to
     s = torch.where(valid[:, None, None, None, :], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrqs,bgsd->bqgrd", rounded(p), v_cache.to(f32))
+    if with_lse:
+        lim = torch.as_tensor(pos, device=q.device).reshape(-1).expand(o.shape[0])
+        return empty_rows(o, torch.logsumexp(s, dim=-1).permute(0, 3, 1, 2), lim)
     return o.to(q.dtype)
 
 
@@ -345,7 +353,8 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
                  kv_scales: Optional[dict] = None,
                  pages: Optional[torch.Tensor] = None,
                  page_size: Optional[int] = None,
-                 paged_prefill: Optional[dict] = None, tp=None, sp=None, xsp=None):
+                 paged_prefill: Optional[dict] = None, tp=None, sp=None, xsp=None,
+                 kv_seq=None):
     """Full attention layer. Returns (y, new_kv).
 
     Decode (``cache`` given, one token): ``cache`` is the layer's
@@ -370,7 +379,14 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
     training grid's ``sp``; ``xsp`` for the encoder states ``xa``) x is the
     rank's block along seq: the layer attends over the whole sequence
     (``seq_in``) and returns the rank's block (``_out_proj``).
+
+    ``kv_seq`` (serving on a grid: the model axis, which cuts the cache's
+    sequence) takes ``_grid_attn``'s path.
     """
+    if kv_seq is not None:
+        return _grid_attn(p, x, cfg, rcfg, positions=positions, causal=causal,
+                          cache=cache, cache_pos=cache_pos, xa=xa, kernels=kernels,
+                          kv_spec=kv_spec, kv_scales=kv_scales, tp=tp, kv_seq=kv_seq)
     Dh = cfg.d_head
     # the model axis where it cuts the query heads (None where they are whole)
     tp_h = placed(tp, p["wq"].shape[-2], cfg.n_heads)
@@ -411,32 +427,10 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
             y = decode_attention(q, kf, vf, pos_b + 1,
                                  bf16_compute=not quant and rcfg.serve_bf16_compute)
     elif cache is not None and Sq == 1:
-        quant = kv_spec is not None and "k_scale" in cache
-        k_upd = k[:, 0]                                   # (B, G, Dh)
-        v_upd = v[:, 0]
-        if quant:
-            k_upd = kv_quantize(k_upd, kv_spec, cache["k_scale"][:, :, 0])
-            v_upd = kv_quantize(v_upd, kv_spec, cache["v_scale"][:, :, 0])
-        S = cache["k"].shape[2]
         pos_b = torch.as_tensor(cache_pos, device=x.device).reshape(-1).expand(B)
-        bidx = torch.arange(B, device=x.device)
-        # the reference clamps the write like dynamic_update_slice does
-        widx = pos_b.clamp(max=S - 1)
-        cache["k"][bidx, :, widx] = k_upd.to(cache["k"].dtype)
-        cache["v"][bidx, :, widx] = v_upd.to(cache["v"].dtype)
+        y = _dense_decode(q[:, 0], k[:, 0], v[:, 0], cache, pos_b, kv_spec, kernels,
+                          rcfg)[:, None].to(q.dtype)
         new_kv = cache
-        if quant and kernels is not None:
-            o = kernels.kv_flash_decode(q[:, 0], cache["k"], cache["k_scale"],
-                                        cache["v"], cache["v_scale"],
-                                        pos_b + 1, kv_spec)
-            y = o[:, None].to(q.dtype)
-        elif quant:
-            kf = kv_dequantize(cache["k"], kv_spec, cache["k_scale"])
-            vf = kv_dequantize(cache["v"], kv_spec, cache["v_scale"])
-            y = decode_attention(q, kf, vf, pos_b + 1)
-        else:
-            y = decode_attention(q, cache["k"], cache["v"], pos_b + 1,
-                                 bf16_compute=rcfg.serve_bf16_compute)
     elif paged_prefill is not None:
         if B != 1:
             raise ValueError(f"paged prefill is batch-1 (admission), got B={B}")
@@ -471,19 +465,170 @@ def attn_forward(p: dict, x: torch.Tensor, cfg, rcfg, *,
         y = flash_attention(q, k, v, causal=causal, q_chunk=rcfg.attn_q_chunk,
                             kv_chunk=rcfg.attn_kv_chunk, bias_offset=prefix_len)
     else:
-        if kv_spec is not None and kv_scales is not None:
-            ks = kv_scales["k_scale"].transpose(1, 2)        # (B, 1, G, Dh)
-            vs = kv_scales["v_scale"].transpose(1, 2)
-            kc = kv_quantize(k, kv_spec, ks)
-            vc = kv_quantize(v, kv_spec, vs)
-            k = kv_dequantize(kc, kv_spec, ks, k.dtype)
-            v = kv_dequantize(vc, kv_spec, vs, v.dtype)
-            new_kv = {"k": kc, "v": vc}
-        else:
-            new_kv = {"k": k, "v": v}
+        k, v, new_kv = _prefill_kv(k, v, kv_spec, kv_scales)
         y = flash_attention(q, k, v, causal=causal, q_chunk=rcfg.attn_q_chunk,
                             kv_chunk=rcfg.attn_kv_chunk)
     return _out_proj(p, y, x, cfg, kernels, tp, sp), new_kv
+
+
+def _prefill_kv(k, v, kv_spec, kv_scales):
+    """(k, v, new_kv) of a prefill's K/V (B, S, G, Dh): with the cache's
+    static scales ``kv_scales`` (a quantized cache) they round through its
+    grid and new_kv holds their codes, else new_kv holds k and v."""
+    if kv_spec is None or kv_scales is None:
+        return k, v, {"k": k, "v": v}
+    ks = kv_scales["k_scale"].transpose(1, 2)        # (B, 1, G, Dh)
+    vs = kv_scales["v_scale"].transpose(1, 2)
+    kc, vc = kv_quantize(k, kv_spec, ks), kv_quantize(v, kv_spec, vs)
+    return (kv_dequantize(kc, kv_spec, ks, k.dtype), kv_dequantize(vc, kv_spec, vs, v.dtype),
+            {"k": kc, "v": vc})
+
+
+def _dense_decode(q, k, v, cache: dict, pos_b, kv_spec, kernels, rcfg, kv_seq=None):
+    """One token against a dense heads-major cache {"k", "v"[, "k_scale",
+    "v_scale"]} (B, G, S, Dh): the token's k, v (B, G, Dh) (codes, for a
+    quantized cache) written in place at ``pos_b`` (B,), clamped to the
+    cache's last position as the reference's ``dynamic_update_slice``,
+    then q (B, G, R, Dh) attends to the positions before pos_b + 1
+    (``_attend``). On a serving grid (``kv_seq``, the model axis, cuts the
+    cache's sequence: rank r of M holds positions [r S_l, (r + 1) S_l)) the
+    write lands only on the rank that owns the position, through
+    ``torch.where`` so that no rank waits on the host. Returns
+    (B, G, R, Dh)."""
+    quant = kv_spec is not None and "k_scale" in cache
+    S_l = cache["k"].shape[2]
+    start, S = (0, S_l) if kv_seq is None else (kv_seq.rank * S_l, kv_seq.size * S_l)
+    loc = pos_b.long().clamp(max=S - 1) - start
+    own = None if kv_seq is None else ((loc >= 0) & (loc < S_l))[:, None, None]
+    if own is not None:
+        loc = loc.clamp(0, S_l - 1)
+    bidx = torch.arange(q.shape[0], device=q.device)
+    for name, t in (("k", k), ("v", v)):
+        if quant:
+            t = kv_quantize(t, kv_spec, cache[f"{name}_scale"][:, :, 0])
+        dst = cache[name]
+        t = t.to(dst.dtype)
+        dst[bidx, :, loc] = t if own is None else torch.where(own, t, dst[bidx, :, loc])
+    return _attend(q, cache["k"], cache["v"], cache if quant else None, pos_b + 1,
+                   kv_spec, kernels, rcfg, kv_seq)
+
+
+def _attend(q, kc, vc, scales, lim, kv_spec, kernels, rcfg, kv_seq=None):
+    """q (B, G, R, Dh) against a heads-major cache kc, vc (B, G, S, Dh) of
+    codes with the static ``scales`` (a dict holding "k_scale" and
+    "v_scale") or of values (``scales`` None), to the positions before
+    ``lim`` (B,): through ``kv_flash_decode`` where the kernels are on and
+    the cache is quantized, else the plain form (``decode_attention``,
+    rounding as ``rcfg.serve_bf16_compute`` on a cache of values). On a
+    serving grid (``kv_seq``) the cache is rank r's block of positions
+    [r S, (r + 1) S): it is attended with the local lengths
+    clamp(lim - r S, 0, S) and its rows' log-sum-exps, and
+    ``combine_partials`` merges the ranks' blocks. Returns (B, G, R, Dh)."""
+    grid = kv_seq is not None
+    if grid:
+        S = kc.shape[2]
+        lim = (torch.as_tensor(lim, device=q.device) - kv_seq.rank * S).clamp(0, S)
+    if scales is not None and kernels is not None:
+        r = kernels.kv_flash_decode(q, kc, scales["k_scale"], vc, scales["v_scale"], lim,
+                                    kv_spec, with_lse=grid)
+    else:
+        if scales is not None:
+            kc = kv_dequantize(kc, kv_spec, scales["k_scale"])
+            vc = kv_dequantize(vc, kv_spec, scales["v_scale"])
+        r = decode_attention(q[:, None], kc, vc, lim, with_lse=grid,
+                             bf16_compute=scales is None and rcfg.serve_bf16_compute)
+        r = (r[0][:, 0], r[1][:, 0]) if grid else r[:, 0]
+    return combine_partials(*r, kv_seq) if grid else r
+
+
+def _grid_attn(p: dict, x: torch.Tensor, cfg, rcfg, *, positions, causal, cache,
+               cache_pos, xa, kernels, kv_spec, kv_scales, tp, kv_seq):
+    """Attention served on a (pod, data, model) grid: x is the rank's rows,
+    whole along d; wq holds the rank's query heads where the model axis
+    ``tp`` cuts them, wk/wv the rank's kv heads where it cuts those, and
+    the layer cache holds every kv head of the rank's block of positions
+    (``kv_seq``, the model axis: rank r of M the positions [r S_l, (r+1)
+    S_l) of a local length S_l). Returns (y, new_kv) as ``attn_forward``.
+
+    Prefill (and cross-attention over the encoder states ``xa``): the
+    rank's query heads attend over every position, to the kv heads they
+    read; new_kv holds the K/V (codes, for a quantized cache) of every kv
+    head (gathered over model where wk/wv are cut), of which the caller
+    keeps its block of positions.
+
+    Decode (one token, ``cache`` given): q of every head (gathered over
+    model) and the new token's K/V of every kv head take the single card's
+    ``_dense_decode`` with ``kv_seq`` (the token written on the rank that
+    owns its position, every head attended over the rank's block, the
+    blocks combined), and the output projection takes the rank's heads
+    (wo's rows) before its all-reduce. The static cross cache (encdec) is
+    read through ``_attend`` the same way, masked at its length."""
+    Dh, H, G = cfg.d_head, cfg.n_heads, cfg.n_kv_heads
+    B, Sq, _ = x.shape
+    tp_h = placed(tp, p["wq"].shape[-2], H)
+    q = matmul_param(x, p["wq"], kernels=kernels).reshape(B, Sq, -1, Dh)
+    if cfg.qk_norm:
+        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+    static = cache is not None and "k_static" in cache
+    rot = None
+    if xa is None and not static:
+        rot = rotary_cos_sin(positions, Dh, cfg.rope_theta)
+        q = apply_rotary(q, *rot)
+    if cache is not None and Sq == 1:
+        qa = (q if tp_h is None else tp_h.all_gather(q, 2)).reshape(B, G, H // G, Dh)
+        if static:
+            y = _attend(qa, cache["k_static"], cache["v_static"], None, cache["len"],
+                        kv_spec, kernels, rcfg, kv_seq)
+            new_kv = None
+        else:
+            k, v = _grid_kv(p, x, cfg, kernels, tp, rot)
+            pos_b = torch.as_tensor(cache_pos, device=x.device).reshape(-1).expand(B)
+            y = _dense_decode(qa, k[:, 0], v[:, 0], cache, pos_b, kv_spec, kernels, rcfg,
+                              kv_seq)
+            new_kv = cache
+        return _out_proj(p, y[:, None].to(x.dtype), x, cfg, kernels, tp), new_kv
+    k, v = _grid_kv(p, x if xa is None else xa, cfg, kernels, tp, rot)
+    k, v, new_kv = _prefill_kv(k, v, kv_spec, kv_scales if xa is None else None)
+    k, v, Gl, R = _heads_kv(k, v, cfg, tp_h, q.shape[2])
+    y = flash_attention(q.reshape(B, Sq, Gl, R, Dh), k, v, causal=causal and xa is None,
+                        q_chunk=rcfg.attn_q_chunk, kv_chunk=rcfg.attn_kv_chunk)
+    return _out_proj(p, y, x, cfg, kernels, tp), new_kv
+
+
+def _grid_kv(p: dict, h: torch.Tensor, cfg, kernels, tp, rot):
+    """K and V of every kv head from ``h`` (B, S, d): gathered over model
+    where the model axis ``tp`` cuts wk/wv; k normed (qk_norm) and, with
+    ``rot`` (cos, sin), rotated."""
+    B, S, _ = h.shape
+    k = matmul_param(h, p["wk"], kernels=kernels).reshape(B, S, -1, cfg.d_head)
+    v = matmul_param(h, p["wv"], kernels=kernels).reshape(B, S, -1, cfg.d_head)
+    if cfg.qk_norm:
+        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+    if rot is not None:
+        k = apply_rotary(k, *rot)
+    tp_k = placed(tp, p["wk"].shape[-2], cfg.n_kv_heads)
+    if tp_k is not None:
+        k, v = tp_k.all_gather(k, 2), tp_k.all_gather(v, 2)
+    return k, v
+
+
+def _heads_kv(k, v, cfg, tp_h, Hl: int):
+    """(k, v, G, R): of every kv head's K/V (B, S, G, Dh), those the rank's
+    ``Hl`` query heads read (all of them where ``tp_h`` is None), in the
+    (groups, heads a group) layout of ``_rank_groups``."""
+    if tp_h is None:
+        return k, v, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    sel, R = _rank_groups(cfg, tp_h, Hl)
+    return k[:, :, sel], v[:, :, sel], len(sel), R
+
+
+def _rank_groups(cfg, tp, H: int):
+    """(the kv groups, heads a group) of the ``H`` query heads of ``tp``'s
+    rank: one group for all of them when they share one, else one a head
+    (its group repeated)."""
+    r_full = cfg.n_heads // cfg.n_kv_heads
+    groups = [h // r_full for h in range(tp.rank * H, (tp.rank + 1) * H)]
+    return (groups[:1], H) if r_full % H == 0 else (groups, 1)
 
 
 def _rank_kv(p: dict, cfg, tp):
@@ -498,10 +643,19 @@ def _rank_kv(p: dict, cfg, tp):
     H, G = p["wq"].shape[-2], p["wk"].shape[-2]
     if tp is None or G != cfg.n_kv_heads:
         return p["wk"], p["wv"], G, H // G
-    r_full = cfg.n_heads // cfg.n_kv_heads
-    groups = [h // r_full for h in range(tp.rank * H, (tp.rank + 1) * H)]
-    sel, R = (groups[:1], H) if r_full % H == 0 else (groups, 1)
-    return (tp.copy_in(p["wk"])[:, sel], tp.copy_in(p["wv"])[:, sel], len(sel), R)
+    sel, R = _rank_groups(cfg, tp, H)
+    return (_kv_columns(tp.copy_in(p["wk"]), sel), _kv_columns(tp.copy_in(p["wv"]), sel),
+            len(sel), R)
+
+
+def _kv_columns(w, sel):
+    """The kv groups ``sel`` of a (d, G, Dh) weight; of a quantized one
+    (served on a grid, the encoder's) its codes' and, where it varies
+    along G, its scale's."""
+    if not isinstance(w, QuantizedTensor):
+        return w[:, sel]
+    scale = w.scale if w.scale.shape[1] == 1 else w.scale[:, sel]
+    return QuantizedTensor(w.codes[:, sel], scale, w.spec)
 
 
 def _out_proj(p: dict, y: torch.Tensor, x: torch.Tensor, cfg,

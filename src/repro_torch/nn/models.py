@@ -102,8 +102,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RunConfig
 from repro_torch.core.policy import QuantPolicy, layer_prefixes
-from repro_torch.core.quantizers import (QuantSpec, kv_code_dtype, quantize,
-                                         validate_kv_spec)
+from repro_torch.core.quantizers import (QuantizedTensor, QuantSpec, kv_code_dtype,
+                                         quantize, validate_kv_spec)
 from repro_torch.kernels.ops import KERNELS, KernelSet
 from . import ssm
 from . import transformer as T
@@ -111,8 +111,8 @@ from .attention import attn_logical, attn_shapes
 from .layers import matmul_param, mlp_logical, mlp_shapes, param_value, rmsnorm
 from .moe import moe_logical, moe_shapes
 from .sharding import (GridContext, TPContext, check_tp_shapes, fsdp_gather,
-                       gather_replicated, map_with_logical, scatter_seq, seq_in,
-                       shard_leaf, take_block, train_rules)
+                       gather_quantized, gather_replicated, map_with_logical, placed,
+                       scatter_seq, seq_in, shard_leaf, take_block, train_rules)
 from .ssm import mamba_shapes
 
 __all__ = ["LM", "build_model", "apply_policy", "quantize_params", "ce_loss",
@@ -273,7 +273,11 @@ class LM:
 
     @property
     def n_kv_heads_local(self) -> int:
-        """The kv heads a rank holds: its shard of the cache's head axis."""
+        """The kv heads a rank's cache holds: its shard of the head axis
+        under serving TP; every head on a grid (whose rules cut the cache's
+        sequence instead)."""
+        if self.grid is not None:
+            return self.cfg.n_kv_heads
         return self.cfg.n_kv_heads // self.tp.size
 
     @property
@@ -414,8 +418,12 @@ class LM:
 
         def place(name, w, axes):
             """The rank's block of a leaf drawn whole (a grid's, or serving
-            TP's shard)."""
+            TP's shard); on a grid a quantized leaf's codes are cut like the
+            parameter and its scale stays whole."""
             if self.grid is not None:
+                if isinstance(w, QuantizedTensor):
+                    return QuantizedTensor(self.grid.shard(w.codes, self.grid.spec(
+                        axes, w.codes.shape)), w.scale, w.spec)
                 return self.grid.shard(w, self.grid.spec(axes, w.shape))
             return w if axes is None else shard_leaf(w, axes, self.tp, name)
 
@@ -497,8 +505,8 @@ class LM:
     # -- cache ----------------------------------------------------------------
 
     def _kv_cache(self, batch: int, max_len: int, kv_spec: Optional[QuantSpec],
-                  n_layers: int) -> Dict[str, torch.Tensor]:
-        cfg, dev = self.cfg, self.device
+                  n_layers: int, device=None) -> Dict[str, torch.Tensor]:
+        cfg, dev = self.cfg, device or self.device
         G = self.n_kv_heads_local
         shape = (n_layers, batch, G, max_len, cfg.d_head)
         sshape = (n_layers, batch, G, 1, cfg.d_head)
@@ -517,39 +525,66 @@ class LM:
                    kv_spec="auto") -> Dict[str, Any]:
         """Zero decode cache; ``enc_len`` sizes the encdec cross-attention
         cache (default ``max_len``); ``kv_spec`` overrides the format for
-        allocation only (prefill/decode_step reject a mismatched cache)."""
+        allocation only (prefill/decode_step reject a mismatched cache).
+
+        On a grid it is the rank's block of every leaf by ``cache_logical``
+        and the grid's rules (``batch`` the whole batch): the batch over
+        (pod, data) where they divide it, the KV sequence over model, the
+        mamba states' channels over model where it divides them, every kv
+        head; the scales keep their sequence axis of 1. The model axis must
+        divide ``max_len`` (and ``enc_len``): the port always cuts the
+        sequence, where the reference's lenient spec would replicate a
+        cache of a length it does not divide on every rank."""
         spec = self.kv_spec if kv_spec == "auto" else validate_kv_spec(kv_spec)
-        cfg = self.cfg
-        if spec is not None and cfg.family == "encdec":
+        if spec is not None and self.cfg.family == "encdec":
             raise ValueError(
                 "quantized KV cache is not supported for encdec: the "
                 "legacy one-shot path owns its cross-attention cache")
-        cache: Dict[str, Any] = {"pos": torch.zeros((), dtype=torch.int32,
-                                                    device=self.device)}
+        if self.grid is None:
+            return self._cache_tree(batch, max_len, enc_len, spec, self.device)
+        M = self.tp.size
+        for n, what in ((max_len, "max_len"), (enc_len or max_len, "enc_len")):
+            if n % M:
+                raise ValueError(f"a grid's cache cuts its sequence over the model axis "
+                                 f"({M} ranks), which does not divide {what}={n}")
+        full = self._cache_tree(batch, max_len, enc_len, spec, "meta")
+        grid = self.grid
+
+        def block(name, t, logical):
+            shape = grid.local_shape(grid.spec(logical, t.shape), t.shape)
+            return torch.full(shape, 1 if name.endswith("_scale") else 0, dtype=t.dtype,
+                              device=self.device)
+
+        return map_with_logical(block, full, self.cache_logical(spec))
+
+    def _cache_tree(self, batch: int, max_len: int, enc_len, spec, device):
+        cfg = self.cfg
+        cache: Dict[str, Any] = {"pos": torch.zeros((), dtype=torch.int32, device=device)}
         if cfg.family in ("dense", "moe", "encdec"):
-            cache["kv"] = self._kv_cache(batch, max_len, spec, cfg.n_layers)
+            cache["kv"] = self._kv_cache(batch, max_len, spec, cfg.n_layers, device)
             if cfg.family == "encdec":
                 cache["cross"] = self._kv_cache(batch, enc_len or max_len, None,
-                                                cfg.n_layers)
-                cache["xlen"] = torch.zeros((), dtype=torch.int32, device=self.device)
+                                                cfg.n_layers, device)
+                cache["xlen"] = torch.zeros((), dtype=torch.int32, device=device)
             return cache
-        cache["ssm"] = ssm.mamba_init_cache(cfg, cfg.n_layers, batch, self.device)
+        cache["ssm"] = ssm.mamba_init_cache(cfg, cfg.n_layers, batch, device)
         if cfg.family == "hybrid":
             cache["shared_kv"] = self._kv_cache(batch, max_len, spec,
-                                                len(self._hybrid_chunks()))
+                                                len(self._hybrid_chunks()), device)
         return cache
 
-    def cache_logical(self) -> Dict[str, Any]:
+    def cache_logical(self, kv_spec="auto") -> Dict[str, Any]:
         """Logical axes of every leaf of ``init_cache``'s tree (the
         reference's ``cache_logical`` on the port's layout, one L axis for
         every attention layer): the KV sequence is "kv_seq" (sharded over
-        model on a training grid's rules), its head axis "kv_heads_c" (the
-        serving TP's); a quantized cache's scales share the codes' axes but
-        the sequence."""
+        model on a grid's rules), its head axis "kv_heads_c" (the serving
+        TP's); a quantized cache's scales share the codes' axes but the
+        sequence. ``kv_spec`` names the cache's format (the model's by
+        default)."""
         fam = self.cfg.family
         kv = {"k": ("layers", "batch", "kv_heads_c", "kv_seq", "head_dim"),
               "v": ("layers", "batch", "kv_heads_c", "kv_seq", "head_dim")}
-        if self.kv_spec is not None:
+        if (self.kv_spec if kv_spec == "auto" else kv_spec) is not None:
             kv["k_scale"] = ("layers", "batch", "kv_heads_c", None, "head_dim")
             kv["v_scale"] = ("layers", "batch", "kv_heads_c", None, "head_dim")
         out: Dict[str, Any] = {"pos": ()}
@@ -592,6 +627,9 @@ class LM:
                 "v": torch.zeros(shape, dtype=kdt, device=dev)}
 
     def _require_pageable(self) -> None:
+        if self.grid is not None:
+            raise ValueError("the paged cache is not served on a (pod, data, model) grid: "
+                             "the reference has no paged serving on a production mesh")
         if self.cfg.family not in ("dense", "moe"):
             raise ValueError(
                 f"paged KV cache supports attention-only families "
@@ -694,14 +732,25 @@ class LM:
         "shared_kv" or "cross"; writes land in ``cache``)."""
         return {name: leaf[i] for name, leaf in cache[group].items()}
 
-    def _mamba_layers(self, blocks, x, cache, first: int):
-        """Run mamba layers ``blocks`` (layer ``first`` onwards) and write
-        their new recurrent states into ``cache["ssm"]`` in place."""
+    def _layer(self, params, key: str, i: Optional[int] = None):
+        """``params[key]`` (``[i]``): a layer's parameters, on a grid
+        gathered whole along their data-sharded dims (``_gather``)."""
+        lp = params[key] if i is None else params[key][i]
+        if self.grid is None:
+            return lp
+        return self._gather(lp, self._specs[key] if i is None else self._specs[key][i])
+
+    def _mamba_layers(self, params, x, cache, first: int, n: int):
+        """Run the ``n`` mamba layers from layer ``first`` and write their
+        new recurrent states into ``cache["ssm"]`` in place (on a grid the
+        rank's channels of them)."""
         variant = "mamba1" if self.cfg.family == "ssm" else "mamba2"
-        for j, lp in enumerate(blocks):
-            lc = self.layer_cache(cache, first + j, "ssm")
-            x, new = T.mamba_block_forward(lp, x, self.cfg, cache=lc,
-                                           kernels=self.kernels, variant=variant)
+        tp = self.tp if self.grid is not None else None
+        for j in range(first, first + n):
+            lc = self.layer_cache(cache, j, "ssm")
+            x, new = T.mamba_block_forward(self._layer(params, "blocks", j), x, self.cfg,
+                                           cache=lc, kernels=self.kernels, variant=variant,
+                                           tp=tp)
             for name, leaf in new.items():
                 lc[name].copy_(leaf)
         return x
@@ -714,21 +763,21 @@ class LM:
         (the reference's merged layer cache)."""
         fam = self.cfg.family
         if fam == "ssm":
-            return self._mamba_layers(params["blocks"], x, cache, 0)
+            return self._mamba_layers(params, x, cache, 0, self.cfg.n_layers)
         if fam == "hybrid":
             first = 0
+            shared = self._layer(params, "shared")
             for ci, size in enumerate(self._hybrid_chunks()):
-                x = attn(params["shared"], x, self.layer_cache(cache, ci, "shared_kv"))
-                x = self._mamba_layers(params["blocks"][first:first + size], x,
-                                       cache, first)
+                x = attn(shared, x, self.layer_cache(cache, ci, "shared_kv"))
+                x = self._mamba_layers(params, x, cache, first, size)
                 first += size
             return x
-        for i, lp in enumerate(params["blocks"]):
+        for i in range(len(params["blocks"])):
             lc = self.layer_cache(cache, i)
             if fam == "encdec":
                 xc = self.layer_cache(cache, i, "cross")
                 lc.update(xk=xc["k"], xv=xc["v"], xlen=cache["xlen"])
-            x = attn(lp, x, lc)
+            x = attn(self._layer(params, "blocks", i), x, lc)
         return x
 
     # -- serving --------------------------------------------------------------
@@ -750,14 +799,18 @@ class LM:
 
     def _gather(self, tree, specs):
         """A layer's (or one leaf's) parameters whole along their
-        data-sharded dims (FSDP; the identity off a grid or at data = 1)."""
-        data = self.grid.axis("data") if self.grid is not None else None
-        if data is None or data.size == 1:
+        data-sharded dims (FSDP; the identity off a grid or at data = 1).
+        A quantized leaf (served on a grid) gathers its code bytes and
+        reads its scale's block (``nn.sharding.gather_quantized``)."""
+        if self.grid is None:
             return tree
         if isinstance(tree, dict):
             return {k: self._gather(tree[k], specs[k]) for k in tree}
+        if isinstance(tree, QuantizedTensor):
+            return gather_quantized(tree, specs, self.grid)
+        data = self.grid.axis("data")
         dims = [d for d, a in enumerate(specs) if a == "data"]
-        return fsdp_gather(tree, data, dims[0]) if dims else tree
+        return fsdp_gather(tree, data, dims[0]) if dims and data.size > 1 else tree
 
     def _embed(self, params, tokens: torch.Tensor, sp=None) -> torch.Tensor:
         """The embedding lookup; on a grid with the vocab over model, each
@@ -774,10 +827,10 @@ class LM:
         if spec[0] is None:
             x = T.embed_tokens(emb, tokens, self.act_dtype)
             return x if sp is None else take_block(x, sp, 1)
-        n = emb.shape[0]
+        n = (emb.codes if isinstance(emb, QuantizedTensor) else emb).shape[0]
         local = tokens - self.tp.rank * n
         inside = (local >= 0) & (local < n)
-        rows = emb[local.clamp(0, n - 1)].to(self.act_dtype)
+        rows = T.embed_tokens(emb, local.clamp(0, n - 1), self.act_dtype)
         rows = torch.where(inside[..., None], rows, torch.zeros((), dtype=rows.dtype,
                                                                  device=rows.device))
         return self.tp.reduce_out(rows) if sp is None else scatter_seq(rows, sp)
@@ -802,7 +855,8 @@ class LM:
             spec = self._specs["unembed"]
             w = self._gather(params["unembed"], spec)
             sharded = spec[1] is not None
-        return matmul_param(seq_in(x, sp, self.tp if sharded else None), w), sharded
+        return matmul_param(seq_in(x, sp, self.tp if sharded else None), w,
+                            kernels=None if self.cfg.tie_embeddings else self.kernels), sharded
 
     def _remat(self):
         """``fn(*args)``, under ``torch.utils.checkpoint`` when
@@ -963,11 +1017,52 @@ class LM:
         ``matmul_param`` there takes no ``use_kernel``) even when its
         prefill's cross-attention took the kernels; so does this."""
         B, Se, _ = xa.shape
-        G, Dh = self.cfg.n_kv_heads, self.cfg.d_head
         for name in ("k", "v"):
-            t = matmul_param(xa, lp["xattn"][f"w{name}"]).reshape(B, Se, G, Dh)
-            dst = lc[f"x{name}"]
-            dst[:, :, :Se] = t.transpose(1, 2).to(dst.dtype)
+            w = lp["xattn"][f"w{name}"]
+            t = matmul_param(xa, w).reshape(B, Se, -1, self.cfg.d_head)
+            if self.grid is None:
+                dst = lc[f"x{name}"]
+                dst[:, :, :Se] = t.transpose(1, 2).to(dst.dtype)
+                continue
+            local = (w.codes if isinstance(w, QuantizedTensor) else w).shape[-2]
+            tp = placed(self.tp, local, self.cfg.n_kv_heads)
+            self._write_block(lc[f"x{name}"], t if tp is None else tp.all_gather(t, 2))
+
+    def _write_block(self, dst: torch.Tensor, t: torch.Tensor) -> None:
+        """A grid rank's block of positions of ``t`` (B, S, G, Dh), the K/V
+        (or codes) of positions [0, S), into its layer cache ``dst`` (B, G,
+        S_l, Dh), which holds positions [rank S_l, (rank + 1) S_l)."""
+        S_l = dst.shape[2]
+        start = self.tp.rank * S_l
+        n = min(max(t.shape[1] - start, 0), S_l)
+        if n:
+            dst[:, :, :n] = t[:, start:start + n].transpose(1, 2).to(dst.dtype)
+
+    def _rows(self, t, B: int):
+        """The rank's rows (``GridContext.rows``) of ``t``, whose first dim
+        is a batch of ``B`` rows; ``t`` as it is off a grid, or where it is
+        None or has no such dim (one length for every row)."""
+        if self.grid is None or t is None or not torch.is_tensor(t) \
+                or t.ndim == 0 or t.shape[0] != B:
+            return t
+        r0, n = self.grid.rows(B)
+        return t[r0:r0 + n]
+
+    def _grid_serve_kw(self, B: int) -> Dict[str, Any]:
+        """What a served block takes on a grid for a batch of ``B`` rows:
+        the model axis that cuts the cache's sequence (``kv_seq``) and the
+        ranks an MoE layer routes the batch with; nothing off a grid."""
+        if self.grid is None:
+            return {}
+        return {"kv_seq": self.tp, "batch": self.grid.batch_group(B)}
+
+    def _serve_logits(self, params, h: torch.Tensor, B: int) -> torch.Tensor:
+        """The served rows' logits; on a grid every row of the batch of
+        ``B`` rows, gathered over the ranks that hold the others."""
+        logits = self._logits(params, h)
+        if self.grid is None:
+            return logits
+        return self.grid.batch_group(B).all_gather(logits, 0)
 
     @torch.no_grad()
     def prefill(self, params, tokens: torch.Tensor, *, cache, frames=None,
@@ -982,6 +1077,13 @@ class LM:
         ``cache`` and writes the new ones in place. The encdec family
         encodes ``frames`` (B, Se, d_model) first, attends to them in every
         decoder layer, fills the cross cache and sets ``xlen`` to Se.
+
+        On a grid every rank is given the whole batch (tokens, frames and a
+        (B,) ``length``) and ``init_cache``'s block: it runs its rows
+        (``GridContext.rows``) with the training forward's collectives (no
+        remat, no gradient), writes its block of the prompt's positions
+        into its cache, and returns the logits of every row of the batch
+        (its vocab block gathered over model, its rows over (pod, data)).
         """
         cfg, rcfg = self.cfg, self.rcfg
         self._check_cache_layout(cache)
@@ -989,29 +1091,38 @@ class LM:
             raise ValueError(
                 "bucketed prefill (length=) is attention-family only: "
                 "right-padding pollutes the SSM recurrent state")
+        tokens = tokens.to(self.device)
+        B_all = tokens.shape[0]
+        tokens = self._rows(tokens, B_all)
         xa = None
         if cfg.family == "encdec":
             if frames is None:
                 raise ValueError("encdec prefill needs the encoder frames")
-            xa = self._encode(params, frames)
-        tokens = tokens.to(self.device)
+            xa = self._encode(params, self._rows(frames.to(self.device), B_all))
+        if length is not None:
+            length = self._rows(torch.as_tensor(length, device=self.device), B_all)
         B, Sq = tokens.shape
         positions = torch.arange(Sq, device=self.device)[None, :].expand(B, Sq)
-        x = T.embed_tokens(params["embed"], tokens, self.act_dtype)
+        x = self._embed(params, tokens)
         quant = self.kv_spec is not None
+        grid = self._grid_serve_kw(B_all)
 
         def attn(lp, x, lc):
             if xa is not None:
                 x, kv = T.decoder_xblock_forward(lp, x, cfg, rcfg, positions=positions,
-                                                 xa=xa, kernels=self.kernels)
+                                                 xa=xa, kernels=self.kernels, tp=self.tp,
+                                                 kv_seq=grid.get("kv_seq"))
                 self._write_cross(lp, xa, lc)
             else:
                 scales = ({"k_scale": lc["k_scale"], "v_scale": lc["v_scale"]}
                           if quant else None)
                 x, kv = T.block_forward(lp, x, cfg, rcfg, positions=positions,
                                         kernels=self.kernels, kv_spec=self.kv_spec,
-                                        kv_scales=scales, tp=self.tp)
+                                        kv_scales=scales, tp=self.tp, **grid)
             for name in ("k", "v"):
+                if grid:
+                    self._write_block(lc[name], kv[name])
+                    continue
                 dst = lc[name]
                 dst[:, :, :Sq] = kv[name].transpose(1, 2).to(dst.dtype)
             return x
@@ -1024,7 +1135,7 @@ class LM:
             pos = torch.as_tensor(length, device=self.device).to(
                 torch.int32).reshape(-1).expand(B).clone()
             last = x[torch.arange(B, device=self.device), pos.long() - 1]
-        logits = self._logits(params, last)
+        logits = self._serve_logits(params, last, B_all)
         cache = dict(cache, pos=pos)
         if xa is not None:
             cache["xlen"] = torch.tensor(xa.shape[1], dtype=torch.int32,
@@ -1042,14 +1153,23 @@ class LM:
         updated in place; the returned dict carries ``pos + 1``. An encdec
         layer's cross-attention reads its static cross cache, masked at
         ``xlen``.
+
+        On a grid every rank is given the whole batch's tokens and its block
+        of the cache (``prefill``'s): it runs its rows, writes the new
+        token's K/V on the rank that owns its position, attends over its
+        block of positions and merges the blocks' softmaxes across the
+        model group (``attention._grid_attn``), and returns the logits of
+        every row.
         """
         cfg, rcfg = self.cfg, self.rcfg
         self._check_cache_layout(cache)
+        B_all = tokens.shape[0]
+        tokens = self._rows(tokens.to(self.device), B_all)
         B = tokens.shape[0]
         pos = cache["pos"]
         positions = pos.reshape(-1, 1).expand(B, 1)
-        x = T.embed_tokens(params["embed"], tokens, self.act_dtype)
-        paged = {}
+        x = self._embed(params, tokens)
+        paged = self._grid_serve_kw(B_all)
         if "pages" in cache:
             # the blocks read and write the page pool through the per-slot
             # block tables instead of per-slot rows
@@ -1058,15 +1178,15 @@ class LM:
 
         def attn(lp, x, lc):
             if "xk" in lc:
-                return T.decoder_xblock_forward(lp, x, cfg, rcfg, positions=positions,
-                                                cache=lc, cache_pos=pos,
-                                                kernels=self.kernels)[0]
+                return T.decoder_xblock_forward(
+                    lp, x, cfg, rcfg, positions=positions, cache=lc, cache_pos=pos,
+                    kernels=self.kernels, tp=self.tp, kv_seq=paged.get("kv_seq"))[0]
             return T.block_forward(lp, x, cfg, rcfg, positions=positions,
                                    cache=lc, cache_pos=pos, kernels=self.kernels,
                                    kv_spec=self.kv_spec, tp=self.tp, **paged)[0]
 
         x = self._layers(params, x, cache, attn)
-        return dict(cache, pos=pos + 1), self._logits(params, x[:, 0])
+        return dict(cache, pos=pos + 1), self._serve_logits(params, x[:, 0], B_all)
 
 
 def kv_decode_bytes_per_token(cfg: ModelConfig, context_len: int,

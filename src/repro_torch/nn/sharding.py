@@ -69,6 +69,22 @@ made by ``launch.mesh.make_host_mesh``), one OS process a rank:
   the model axis does not cut reads the whole sequence through
   ``gather_replicated`` and hands its output back through ``take_block``,
   both along seq, so its gradient stays whole on every rank.
+
+Serving runs on the same grid and rules (``LM.init``, ``init_cache``,
+``prefill`` and ``decode_step`` of a model built with ``grid=``), without
+a gradient and without sequence parallelism:
+
+* a quantized leaf keeps its codes cut like the parameter and its scale
+  whole, as the reference places them; ``gather_quantized`` is its FSDP
+  gather (the codes' bytes over data) and cuts the scale to the columns of
+  the rank's codes, so each product reads its own block of the scale;
+* the decode cache's batch is over (pod, data) (``GridContext.rows``) and
+  its sequence over model ("kv_seq"; its heads whole): rank r of M holds
+  positions [r S/M, (r + 1) S/M). Each rank attends every head over its
+  block and ``combine_partials`` merges the blocks' softmaxes across the
+  model group from their log-sum-exps (the flash-decoding pattern the
+  reference's GSPMD makes of the same rule), so no rank ever gathers the
+  cache.
 """
 from __future__ import annotations
 
@@ -85,7 +101,9 @@ from repro_torch.core.policy import layer_prefixes, validate_scale_sharding
 from repro_torch.core.quantizers import QuantizedTensor
 
 __all__ = ["TP_AXIS", "GRID_AXES", "TPContext", "GridContext", "train_rules",
-           "set_collective_hook", "fsdp_gather", "gather_replicated", "take_block", "gather_seq", "scatter_seq",
+           "set_collective_hook", "fsdp_gather", "gather_quantized", "combine_partials",
+           "merge_partials",
+           "gather_replicated", "take_block", "gather_seq", "scatter_seq",
            "seq_in", "seq_out", "placed", "shard_leaf", "shard_policy_params",
            "check_tp_shapes", "map_with_logical"]
 
@@ -289,6 +307,58 @@ def fsdp_gather(x: torch.Tensor, tp: TPContext, dim: int) -> torch.Tensor:
     if not (torch.is_grad_enabled() and x.requires_grad):
         return tp.all_gather(x, dim)
     return _Gather.apply(x, tp, dim, True)
+
+
+def gather_quantized(w: QuantizedTensor, spec, grid: "GridContext") -> QuantizedTensor:
+    """A served leaf's codes whole along their data-sharded dims (FSDP's
+    all-gather, of the code bytes), with the scale cut to the rank's block
+    along each dim that the model axis cuts and the scale varies along (a
+    column-sharded product reads the scale columns of its own codes). The
+    scale is kept whole on every rank; a dim where it has size 1 needs no
+    cut. No gradient: serving only."""
+    codes, scale = w.codes, w.scale
+    data = grid.axis("data")
+    for dim, axes in enumerate(spec):
+        if axes == "data" and data.size > 1:
+            codes = data.all_gather(codes, dim)
+        elif axes is not None and axes != "data" and scale.shape[dim] != 1:
+            idx, n = grid._block(axes)
+            m = scale.shape[dim] // n
+            scale = scale.narrow(dim, idx * m, m)
+    return QuantizedTensor(codes, scale, w.spec)
+
+
+def combine_partials(out: torch.Tensor, lse: torch.Tensor,
+                     tp: Optional[TPContext]) -> torch.Tensor:
+    """The attention of rows over a cache whose positions are cut in blocks
+    over ``tp``'s ranks, from each rank's attention over its own block:
+    ``out`` (..., Dh) normalized over the block and ``lse`` (...) each
+    row's log-sum-exp of its masked scores there. One all-gather brings
+    every rank's (out, lse), which ``merge_partials`` merges; every rank
+    gets the same bits. Returns f32; ``out`` as it is (in f32) off a model
+    group."""
+    out = out.to(torch.float32)
+    if tp is None or tp.size == 1:
+        return out
+    both = tp.all_gather(torch.cat([out, lse.to(torch.float32)[..., None]], -1)[None], 0)
+    return merge_partials(both[..., :-1], both[..., -1])
+
+
+def merge_partials(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """sum_r exp(lse_r - max) out_r / sum_r exp(lse_r - max) over the
+    blocks of dim 0 (``outs`` (M, ..., Dh), ``lses`` (M, ...)), in block
+    order, in f32. A block with no valid position (out 0, lse -inf:
+    ``kv_flash_decode``'s and its plain form's) weighs exactly 0 beside one
+    that has: every row sees at least its own token."""
+    outs, lses = outs.to(torch.float32), lses.to(torch.float32)
+    mx = lses.amax(0)
+    num = torch.zeros_like(outs[0])
+    den = torch.zeros_like(mx)
+    for r in range(outs.shape[0]):
+        w = torch.exp(lses[r] - mx)
+        num = num + w[..., None] * outs[r]
+        den = den + w
+    return num / den[..., None]
 
 
 def gather_replicated(x: torch.Tensor, tp: TPContext, dim: int) -> torch.Tensor:
@@ -524,6 +594,35 @@ class GridContext:
                 m = t.shape[dim] // n
                 t = t.narrow(dim, idx * m, m)
         return t.clone()
+
+    def local_shape(self, spec, shape) -> Tuple[int, ...]:
+        """The shape of the rank's block of a leaf of ``shape`` cut by
+        ``spec``."""
+        out = []
+        for axes, d in zip(tuple(spec) + (None,) * (len(shape) - len(spec)), shape):
+            if axes is not None:
+                d //= self._block(axes)[1]
+            out.append(d)
+        return tuple(out)
+
+    def rows(self, n: int) -> Tuple[int, int]:
+        """(first row, rows) of this rank's block of a batch of ``n`` rows:
+        the "batch" rule's (pod, data) block, or every row where the
+        product of those axes does not divide ``n`` (it replicates)."""
+        axes = self.spec(("batch",), (n,))[0]
+        if axes is None:
+            return 0, n
+        idx, k = self._block(axes)
+        return idx * (n // k), n // k
+
+    def batch_group(self, n: int) -> TPContext:
+        """The ranks that hold the other blocks of a batch of ``n`` rows
+        (``rows``): the group over its axes, TPContext() where it
+        replicates."""
+        axes = self.spec(("batch",), (n,))[0]
+        if axes is None:
+            return TPContext()
+        return self.axis(*((axes,) if isinstance(axes, str) else axes))
 
     def shard_axes(self, spec) -> Tuple[str, ...]:
         """The grid axes a leaf of ``spec`` is sharded over."""

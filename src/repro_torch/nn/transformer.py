@@ -23,6 +23,11 @@ model axis under sequence parallelism, training only) makes x the rank's
 block along seq: each norm on the residual runs on that block, its weight
 read through ``copy_in`` (the rank's tokens give a partial gradient), and
 each sublayer gathers the whole sequence and hands back the rank's block.
+Serving on a grid passes ``kv_seq`` (the model axis, which cuts the decode
+caches' sequence) to the attention blocks (``block_forward``'s ``**kw``,
+``decoder_xblock_forward``'s self- and cross-attention), and the model
+axis as ``tp`` to the mamba blocks, whose recurrent states are the rank's
+channels.
 """
 from __future__ import annotations
 
@@ -126,25 +131,26 @@ def block_forward(p: dict, x: torch.Tensor, cfg, rcfg, batch=None, **kw):
 def decoder_xblock_forward(p: dict, x: torch.Tensor, cfg, rcfg, *, positions,
                            xa: Optional[torch.Tensor] = None, cache=None,
                            cache_pos=None, kernels: Optional[KernelSet] = None, tp=None,
-                           sp=None, xsp=None):
+                           sp=None, xsp=None, kv_seq=None):
     """Whisper decoder block: self-attention (with its cache), then
     cross-attention after ``ln_x``, then the MLP. Prefill passes the
     encoder states ``xa``; decode passes ``cache`` = the layer's {"k", "v"}
     and its static cross cache "xk", "xv" (B, G, Se, Dh) with its length
     "xlen". ``tp``: the model axis of a training grid; ``sp`` and ``xsp``:
-    that axis where sequence parallelism cuts x and xa along seq. Returns
-    (x, the self-attention's new_kv)."""
+    that axis where sequence parallelism cuts x and xa along seq; ``kv_seq``
+    (serving on a grid) that axis where it cuts both caches' sequence.
+    Returns (x, the self-attention's new_kv)."""
     self_cache = None if cache is None else {"k": cache["k"], "v": cache["v"]}
     x, new_kv = _attn_residual(p, x, cfg, rcfg, sp, positions=positions,
                                cache=self_cache, cache_pos=cache_pos,
-                               kernels=kernels, tp=tp)
+                               kernels=kernels, tp=tp, kv_seq=kv_seq)
     xcache = None
     if cache is not None and "xk" in cache:
         xcache = {"k_static": cache["xk"], "v_static": cache["xv"],
                   "len": cache["xlen"]}
     h, _ = attn_forward(p["xattn"], _norm(x, p["ln_x"], cfg, sp), cfg,
                         rcfg, positions=positions, xa=xa, cache=xcache,
-                        kernels=kernels, tp=tp, sp=sp, xsp=xsp)
+                        kernels=kernels, tp=tp, sp=sp, xsp=xsp, kv_seq=kv_seq)
     x = x + h
     return x + _mlp(p, x, cfg, kernels, tp, sp), new_kv
 

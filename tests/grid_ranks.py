@@ -1,5 +1,5 @@
-"""Rank-side functions of the training-grid tests (``test_torch_train_grid.py``
-and ``test_torch_compression.py``).
+"""Rank-side functions of the grid tests (``test_torch_train_grid*.py``,
+``test_torch_compression.py`` and ``test_torch_serve_grid*.py``).
 
 They run in the spawned processes of a ``launch.mesh.RankPool`` and import
 torch and the port only (no JAX), so the ranks start in seconds. Each
@@ -202,3 +202,42 @@ def chunked_loss_case(grid, device, arch, chunk, batch):
             models.CE_CHUNK = saved
         out.append((float(loss), [g.numpy() for g in grads]))
     return out
+
+
+def serve_case(grid, device, case):
+    """Serving on the grid: the smoke ``case["arch"]`` at f32 activations
+    (the runs of ``torch_bridge.pair``), the reference's weights
+    ``case["tree"]`` cut to the rank's shard (``rank_params_from_numpy``),
+    with ``case["kv"]`` and ``case["use_kernel"]``: a prefill and
+    ``case["steps"]`` greedy decode steps. Returns numpy: "logits", the
+    prefill's and each step's (every row's); "caches", the rank's KV cache
+    leaves after the prefill and after the steps; "stream", the greedy
+    tokens (B, steps)."""
+    from repro_torch.convert import rank_params_from_numpy
+    cfg = smoke(ARCHS[case["arch"]])
+    model = build_model(cfg, RunConfig(remat="none", activation_dtype="f32"), device=device,
+                        grid=grid, kv_spec=case["kv"], use_kernel=case["use_kernel"])
+    params = rank_params_from_numpy(case["tree"], model)
+    tokens = torch.from_numpy(case["tokens"])
+    kw = {}
+    if case.get("frames") is not None:
+        kw["frames"] = torch.from_numpy(case["frames"])
+    if case.get("length") is not None:
+        kw["length"] = torch.from_numpy(case["length"])
+    enc = {"enc_len": case["enc_len"]} if case.get("enc_len") else {}
+
+    def kv(cache):
+        group = "shared_kv" if "shared_kv" in cache else "kv"
+        return {k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+                for k, v in cache.get(group, {}).items()}
+
+    cache = model.init_cache(tokens.shape[0], case["max_len"], **enc)
+    cache, logits = model.prefill(params, tokens, cache=cache, **kw)
+    out, caches, stream = [logits.numpy()], [kv(cache)], []
+    for _ in range(case["steps"]):
+        nxt = logits.argmax(-1)[:, None]
+        stream.append(nxt[:, 0].numpy())
+        cache, logits = model.decode_step(params, cache, nxt)
+        out.append(logits.numpy())
+    caches.append(kv(cache))
+    return {"logits": out, "caches": caches, "stream": np.stack(stream, 1)}

@@ -38,7 +38,7 @@ from repro_torch.kernels.ops import KERNELS, quant_matmul
 from repro_torch.launch import analyze
 from repro_torch.nn.models import apply_policy, build_model, quantize_params
 from torch_bridge import _jax_params, to_numpy_tree, tspec
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 
 RTOL = 1e-5          # f32 error means, summed in another order
 NLL_RTOL = 1e-4      # f32 eval NLL of a 2-layer model in two frameworks

@@ -65,14 +65,19 @@ def test_full_rows_on_cpu_at_reduced_shapes(monkeypatch, capsys):
     monkeypatch.setattr(kernels, "SSM_UNEMBEDS", [(64, 40)])
     monkeypatch.setattr(kernels, "WHISPER_SHAPES_POFX", [(32, 40)])
     monkeypatch.setattr(kernels, "TP2_SHAPES_POFX", [(48, 40)])
+    monkeypatch.setattr(kernels, "GRID_KV_SHAPES", ((20, [0, 5, 17, 20]), (40, [0, 0, 0, 0])))
     rows = kernels.run("cpu")
     names = [r["name"] for r in rows]
     # pofx_decode: 6 sweep rows, one (8, 2) row per weight shape, one (9, 2) row
     assert names.count("pofx_decode") == 6 + 2 + 1
     # flash decode: 2 specs x 2 S at G = 4, R = 8, and fxp8 x 2 S at G = 16,
     # R = 1 (moonshot), at G = 32, R = 1, Dh = 64 (zamba2), at G = 8,
-    # R = 12, Dh = 192 (nemotron) and at G = 2, R = 8 (yi-9b at tp = 2)
-    assert names.count("kv_flash_decode") == 4 + 2 + 2 + 2 + 2
+    # R = 12, Dh = 192 (nemotron) and at G = 2, R = 8 (yi-9b at tp = 2);
+    # the dense kernel also with its lse at a grid rank's 2 blocks
+    assert names.count("kv_flash_decode") == 4 + 2 + 2 + 2 + 2 + 2
+    assert [r["shape"] for r in rows if r["shape"].startswith("lse ")] == [
+        "lse fxp8 B=4 G=4 R=8 S=20 Dh=128 pos=[0, 5, 17, 20]",
+        "lse fxp8 B=4 G=4 R=8 S=40 Dh=128 pos=[0, 0, 0, 0]"]
     assert names.count("kv_flash_paged_decode") == 4 + 2 + 2 + 2 + 2
     assert sum("G=2 R=8" in r["shape"] for r in rows) == 4
     nemotron_kv = [r for r in rows if "G=8 R=12" in r["shape"]]

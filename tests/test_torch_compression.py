@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 from repro_torch.core.normalized_posit import norm_encode_arith
 from repro_torch.core.posit import posit_encode_arith, posit_value_table
 from repro_torch.runtime.compression import pow2_scale

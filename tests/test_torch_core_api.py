@@ -17,7 +17,7 @@ from repro_torch.core import fxp as t_fxp
 from repro_torch.core import normalized_posit as t_np
 from repro_torch.core import pareto as t_pareto
 from repro_torch.core import pofx as t_pofx
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 
 NES = [(N, ES) for N in range(3, 11) for ES in range(0, 5)]
 # the (M, F) pairs of the reference's tests/test_pofx.py

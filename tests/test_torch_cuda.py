@@ -252,6 +252,47 @@ def test_kv_flash_decode_matches_plain(cuda, spec_s, Dh, S):
 
 
 @pytest.mark.parametrize("spec_s", ["fxp8", "pofx8es2"])
+@pytest.mark.parametrize("S", [128, 2048])
+def test_kv_flash_decode_lse_and_blocks_combine(cuda, spec_s, S):
+    """The lse output against the plain form's, local lengths of 0
+    included (a grid rank's block past a row's position), and the blocks
+    of a cache attended apart and merged (``merge_partials``) against the
+    whole cache; the same out with and without the lse where a row has a
+    valid position, one launch each."""
+    from repro_torch.nn.sharding import merge_partials
+    spec = parse_spec(spec_s)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    B, G, R, Dh = 4, 4, 8, 128
+    q = torch.randn(B, G, R, Dh, generator=g, device=cuda)
+    ks = torch.exp2(torch.randint(-1, 2, (B, G, 1, Dh), generator=g, device=cuda).float())
+    vs = torch.exp2(torch.randint(-1, 2, (B, G, 1, Dh), generator=g, device=cuda).float())
+    kc = kv_quantize(torch.randn(B, G, 2 * S, Dh, generator=g, device=cuda), spec, ks)
+    vc = kv_quantize(torch.randn(B, G, 2 * S, Dh, generator=g, device=cuda), spec, vs)
+    pos = torch.tensor([1, S // 3, S + 5, 2 * S], dtype=torch.int32, device=cuda)
+    parts = []
+    for r in range(2):
+        blk = slice(r * S, (r + 1) * S)
+        n = (pos - r * S).clamp(0, S)
+        before = LAUNCHES["kv_flash_decode"]
+        out, lse = kv_flash_decode(q, kc[:, :, blk], ks, vc[:, :, blk], vs, n, spec,
+                                   with_lse=True)
+        assert LAUNCHES["kv_flash_decode"] == before + 1
+        want, want_lse = kv_flash_decode_ref(q, kc[:, :, blk], ks, vc[:, :, blk], vs, n, spec,
+                                             with_lse=True)
+        torch.testing.assert_close(out, want, rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(lse, want_lse, rtol=1e-5, atol=1e-5)
+        # a row of length 0 reads nothing with the lse (out 0), where the
+        # plain mask averages the block: the others agree bit for bit
+        live = n > 0
+        assert torch.equal(out[live], kv_flash_decode(q, kc[:, :, blk], ks, vc[:, :, blk], vs,
+                                                      n, spec)[live])
+        parts.append((out, lse))
+    got = merge_partials(torch.stack([p[0] for p in parts]), torch.stack([p[1] for p in parts]))
+    whole = kv_flash_decode_ref(q, kc, ks, vc, vs, pos, spec)
+    torch.testing.assert_close(got, whole, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("spec_s", ["fxp8", "pofx8es2"])
 @pytest.mark.parametrize("ps", [4, 16, 48])
 def test_kv_flash_paged_decode_matches_plain_and_dense_kernel(cuda, spec_s, ps):
     """Scrambled tables (no slot's pages contiguous), garbage-page tails,

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 from repro_torch.configs import ARCHS, RunConfig, smoke
 from repro_torch.core.policy import parse_kv_spec
 from repro_torch.nn import attention

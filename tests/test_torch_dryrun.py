@@ -29,10 +29,10 @@ import numpy as np
 import pytest
 import torch
 
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 from repro_torch.configs import ARCHS, LONG_CONTEXT_ARCHS, RunConfig
 from repro_torch.configs.base import SHAPES
-from repro_torch.core.policy import layer_prefixes
+from repro_torch.core.policy import QuantPolicy, layer_prefixes
 from repro_torch.core.quantizers import QuantizedTensor
 from repro_torch.launch import dryrun, hlo_analysis, op_cost
 from repro_torch.launch.mesh import grid_layout
@@ -365,14 +365,32 @@ def test_collectives_count_ring_wire_bytes_in_a_fake_world():
 
 
 def test_serve_and_skipped_cells_fill_their_records():
+    """The long-context cell of a full-attention arch is skipped with the
+    reference's reason; a serve cell runs its decode step as one rank of
+    the (2, 16, 16) grid: it fits in 80 GiB, its model flops are 2 N D,
+    and its argument bytes are ``serve_arguments``' (the rank's arguments
+    as the reference places them), beside the traced step's own (the
+    params and cache the same, the whole batch's tokens)."""
     rec = dryrun.run_cell("llama3-405b", "long_500k", "single", verbose=False, device="cpu")
     assert rec["skipped"] and not rec["ok"] and "sub-quadratic" in rec["reason"]
     assert rec["quant"] == "pofx8"
     rec = dryrun.run_cell("zamba2-1.2b", "decode_32k", "multi", verbose=False, device="cpu")
-    assert rec["skipped"] and not rec["ok"] and rec["reason"] == dryrun.SERVE_SKIP
-    parts = rec["memory"]["arguments_by_part"]
-    assert rec["memory"]["argument_size_in_bytes"] == sum(parts.values())
-    assert parts["params"] > 0 and parts["cache"] > 0 and rec["n_devices"] == 512
+    assert rec["ok"] and not rec.get("skipped") and rec["fits"] and rec["n_devices"] == 512
+    mem, cell = rec["memory"], SHAPES["decode_32k"]
+    assert 0 < mem["peak_memory_in_bytes"] <= 80 * 2**30
+    assert rec["model_flops"] == 2 * ARCHS["zamba2-1.2b"].active_param_count() * cell.global_batch
+    model = build_model(ARCHS["zamba2-1.2b"], dryrun.serve_run_config(), device="cpu",
+                        kv_spec=QuantPolicy.from_string("pofx8").kv_spec)
+    grid = GridContext(*grid_layout(*GRIDS["multi"]))
+    args = dryrun.serve_arguments(model, cell, "pofx8", grid)
+    parts = mem["arguments_by_part"]
+    assert parts == {k: dryrun.spec_bytes(v) for k, v in args.items()}
+    assert mem["argument_size_in_bytes"] == dryrun.spec_bytes(args) == sum(parts.values())
+    assert parts["params"] > 0 and parts["cache"] > 0
+    tokens = cell.global_batch * 4
+    assert mem["traced_argument_bytes"] == parts["params"] + parts["cache"] + tokens
+    assert rec["collectives"]["n_ops"] > 0 and rec["cost"]["flops_per_device"] > 0
+    assert rec["run_config"]["serve_bf16_compute"] and not rec["run_config"]["use_kernel"]
 
 
 def test_yi9b_train_cell_on_the_single_pod_grid(tmp_path):

@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 from repro_torch.configs import ARCHS, RunConfig, smoke
 from repro_torch.launch.dryrun import dry_train_step, fake_world
 from repro_torch.launch.mesh import grid_groups, grid_layout

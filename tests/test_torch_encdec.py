@@ -44,7 +44,7 @@ from repro_torch.launch import serve
 from repro_torch.launch.engine import ServeEngine
 from repro_torch.nn.models import build_model
 from torch_bridge import _jax_params, pair, port_leaves, reference_leaves, tspec
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 
 ARCH = "whisper-medium"
 MIXED = "attn/*=pofx8es2,mlp/*=fxp8f7"

@@ -18,7 +18,7 @@ from repro.core.policy import parse_spec
 from repro.launch.engine import Request as JRequest, ServeEngine as JEngine
 from repro_torch.launch.engine import Request, ServeEngine
 from torch_bridge import pair
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 
 VOCAB = 512
 

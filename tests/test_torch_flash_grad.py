@@ -15,7 +15,7 @@ import torch
 from repro.nn.attention import flash_attention as j_flash
 from repro.nn.sharding import make_ctx
 from repro_torch.nn import attention as A
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 
 CTX = make_ctx(None)
 TOL = 5e-5

@@ -15,7 +15,7 @@ import torch
 from repro.kernels.fxp_matmul import fxp_matmul as j_fxp_matmul
 from repro_torch.kernels.fxp_matmul import fxp_matmul_ref, plan, tile
 from repro_torch.kernels.pofx_matmul import BK, BN, MAX_SLICES, SMS, Plan
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 
 # yi-9b's mlp projections (the fxp rules of mixed policies) and the other
 # weight shapes, then ragged k and n

@@ -28,7 +28,7 @@ from repro_torch.kernels.ops import KERNELS, PLAIN, out_channel_scale, quant_mat
 from repro_torch.kernels.pofx_matmul import (BK, BN, F32_PLAN, MAX_SLICES, SMS, TARGET_BLOCKS,
                                              bf16_tile, call_plan, plan, pofx_matmul)
 from torch_bridge import tspec
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 
 # f32 sums of up to a few hundred terms taken in another order: a few ulps
 RTOL, ATOL = 1e-5, 1e-5

@@ -21,7 +21,7 @@ from repro_torch.core.quantizers import kv_dequantize
 from repro_torch.kernels.kv_flash_decode import (SMS, TILE, Plan, kv_flash_decode_ref,
                                                  plan)
 from torch_bridge import tspec
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 
 SPECS = {"fxp8": JSpec(kind="fxp", M=8, F=7), "pofx8es2": JSpec(kind="pofx", N=8, ES=2),
          "pofx6es1": JSpec(kind="pofx", N=6, ES=1)}

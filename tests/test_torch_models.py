@@ -20,7 +20,7 @@ from repro_torch.nn.models import apply_policy, build_model, kv_decode_bytes_per
 from repro.nn.models import kv_decode_bytes_per_token as j_kv_bytes
 from repro.configs import ARCHS as J_ARCHS
 from torch_bridge import pair, tspec
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 
 # f32 logits of a 2-layer model computed in two frameworks (different
 # summation orders, libm cos/sin/exp/rsqrt): a few ulps of |logit| <~ 4

@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from repro.core.policy import parse_spec
+from torch_bridge import jax_compile_cache  # noqa: F401 (autouse)
 from torch_bridge import check_logits_and_grads, one_thread, pair, train_batch, train_models
 
 ARCHS = ["chameleon-34b", "nemotron-4-340b"]

@@ -16,6 +16,7 @@ Both packages run at f32 activations; tolerances as in
 ``tests/test_torch_models.py``.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -38,7 +39,7 @@ from repro_torch.kernels.ops import KERNELS, PLAIN
 from repro_torch.nn.models import apply_policy, build_model
 from repro_torch.nn.moe import moe_capacity, moe_forward
 from torch_bridge import _jax_params, pair, port_leaves, reference_leaves, to_numpy_tree
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 
 MOE_ARCHS = ["moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b"]
 MIXED = "attn/*=pofx8es2,mlp/*=fxp8f7,*=bf16"
@@ -61,9 +62,10 @@ def _moe_cfgs(shared: bool):
             dataclasses.replace(tcfg, n_shared_experts=n))
 
 
+@functools.lru_cache(maxsize=None)
 def _moe_weights(jcfg):
     """The reference's MoE layer weights, pofx8-quantized (router kept f32),
-    as (jax tree, port tree)."""
+    as (jax tree, port tree); drawn once a config for the module's cases."""
     jp = j_moe_init(jax.random.PRNGKey(5), jcfg)
     jp = j_apply_policy(jp, "*=pofx8es2")
     assert isinstance(jp["wg"], JQT) and not isinstance(jp["router"], JQT)
@@ -97,16 +99,26 @@ def _dropped(tp, x, cfg):
     return int((counts - C).clamp_min(0).sum())
 
 
+@functools.lru_cache(maxsize=None)
+def _moe_reference(case, shared, use_kernel):
+    """The reference's ``moe_forward`` output, once for the cases that hold
+    the port to the same run (the plain and kernel paths both against its
+    kernel path)."""
+    jcfg, tcfg = _moe_cfgs(shared)
+    jp, _ = _moe_weights(jcfg)
+    x = _moe_input(case, tcfg.d_model)
+    return np.asarray(j_moe_forward(jp, jnp.asarray(x), jcfg, make_ctx(None),
+                                    use_kernel=use_kernel))
+
+
 @pytest.mark.parametrize("case", ["decode", "drops", "bucket"])
 @pytest.mark.parametrize("shared", [True, False])
 @pytest.mark.parametrize("path", ["none", "plain", "kernels"])
 def test_moe_forward_matches_reference(case, shared, path):
     jcfg, tcfg = _moe_cfgs(shared)
-    jp, tp = _moe_weights(jcfg)
+    _, tp = _moe_weights(jcfg)
     x = _moe_input(case, tcfg.d_model)
-    use_kernel = path != "none"
-    want = np.asarray(j_moe_forward(jp, jnp.asarray(x), jcfg, make_ctx(None),
-                                    use_kernel=use_kernel))
+    want = _moe_reference(case, shared, path != "none")
     kset = {"none": None, "plain": PLAIN, "kernels": KERNELS}[path]
     got = moe_forward(tp, torch.from_numpy(x), tcfg, kernels=kset)
     assert got.shape == x.shape and got.dtype == torch.float32

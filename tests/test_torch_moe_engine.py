@@ -24,7 +24,7 @@ from repro.launch.engine import (Request as JRequest, SamplingParams as JSamplin
                                  ServeEngine as JEngine)
 from repro_torch.launch.engine import Request, SamplingParams, ServeEngine
 from torch_bridge import pair
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 
 VOCAB = 512
 MOE_ARCHS = ["moonshot-v1-16b-a3b", "llama4-maverick-400b-a17b"]

@@ -25,7 +25,7 @@ from repro_torch.core import pofx as t_pofx
 from repro_torch.core import posit as t_posit
 from repro_torch.core import quantizers as tq
 from repro_torch.kernels.ref import decode_norm_to_fxp
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 
 GRID = default_spec_grid()
 POFX = [s for s in GRID if s.kind == "pofx"]

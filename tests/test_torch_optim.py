@@ -26,7 +26,7 @@ from repro_torch.core.quantizers import QuantizedTensor
 from repro_torch.optim import (OptConfig, apply_updates, global_norm, init_opt_state,
                                lr_schedule, tree_leaves)
 from torch_bridge import to_numpy_tree
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 
 TOL = 1e-6
 

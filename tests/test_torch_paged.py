@@ -32,7 +32,7 @@ from repro_torch.kernels.kv_flash_paged_decode import kv_flash_paged_decode
 from repro_torch.kernels.ref import gather_pages, kv_flash_paged_decode_ref
 from repro_torch.launch.engine import Request, ServeEngine
 from torch_bridge import pair, tspec
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 
 # the kernel's plain version against the reference's kernel: f32 softmax
 # attention over <= 20 positions computed in another order

@@ -14,7 +14,7 @@ import pytest
 
 from repro.launch import paging as J
 from repro_torch.launch import paging as T
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 
 
 def _same(jcall, tcall):

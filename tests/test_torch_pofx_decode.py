@@ -17,7 +17,7 @@ from repro.kernels.pofx_decode import pofx_decode as j_pofx_decode
 from repro_torch.kernels import LAUNCHES
 from repro_torch.kernels.ops import pofx_decode as ops_pofx_decode
 from repro_torch.kernels.pofx_decode import pofx_decode, pofx_decode_ref
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 
 POFX_SPECS = sorted({(s.N, s.ES, s.M) for s in default_spec_grid() if s.kind == "pofx"})
 

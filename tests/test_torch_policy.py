@@ -8,7 +8,7 @@ import pytest
 from repro.core import policy as jpol
 from repro_torch.core import policy as tpol
 from torch_bridge import pair
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 
 SPECS = ["fp32", "bf16", "fxp8", "fxp8f7", "fxp16", "fxp7f6", "posit8es2",
          "posit6es1", "posit8", "pofx8es2", "pofx8", "pofx6es1m8-direct",

@@ -3,6 +3,7 @@
 straggler monitor, the numpy posit codec behind posit-packed leaves, and
 ``convert``'s way back to the reference's stacked layout."""
 import filecmp
+import functools
 import os
 
 import jax
@@ -27,7 +28,7 @@ from repro_torch.data import (DataConfig, TokenFileReader, synthetic_batch,
                               synthetic_batches, write_token_file)
 from repro_torch.runtime import CheckpointManager, StepTimeMonitor
 from torch_bridge import _jax_params, to_numpy_tree
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 
 # -- numpy posit codec ---------------------------------------------------------
 
@@ -154,7 +155,11 @@ def test_params_to_numpy_inverts_params_from_numpy(arch, policy):
 # -- checkpoints -----------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
 def _ref_state(quant, weight_dtype):
+    """The reference's seed-0 yi-9b smoke train state with one step's worth
+    of noise in its moments, made once a (quant, weight dtype) for the
+    module's cases (they read it, and build their own trees from it)."""
     jm = j_build_model(j_smoke(J_ARCHS["yi-9b"]),
                        JRunConfig(weight_dtype=weight_dtype, opt_state_quant=quant))
     state = jax.jit(lambda k: j_make_state(jm, k))(jax.random.PRNGKey(0))

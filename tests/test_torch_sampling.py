@@ -29,7 +29,7 @@ from repro_torch.core import prng
 from repro_torch.launch.engine import (Request, SamplingParams, ServeEngine,
                                        sample_tokens)
 from torch_bridge import pair
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 
 SEEDS = [0, 1, 42, 2**31 - 1]
 SHAPES = [(1,), (7,), (3, 5), (4, 64000)]

@@ -19,6 +19,7 @@ Both packages run at f32 activations; the tolerance of a mixer is 1e-5
 (rtol and atol), of the logits that of ``tests/test_torch_models.py``.
 """
 import dataclasses
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -38,7 +39,7 @@ from repro_torch.core.quantizers import QuantizedTensor
 from repro_torch.nn import ssm
 from repro_torch.nn.models import apply_policy, build_model
 from torch_bridge import _jax_params, pair, port_leaves, reference_leaves, to_numpy_tree
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 
 SSM_ARCHS = ["falcon-mamba-7b", "zamba2-1.2b"]
 MIXED = "attn/*=pofx8es2,mlp/*=fxp8f7,*=bf16"
@@ -55,8 +56,10 @@ VARIANTS = {
 }
 
 
+@functools.lru_cache(maxsize=None)
 def _mixer(variant):
-    """(jax cfg, port cfg, jax weights, port weights, in_proj width)."""
+    """(jax cfg, port cfg, jax weights, port weights, in_proj width), drawn
+    once a variant for the module's cases."""
     arch, j_init = VARIANTS[variant][:2]
     jcfg, tcfg = j_smoke(J_ARCHS[arch]), smoke(ARCHS[arch])
     jp = j_init(jax.random.PRNGKey(1), jcfg)

@@ -23,7 +23,7 @@ from repro.launch.engine import (Request as JRequest, SamplingParams as JSamplin
                                  ServeEngine as JEngine)
 from repro_torch.launch.engine import Request, SamplingParams, ServeEngine
 from torch_bridge import pair
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 
 VOCAB = 512
 SSM_ARCHS = ["falcon-mamba-7b", "zamba2-1.2b"]

@@ -31,7 +31,7 @@ from repro_torch.nn import transformer as T
 from repro_torch.nn.models import build_model, ce_loss
 from repro_torch.optim import tree_leaves, tree_map
 from torch_bridge import to_numpy_tree
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 F32 = dict(weight_dtype="f32", activation_dtype="f32")

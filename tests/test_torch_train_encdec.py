@@ -20,6 +20,7 @@ import torch
 
 from repro.launch import train as j_train_cli
 from repro_torch.launch import train as train_cli
+from torch_bridge import jax_compile_cache  # noqa: F401 (autouse)
 from torch_bridge import (check_logits_and_grads, check_remat_equal, checkpoint_round_trip,
                           one_thread, train_batch, train_models)
 

@@ -40,6 +40,7 @@ import torch
 
 import grid_bridge
 from grid_bridge import check_pod_case, layout, reference, run_grid
+from torch_bridge import jax_compile_cache  # noqa: F401 (autouse)
 from torch_bridge import (STEP_CASES, STEP_IDS, assert_steps_match, step_kw,
                           torch_one_thread, walk)  # noqa: F401 (autouse)
 from repro_torch.configs import ARCHS, RunConfig, smoke

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 
 from grid_bridge import check_init_gathers_back, layout_model, reference, three_steps
+from torch_bridge import jax_compile_cache  # noqa: F401 (autouse)
 from torch_bridge import (STEP_CASES, STEP_IDS, step_kw, torch_one_thread,  # noqa: F401
                           walk)
 from repro_torch.convert import gather_train_state, params_to_numpy, train_state_from_numpy

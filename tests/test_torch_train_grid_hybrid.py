@@ -21,7 +21,8 @@ has the reference's trajectories):
 import pytest
 
 from grid_bridge import check_init_gathers_back, layout_model, three_steps
-from torch_bridge import STEP_CASES, STEP_IDS, torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import STEP_CASES, STEP_IDS
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 
 ARCH = "zamba2-1.2b"
 GRIDS = {"model2": (1, 1, 2), "data2-model2": (1, 2, 2)}

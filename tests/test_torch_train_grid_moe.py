@@ -25,7 +25,8 @@ import pytest
 
 from grid_bridge import (check_init_gathers_back, check_pod_case, layout_model,
                          reference_drops, three_steps)
-from torch_bridge import STEP_CASES, STEP_IDS, torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import STEP_CASES, STEP_IDS
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 
 ARCH = "moonshot-v1-16b-a3b"
 LLAMA4 = "llama4-maverick-400b-a17b"

@@ -38,6 +38,7 @@ import numpy as np
 import pytest
 
 from grid_bridge import check_pod_case, reference, run_grid, three_steps
+from torch_bridge import jax_compile_cache  # noqa: F401 (autouse)
 from torch_bridge import (STEP_CASES, STEP_IDS, step_batches, step_kw,  # noqa: F401
                           torch_one_thread, walk)
 from test_torch_train_grid import NOISE

@@ -21,7 +21,7 @@ The moe and ssm families: ``test_torch_train_grid_sp_moe_ssm.py``.
 import pytest
 
 from grid_bridge import three_steps
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 import test_torch_train_grid_encdec as encdec
 import test_torch_train_grid_hybrid as hybrid
 

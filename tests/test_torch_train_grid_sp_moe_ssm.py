@@ -23,7 +23,7 @@ without sequence parallelism): ``test_torch_train_grid_sp.py``.
 import pytest
 
 from grid_bridge import reference_drops, three_steps
-from torch_bridge import torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 import test_torch_train_grid_moe as moe
 
 GRID = (1, 2, 2)

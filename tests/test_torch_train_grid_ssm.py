@@ -16,7 +16,8 @@ out_proj.
 import pytest
 
 from grid_bridge import check_init_gathers_back, layout_model, three_steps
-from torch_bridge import STEP_CASES, STEP_IDS, torch_one_thread  # noqa: F401 (autouse)
+from torch_bridge import STEP_CASES, STEP_IDS
+from torch_bridge import jax_compile_cache, torch_one_thread  # noqa: F401 (autouse)
 
 ARCH = "falcon-mamba-7b"
 GRIDS = {"model2": (1, 1, 2), "data2-model2": (1, 2, 2)}

@@ -12,6 +12,7 @@ moments take a scale of their own). Tolerances as in
 """
 import pytest
 
+from torch_bridge import jax_compile_cache  # noqa: F401 (autouse)
 from torch_bridge import (check_logits_and_grads, check_remat_equal, checkpoint_round_trip,
                           one_thread, train_batch, train_models)
 

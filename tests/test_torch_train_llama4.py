@@ -11,6 +11,7 @@ the reference's {"moe", "dense"} stacked leaves). Tolerances as in
 """
 import pytest
 
+from torch_bridge import jax_compile_cache  # noqa: F401 (autouse)
 from torch_bridge import (check_logits_and_grads, check_remat_equal, checkpoint_round_trip,
                           one_thread, train_batch, train_models)
 

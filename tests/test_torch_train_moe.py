@@ -29,6 +29,7 @@ from repro.nn.sharding import make_ctx
 from repro_torch.configs import ARCHS, smoke
 from repro_torch.convert import params_from_numpy
 from repro_torch.nn import moe
+from torch_bridge import jax_compile_cache  # noqa: F401 (autouse)
 from torch_bridge import (check_logits_and_grads, check_remat_equal, cli_trains, one_thread,
                           to_numpy_tree, train_batch, train_models)
 

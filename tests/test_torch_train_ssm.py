@@ -30,6 +30,7 @@ from repro.nn import ssm as J
 from repro_torch.configs import ARCHS, smoke
 from repro_torch.convert import params_from_numpy
 from repro_torch.nn import ssm
+from torch_bridge import jax_compile_cache  # noqa: F401 (autouse)
 from torch_bridge import (check_logits_and_grads, check_remat_equal, checkpoint_round_trip,
                           one_thread, to_numpy_tree, train_batch, train_models)
 

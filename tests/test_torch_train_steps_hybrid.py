@@ -9,6 +9,7 @@ the family's training tests are in ``tests/test_torch_train_hybrid.py``.
 """
 import pytest
 
+from torch_bridge import jax_compile_cache  # noqa: F401 (autouse)
 from torch_bridge import STEP_CASES, STEP_IDS, assert_steps_match, one_thread, three_steps
 
 ARCH = "zamba2-1.2b"

@@ -12,10 +12,12 @@ import contextlib
 import dataclasses
 import functools
 import math
+import os
 
 import jax
 import numpy as np
 import pytest
+from jax.experimental.compilation_cache import compilation_cache
 
 from repro.configs import ARCHS as J_ARCHS, RunConfig as JRunConfig, smoke as j_smoke
 from repro.core.policy import format_spec as j_format_spec
@@ -130,6 +132,34 @@ def one_thread():
         yield
     finally:
         torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_compile_cache():
+    """JAX's persistent compile cache for a whole port test module, autouse
+    once the module imports it. Most of the differential tests' time is the
+    reference's XLA compiles, and many are of the same computation: each
+    engine a case makes jits its own step functions, and each of the
+    suite's processes compiles the smoke models anew. The cache keeps every
+    compile (of any length) under the checkout's git-ignored build/ and
+    gives it back to a later compile of the same computation in this
+    process or another. The settings are put back after the module, so the
+    JAX package's own tests run as they would alone."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir, "build",
+                        "jax_cache")
+    settings = {"jax_compilation_cache_dir": path,
+                "jax_persistent_cache_min_compile_time_secs": 0.0,
+                "jax_persistent_cache_min_entry_size_bytes": 0}
+    before = {name: getattr(jax.config, name) for name in settings}
+    for name, value in settings.items():
+        jax.config.update(name, value)
+    compilation_cache.reset_cache()
+    try:
+        yield
+    finally:
+        for name, value in before.items():
+            jax.config.update(name, value)
+        compilation_cache.reset_cache()
 
 
 @pytest.fixture(scope="module", autouse=True)
