@@ -15,7 +15,10 @@ no compiled artifact, so a cell runs its step itself, once, as one rank:
      under ``torch._subclasses.fake_tensor.FakeTensorMode``: shapes, dtypes
      and devices, nothing allocated);
   3. it runs one whole ``make_train_step(model, mesh)`` on the cell's global
-     batch under ``launch.op_cost.count_step``: forward, remat's recompute,
+     batch, which lies on the "meta" device in the host's place (the step
+     copies the rank's rows of each microbatch to the device, and the
+     rank's arguments are its state and those rows), under
+     ``launch.op_cost.count_step``: forward, remat's recompute,
      backward, the batch mean, the pod mean and AdamW with the knob's
      moments, counting flops, HBM bytes, bytes on the wire and the live
      bytes' high-water mark;
@@ -169,18 +172,24 @@ def abstract_mode(policy=None):
 
 def dry_train_step(model, batch_specs, mesh=None):
     """One ``make_train_step(model, mesh)`` on fake tensors: the fake train
-    state (``abstract_train_state``) and a fake batch of ``batch_specs``
-    (``nn.models.input_specs``) on the model's device, under
-    ``op_cost.count_step``. Returns (StepCost, seconds)."""
+    state (``abstract_train_state``) and a fake global batch of
+    ``batch_specs`` (``nn.models.input_specs``) on the "meta" device, the
+    host's, under ``op_cost.count_step``: the step copies the rank's rows
+    of each microbatch to the model's device, and the rank's arguments are
+    its state and its rows (``argument_bytes``), as the reference's
+    ``batch_shardings`` place them. Returns (StepCost, seconds)."""
     from repro_torch.launch.op_cost import count_step
-    from repro_torch.launch.train import abstract_train_state, make_train_step
+    from repro_torch.launch.train import (abstract_train_state, make_train_step,
+                                          rank_microbatches)
     t0 = time.perf_counter()
     with abstract_mode() as mode:
         state = abstract_train_state(model, mode)
         with mode:
-            batch = {k: torch.empty(s.shape, dtype=s.dtype, device=model.device)
+            batch = {k: torch.empty(s.shape, dtype=s.dtype, device="meta")
                      for k, s in batch_specs.items()}
             cost = count_step(make_train_step(model, mesh), state, batch)
+            mbs = rank_microbatches(model, batch, max(model.rcfg.microbatch, 1))
+    cost.argument_bytes += sum(t.numel() * t.element_size() for mb in mbs for t in mb.values())
     return cost, time.perf_counter() - t0
 
 

@@ -28,6 +28,12 @@ run, ``launch.dryrun``):
   during the step, the arguments' included (a storage counts from the op
   that made it until its last tensor is gone; on CUDA rounded up to the
   caching allocator's 512-byte blocks).
+
+A tensor on the "meta" device stands for the host's (the dry run's global
+batch, of which a rank copies its rows to the device): it holds no device
+memory, an op whose results lie there is the host's and costs nothing,
+and a copy from it onto the device costs no HBM bytes. A copy between
+other devices counts as before.
 """
 from __future__ import annotations
 
@@ -68,8 +74,11 @@ _FILL = {aten.zeros, aten.ones, aten.full, aten.zeros_like, aten.ones_like,
 
 # META: no tensor data at all (``prim.device``, profiler ranges); FREE: no
 # traffic, but an output storage to track (an allocation, a view, a
-# collective's buffer)
-_KIND_META, _KIND_FREE, _KIND_FLOPS, _KIND_SLICE, _KIND_GATHER, _KIND_FILL, _KIND_PLAIN = range(7)
+# collective's buffer); COPY: a ``_to_copy``, free where it copies from
+# "meta" (the host's batch: the reference's step takes its arguments on the
+# device), plain otherwise
+(_KIND_META, _KIND_FREE, _KIND_FLOPS, _KIND_SLICE, _KIND_GATHER, _KIND_FILL, _KIND_PLAIN,
+ _KIND_COPY) = range(8)
 
 
 @dataclasses.dataclass
@@ -126,6 +135,8 @@ def _classify(func) -> int:
     packet = func.overloadpacket
     if packet in flop_registry:
         return _KIND_FLOPS
+    if packet is aten._to_copy:
+        return _KIND_COPY
     if func.namespace in ("prim", "profiler"):
         return _KIND_META
     if func.namespace == "c10d" or packet in _FREE or func.is_view:
@@ -155,6 +166,8 @@ class _Counter(TorchDispatchMode):
     # -- live storages --------------------------------------------------------
 
     def track(self, t: torch.Tensor) -> None:
+        if t.device.type == "meta":
+            return
         st = t.untyped_storage()
         key = id(st)
         if key in self._live:
@@ -193,12 +206,16 @@ class _Counter(TorchDispatchMode):
             kind = self._kinds[func] = _classify(func)
         if kind == _KIND_META:
             return out
+        outs = out if isinstance(out, (list, tuple)) else (out,)
+        if all(o.device.type == "meta" for o in outs if isinstance(o, torch.Tensor)):
+            return out                                  # the host's
+        if kind == _KIND_COPY:
+            kind = _KIND_FREE if args[0].device.type == "meta" else _KIND_PLAIN
         self._track_out(out)
         if kind == _KIND_FREE:
             return out
         cost = self.cost
         cost.n_ops += 1
-        outs = out if isinstance(out, (list, tuple)) else (out,)
         if kind == _KIND_SLICE:
             upd = _last_tensor(args)
             cost.bytes_per_device += 2 * (_nbytes(upd) if upd is not None else 0)
@@ -264,9 +281,11 @@ def _tensors(tree):
 
 def _storage_bytes(tree) -> Dict[int, int]:
     """{id: bytes} of the distinct storages of a tree's tensors (on CUDA in
-    whole allocator blocks)."""
+    whole allocator blocks; none on "meta")."""
     out = {}
     for t in _tensors(tree):
+        if t.device.type == "meta":
+            continue
         st = t.untyped_storage()
         n = st.nbytes()
         out[id(st)] = -(-n // _CUDA_BLOCK) * _CUDA_BLOCK if t.device.type == "cuda" else n

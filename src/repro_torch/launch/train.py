@@ -14,14 +14,16 @@ make_host_mesh`` context; every family) each rank holds its shard of the
 state (``state_shardings``: moments like their parameter, a posit8 scale
 and the count replicated, ``ef`` like the parameters) and takes its rows
 of the batch (``rank_microbatches``): every rank is given the whole batch,
-which is cut as the reference's step cuts it, into microbatches of the
-global batch (under the compressed pod mean, of the pod's rows), each
-microbatch's rows over the batch ranks, so that an MoE layer routes the
-rows the reference routes together. Plain branch: the rank's gradients
-(FSDP's reduce-scatter sums a data-sharded leaf's over the data ranks in
-the backward), then the sum over the batch group of what is not summed
-yet, over the batch ranks. Pod branch (``grad_compression`` "posit8" or
-"posit8_ef" and a mesh with a "pod" axis): the mean over the pod's data
+which is cut where it lies (on the host) as the reference's step cuts it,
+into microbatches of the global batch (under the compressed pod mean, of
+the pod's rows), each microbatch's rows over the batch ranks, so that an
+MoE layer routes the rows the reference routes together; only the rank's
+rows reach the device, as the reference's ``batch_shardings`` place them.
+Plain branch: the rank's gradients (FSDP's reduce-scatter sums a
+data-sharded leaf's over the data ranks in the backward), then the sum
+over the batch group of what is not summed yet, over the batch ranks.
+Pod branch (``grad_compression`` "posit8" or "posit8_ef" and a mesh with
+a "pod" axis): the mean over the pod's data
 ranks, then ``runtime.compression.compressed_grad_transform`` over the pod
 group (error feedback in ``state["ef"]`` under "posit8_ef"), then the
 update. The loss is the mean over the batch ranks. ``make_train_state``
@@ -146,23 +148,25 @@ def batch_shardings(model: LM, batch) -> Dict[str, Tuple]:
 def _rows(model: LM, batch, axes) -> Dict[str, torch.Tensor]:
     """Each leaf's block of rows at this rank's coordinates on ``axes`` (the
     batch rule's lenient spec: rows that those ranks do not divide stay
-    whole)."""
+    whole), as views of ``batch`` where it lies: the step moves only these
+    rows to the device."""
     grid = model.grid
     axes = tuple(a for a in GRID_AXES if a in axes and a in grid.sizes)
     n = math.prod(grid.sizes[a] for a in axes)
     out = {}
     for k, v in batch.items():
         rows = None if not axes or v.shape[0] % n else (axes if len(axes) > 1 else axes[0])
-        out[k] = grid.shard(v, (rows,) + (None,) * (v.ndim - 1))
+        out[k] = grid.shard(v, (rows,) + (None,) * (v.ndim - 1), copy=False)
     return out
 
 
 def rank_microbatches(model: LM, batch, n_micro: int) -> List[Dict[str, torch.Tensor]]:
-    """The rows of ``batch`` (every key along its first dim) that this rank
-    runs, as ``n_micro`` microbatches in the reference's order: the global
-    batch (under the compressed pod mean, the pod's rows) split into
-    microbatches, and each microbatch's rows cut over ``model.batch_axes``
-    (off a grid, the microbatches themselves)."""
+    """The rows of ``batch`` (every key along its first dim, tensors) that
+    this rank runs, as ``n_micro`` microbatches in the reference's order:
+    the global batch (under the compressed pod mean, the pod's rows) split
+    into microbatches, and each microbatch's rows cut over
+    ``model.batch_axes`` (off a grid, the microbatches themselves): views
+    of ``batch``, wherever it lies."""
     grid = model.grid
     if grid is not None and "pod" not in model.batch_axes:
         batch = _rows(model, batch, ("pod",))
@@ -247,7 +251,8 @@ def make_train_step(model: LM, mesh=None):
     metrics). The state is updated in place and returned; ``batch`` holds
     "tokens" and "labels" (numpy or tensors), and for the encdec family
     "frames" (B, Se, d_model); microbatches split every key of it along
-    the batch; ``mark(name)``, if given, is called where each phase
+    the batch, cut where it lies, and only the rank's rows of each reach
+    the device; ``mark(name)``, if given, is called where each phase
     ("forward", "backward", "optimizer") begins and at the "end". On a
     grid ``mesh`` is the model's GridContext (the reference's signature;
     its "pod" axis selects the compressed branch under ``grad_compression``
@@ -304,7 +309,9 @@ def make_train_step(model: LM, mesh=None):
 
     def train_step(state, batch, mark=None, probe=None):
         mark = mark or _nomark
-        batch = _on_device(batch, model.device)
+        # cut where the batch lies (the host's); each microbatch of the
+        # rank's rows goes to the device as it runs (value_and_grad)
+        batch = {k: torch.as_tensor(v) for k, v in batch.items()}
         loss, grads = grads_plain(state["params"], batch, mark)
         if grid is not None:
             loss, grads = grid_grads(state, loss, grads, probe)

@@ -73,10 +73,11 @@ own leaf: a column-sharded product reads a whole input through
 ``TPContext.reduce_out``, a leaf the model axis does not divide takes
 neither (the rank computes it whole, and its gradient is whole on every
 rank). The embedding lookup is vocab-parallel (rows outside the rank's
-block masked, then reduce_out), and the logits of the rank's vocab block
-are gathered over model (``gather_replicated``), so the loss is the tp = 1
-loss on the rank's rows; ``loss`` gathers them a chunk of positions at a
-time (``CE_CHUNK``), so no rank holds the whole logits at once. Under
+block masked, then reduce_out), and ``loss`` is the reference's
+cross-entropy of the rank's rows on the rank's vocab block of the logits
+(``nn.sharding.vocab_parallel_ce``: each reduction over the vocab a
+partial all-reduced over model, so no rank gathers the logits); served
+logits are gathered over model (``gather_replicated``). Under
 ``grad_compression="posit8*"`` the embedding's vocab dim replicates, as
 the reference's ``LM.logical`` has it. An MoE layer routes the rank's rows as part of the batch that
 ``batch_axes`` names (``moe.moe_forward``). Under ``sequence_parallel``
@@ -112,7 +113,8 @@ from .layers import matmul_param, mlp_logical, mlp_shapes, param_value, rmsnorm
 from .moe import moe_logical, moe_shapes
 from .sharding import (GridContext, TPContext, check_tp_shapes, fsdp_gather,
                        gather_quantized, gather_replicated, map_with_logical, placed,
-                       scatter_seq, seq_in, shard_leaf, take_block, train_rules)
+                       scatter_seq, seq_in, shard_leaf, take_block, train_rules,
+                       vocab_parallel_ce)
 from .ssm import mamba_shapes
 
 __all__ = ["LM", "build_model", "apply_policy", "quantize_params", "ce_loss",
@@ -132,25 +134,14 @@ def ce_loss(logits: torch.Tensor, labels: torch.Tensor, *,
     """Mean cross-entropy over every position, in f32 over the padded
     vocab, with the max taken out of the gradient (a stop-gradient, as the
     reference's); ``z_weight`` adds z_weight * mean(lse^2)."""
-    lse, ll = _lse_ll(logits, labels)
+    lg = logits.to(torch.float32)
+    m = lg.amax(dim=-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(lg - m).sum(dim=-1)) + m[..., 0]
+    ll = lg.gather(-1, labels.long()[..., None])[..., 0]
     nll = (lse - ll).mean()
     if z_weight:
         nll = nll + z_weight * torch.square(lse).mean()
     return nll
-
-
-def _lse_ll(logits: torch.Tensor, labels: torch.Tensor):
-    """Each position's log-sum-exp (the max out of the gradient) and its
-    label's logit, in f32."""
-    lg = logits.to(torch.float32)
-    m = lg.amax(dim=-1, keepdim=True).detach()
-    lse = torch.log(torch.exp(lg - m).sum(dim=-1)) + m[..., 0]
-    return lse, lg.gather(-1, labels.long()[..., None])[..., 0]
-
-
-# elements of the gathered logits that one chunk of a grid's loss holds at
-# once (f32: 512 MiB)
-CE_CHUNK = 1 << 27
 
 
 def resolve_device(device) -> torch.device:
@@ -948,8 +939,10 @@ class LM:
         ``batch["labels"]``, {"loss": the same}); encdec reads
         ``batch["frames"]``. As the reference's, it adds no MoE router
         loss (``moe.router_aux_loss`` is a function apart). On a grid whose
-        model axis cuts the vocab, the logits are gathered whole a chunk of
-        positions at a time (``_chunked_ce``)."""
+        model axis cuts the vocab, the loss is the reference's on the
+        rank's vocab block of the logits (``vocab_parallel_ce``: three
+        all-reduces of a float a row, no logits gathered); where the vocab
+        replicates, ``ce_loss`` of the whole logits."""
         labels = batch["labels"].to(self.device)
         if self.grid is None:
             logits = self.forward(params, batch["tokens"], frames=batch.get("frames"))
@@ -957,32 +950,8 @@ class LM:
             return nll, {"loss": nll}
         x, sp = self._trunk(params, batch["tokens"], batch.get("frames"))
         logits, sharded = self._grid_block_logits(params, self._final_norm(params, x, sp), sp)
-        nll = self._chunked_ce(logits, labels) if sharded else ce_loss(logits, labels)
+        nll = vocab_parallel_ce(logits, labels, self.tp) if sharded else ce_loss(logits, labels)
         return nll, {"loss": nll}
-
-    def _chunked_ce(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-        """``ce_loss`` of the rank's vocab block of the logits gathered over
-        model, CE_CHUNK gathered elements at a time: each chunk of positions
-        is gathered, its loss summed and the sum kept, under
-        ``torch.utils.checkpoint`` (the backward gathers the chunk again),
-        so no rank holds the whole logits at once. It is ``ce_loss`` of the
-        whole gather up to rounding: a gathered chunk's layout changes the
-        order of a row's sums. Where one chunk holds every position it is
-        ``ce_loss`` of the whole gather."""
-        tp = self.tp
-        rows = logits.shape[:-1].numel()
-        step = max(CE_CHUNK // (logits.shape[-1] * tp.size), 1)
-        if rows <= step:
-            return ce_loss(gather_replicated(logits, tp, logits.ndim - 1), labels)
-        flat, lab = logits.reshape(rows, -1), labels.reshape(rows)
-
-        def chunk(lg, lb):
-            lse, ll = _lse_ll(gather_replicated(lg, tp, 1), lb)
-            return (lse - ll).sum()
-
-        total = sum(checkpoint(chunk, flat[i:i + step], lab[i:i + step], use_reentrant=False)
-                    for i in range(0, rows, step))
-        return total / rows
 
     def _encode(self, params, frames: torch.Tensor, xsp=None) -> torch.Tensor:
         """encdec: the encoder over (B, Se, d_model) frames, in the

@@ -58,6 +58,10 @@ made by ``launch.mesh.make_host_mesh``), one OS process a rank:
 * ``fsdp_gather``: an all-gather of a leaf's shards along its data-sharded
   dim, whose backward is the reduce-scatter (the sum of every data rank's
   gradient, cut to the rank's block).
+* ``vocab_parallel_ce``: the reference's cross-entropy on logits cut over
+  the vocab, as GSPMD lowers its ``ce_loss`` on vocab-sharded logits: each
+  rank's partial max, sum of exponentials and label logit, all-reduced
+  over model; no rank gathers the logits.
 * Megatron's sequence parallelism (``sequence_parallel`` on a model axis
   that divides the sequence): between blocks the residual stream is the
   rank's block along seq (dim 1), and the norms on it run on that block
@@ -102,7 +106,7 @@ from repro_torch.core.quantizers import QuantizedTensor
 
 __all__ = ["TP_AXIS", "GRID_AXES", "TPContext", "GridContext", "train_rules",
            "set_collective_hook", "fsdp_gather", "gather_quantized", "combine_partials",
-           "merge_partials",
+           "merge_partials", "vocab_parallel_ce",
            "gather_replicated", "take_block", "gather_seq", "scatter_seq",
            "seq_in", "seq_out", "placed", "shard_leaf", "shard_policy_params",
            "check_tp_shapes", "map_with_logical"]
@@ -361,6 +365,81 @@ def merge_partials(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
     return num / den[..., None]
 
 
+def vocab_parallel_ce(logits: torch.Tensor, labels: torch.Tensor, tp: TPContext, *,
+                      z_weight: float = 0.0) -> torch.Tensor:
+    """The reference's ``ce_loss`` of logits whose last dim is cut in equal
+    blocks over ``tp``'s ranks: ``logits`` (..., V / size) is the rank's
+    block (vocab ids [rank * V / size, (rank + 1) * V / size)), ``labels``
+    (...) the whole labels. Each reduction over V is the rank's partial
+    over its block, in f32, combined by one all-reduce over the ranks (the
+    row max, MAX; the sum of the exponentials and the label's logit, SUM):
+    three all-reduces of a float a row, no gather, in either direction.
+    The max is out of the gradient, as the reference's stop-gradient;
+    ``z_weight`` adds z_weight * mean(lse^2). Every rank gets the same
+    loss."""
+    return _VocabCE.apply(logits, labels, tp, float(z_weight))
+
+
+# logits a pass of ``vocab_parallel_ce`` takes to f32 at once (256 MiB of
+# f32 temporaries): the rank's rows run in passes of this many elements
+CE_PASS = 1 << 26
+
+
+def _row_passes(rows: int, n: int):
+    step = max(CE_PASS // max(n, 1), 1)
+    return [slice(i, min(i + step, rows)) for i in range(0, rows, step)]
+
+
+class _VocabCE(torch.autograd.Function):
+    """``vocab_parallel_ce``; backward: (softmax - onehot + 2 z_weight lse
+    softmax) g / N on the rank's block, the softmax recomputed from the
+    saved logits as exp(logit - max) / sum, the reference's derivative of
+    its log-sum-exp (exp(logit - lse) would round each entry up to
+    |lse| ulps apart). The f32 temporaries take the rows in passes of
+    CE_PASS elements; each row's sums are the same in any pass."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, tp, z_weight):
+        n = logits.shape[-1]
+        flat = logits.reshape(-1, n)
+        local = labels.to(logits.device).long().reshape(-1) - tp.rank * n
+        inside = (local >= 0) & (local < n)
+        local = local.clamp(0, n - 1)
+        picked = flat.gather(-1, local[:, None])[:, 0].to(torch.float32)
+        ll = tp.all_reduce(torch.where(inside, picked, torch.zeros_like(picked)))
+        m = tp.all_reduce(flat.amax(-1).to(torch.float32), "max")
+        part = torch.empty_like(m)
+        for rows in _row_passes(flat.shape[0], n):
+            lg = flat[rows].to(torch.float32, copy=True)
+            part[rows] = lg.sub_(m[rows, None]).exp_().sum(-1)
+        total = tp.all_reduce(part)
+        lse = torch.log(total) + m
+        nll = (lse - ll).mean()
+        if z_weight:
+            nll = nll + z_weight * torch.square(lse).mean()
+        ctx.save_for_backward(logits, local, inside, m, total, lse)
+        ctx.z_weight = z_weight
+        return nll
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, local, inside, m, total, lse = ctx.saved_tensors
+        n = logits.shape[-1]
+        flat = logits.reshape(-1, n)
+        scale = g.to(torch.float32) / lse.numel()
+        # d nll / d lse per row, over the row's sum of exponentials
+        g_lse = scale * (1 + 2 * ctx.z_weight * lse) if ctx.z_weight else scale.expand_as(lse)
+        coef = g_lse / total
+        label = -(inside.to(torch.float32) * scale)
+        grad = torch.empty_like(flat)
+        for rows in _row_passes(flat.shape[0], n):
+            p = flat[rows].to(torch.float32, copy=True).sub_(m[rows, None]).exp_()
+            p.mul_(coef[rows, None])
+            p.scatter_add_(-1, local[rows, None], label[rows, None])
+            grad[rows] = p
+        return grad.view_as(logits), None, None, None
+
+
 def gather_replicated(x: torch.Tensor, tp: TPContext, dim: int) -> torch.Tensor:
     """The ranks' blocks of ``x`` concatenated along ``dim``, for a use that
     every rank then runs alike: the gradient is the rank's slice."""
@@ -583,9 +662,10 @@ class GridContext:
             idx, n = idx * self.sizes[a] + self.coords[a], n * self.sizes[a]
         return idx, n
 
-    def shard(self, t: torch.Tensor, spec) -> torch.Tensor:
+    def shard(self, t: torch.Tensor, spec, copy: bool = True) -> torch.Tensor:
         """The rank's block of ``t`` along every sharded dim of ``spec``, as
-        a copy (so the whole leaf can go)."""
+        a copy (so the whole leaf can go), or with ``copy`` False as a view
+        of ``t``."""
         if all(a is None for a in spec):
             return t
         for dim, axes in enumerate(spec):
@@ -593,7 +673,7 @@ class GridContext:
                 idx, n = self._block(axes)
                 m = t.shape[dim] // n
                 t = t.narrow(dim, idx * m, m)
-        return t.clone()
+        return t.clone() if copy else t
 
     def local_shape(self, spec, shape) -> Tuple[int, ...]:
         """The shape of the rank's block of a leaf of ``shape`` cut by

@@ -11,6 +11,11 @@ across), with f32 and with posit8 moments. Prints each loss trajectory and
 one JSON line. Not a tier-1 test (a few minutes of CPU):
 
     PYTHONPATH=src:tests python tests/cli_defaults_loss.py [--steps 5]
+
+``--example`` runs ``examples/train_lm.py --big``'s configuration instead
+(12 layers, d_model 512, 8 heads of 64, 4 kv heads, d_ff 2048, vocab 32000;
+lr 1e-3 with the schedule of a 300-step run, warmup 30; posit8 moments
+only), the first ``--steps`` steps of it.
 """
 from __future__ import annotations
 
@@ -22,7 +27,7 @@ import time
 import jax
 
 
-def run(quant: str, steps: int, threads: int):
+def run(quant: str, steps: int, threads: int, example: bool = False):
     import torch
     from repro.configs import ARCHS as J_ARCHS, RunConfig as JRunConfig
     from repro.data import DataConfig, synthetic_batch
@@ -35,10 +40,17 @@ def run(quant: str, steps: int, threads: int):
     from torch_bridge import to_numpy_tree
     torch.set_num_threads(threads)
     shape = dict(d_model=1024, n_layers=4, n_heads=8, n_kv_heads=2, d_head=128, d_ff=2816)
-    kw = dict(learning_rate=1e-3, total_steps=steps, warmup_steps=max(steps // 10, 1),
+    jcfg, tcfg, total = J_ARCHS["yi-9b"], T_ARCHS["yi-9b"], steps
+    if example:
+        from repro.configs import smoke as j_smoke
+        from repro_torch.configs import smoke as t_smoke
+        shape = dict(n_layers=12, d_model=512, n_heads=8, n_kv_heads=4, d_head=64, d_ff=2048,
+                     vocab_size=32000)
+        jcfg, tcfg, total = j_smoke(jcfg), t_smoke(tcfg), 300
+    kw = dict(learning_rate=1e-3, total_steps=total, warmup_steps=max(total // 10, 1),
               microbatch=0, opt_state_quant=quant, remat="block")
-    jm = j_build(dataclasses.replace(J_ARCHS["yi-9b"], **shape), JRunConfig(**kw))
-    tm = t_build(dataclasses.replace(T_ARCHS["yi-9b"], **shape), TRunConfig(**kw), device="cpu")
+    jm = j_build(dataclasses.replace(jcfg, **shape), JRunConfig(**kw))
+    tm = t_build(dataclasses.replace(tcfg, **shape), TRunConfig(**kw), device="cpu")
     jstate = jax.jit(lambda k: j_state(jm, k))(jax.random.PRNGKey(0))
     tstate = train_state_from_numpy(to_numpy_tree(jstate), device="cpu")
     jstep, tstep = jax.jit(j_step(jm), donate_argnums=(0,)), make_train_step(tm)
@@ -65,8 +77,11 @@ def main(argv=None):
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--threads", type=int, default=4)
+    ap.add_argument("--example", action="store_true",
+                    help="examples/train_lm.py --big's configuration, posit8 moments")
     args = ap.parse_args(argv)
-    res = {q: run(q, args.steps, args.threads) for q in ("none", "posit8")}
+    quants = ("posit8",) if args.example else ("none", "posit8")
+    res = {q: run(q, args.steps, args.threads, args.example) for q in quants}
     print("cli_defaults_loss: " + json.dumps(res))
     return res
 

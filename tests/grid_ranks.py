@@ -183,25 +183,74 @@ def cost_case(grid, device, arch, run_kw, batch):
             "wire": cost.wire_bytes_per_device}
 
 
-def chunked_loss_case(grid, device, arch, chunk, batch):
-    """``LM.loss`` and its gradients on this rank's rows of ``batch`` (one
-    microbatch) from the seed-0 state at f32, with the grid's logits
-    gathered whole at once and then ``chunk`` elements at a time
-    (``models.CE_CHUNK``): (loss, gradients) numpy for each."""
+def vocab_loss_case(grid, device, arch, run_kw, over, z_weight, ce_pass, batch,
+                    upstream=None):
+    """The grid's loss on this rank's rows of ``batch`` (one microbatch)
+    from the seed-0 state at f32 (the smoke ``arch``, ``over`` replacing
+    config fields): ``vocab_parallel_ce`` of the rank's vocab block of the
+    logits where the model axis cuts the vocab (``ce_loss`` of the whole
+    logits where it does not), as ``LM.loss`` takes it, with ``z_weight``
+    (and, where ``ce_pass`` is given, ``nn.sharding.CE_PASS`` set to it).
+
+    Without ``upstream``: {"loss", "model_loss" (``LM.loss``'s, z_weight
+    0), "sharded", "grads" (every leaf's, ``tree_leaves`` order), "logits"
+    (the rank's rows' whole logits), "labels", "loss_cost" and "plain_cost"
+    (``op_cost.count_step`` of the forward and backward of ``LM.loss``, and
+    of the same up to the logits block with a plain sum in the loss's
+    place)}, numpy. With ``upstream`` (each rank's gradient of its whole
+    logits, in rank order): the leaves' gradients of sum(whole logits *
+    the rank's upstream), the whole logits gathered over model."""
+    from repro_torch.nn import sharding
+    saved = sharding.CE_PASS
+    sharding.CE_PASS = ce_pass or saved
+    try:
+        return _vocab_loss(grid, device, arch, run_kw, over, z_weight, batch, upstream)
+    finally:
+        sharding.CE_PASS = saved
+
+
+def _vocab_loss(grid, device, arch, run_kw, over, z_weight, batch, upstream):
+    from repro_torch.launch.op_cost import count_step
     from repro_torch.launch.train import make_train_state, rank_microbatches, value_and_grad
-    from repro_torch.nn import models
-    model = grid_model(grid, device, arch, {})
+    from repro_torch.nn.models import ce_loss
+    from repro_torch.nn.sharding import gather_replicated, vocab_parallel_ce
+    from repro_torch.optim import tree_leaves, tree_map
+    model = grid_model(grid, device, arch, run_kw, over)
     params = make_train_state(model, 0)["params"]
     mb = rank_microbatches(model, batch, 1)[0]
-    out = []
-    for ce_chunk in (models.CE_CHUNK, chunk):
-        saved, models.CE_CHUNK = models.CE_CHUNK, ce_chunk
-        try:
-            loss, grads = value_and_grad(model, params, mb)
-        finally:
-            models.CE_CHUNK = saved
-        out.append((float(loss), [g.numpy() for g in grads]))
-    return out
+    live = [p.detach().requires_grad_() for p in tree_leaves(params)]
+    it = iter(live)
+    p = tree_map(lambda _: next(it), params)
+
+    def block_logits(p):
+        x, sp = model._trunk(p, mb["tokens"], mb.get("frames"))
+        return model._grid_block_logits(p, model._final_norm(p, x, sp), sp)
+
+    logits, sharded = block_logits(p)
+    whole = gather_replicated(logits, model.tp, logits.ndim - 1) if sharded else logits
+    if upstream is not None:
+        up = torch.from_numpy(upstream[grid.rank])
+        grads = torch.autograd.grad((whole * up).sum(), live)
+        return [g.numpy() for g in grads]
+    if sharded:
+        loss = vocab_parallel_ce(logits, mb["labels"], model.tp, z_weight=z_weight)
+    else:
+        loss = ce_loss(logits, mb["labels"], z_weight=z_weight)
+    grads = torch.autograd.grad(loss, live)
+
+    def plain(params):
+        leaves = [t.detach().requires_grad_() for t in tree_leaves(params)]
+        it = iter(leaves)
+        logits, _ = block_logits(tree_map(lambda _: next(it), params))
+        return torch.autograd.grad(logits.sum(), leaves)
+
+    loss_cost = count_step(lambda prm: value_and_grad(model, prm, mb), params)
+    plain_cost = count_step(plain, params)
+    return {"loss": float(loss), "model_loss": float(model.loss(p, mb)[0]),
+            "sharded": sharded, "grads": [g.numpy() for g in grads],
+            "logits": whole.detach().numpy(), "labels": mb["labels"].numpy(),
+            "loss_cost": dataclasses.asdict(loss_cost),
+            "plain_cost": dataclasses.asdict(plain_cost)}
 
 
 def serve_case(grid, device, case):

@@ -51,8 +51,16 @@ LLAMA4_ZERO = ("/blocks/moe/moe/router",)
 # tp = 1 port's to 1e-9
 WILD = {"/unembed": 2e-6}
 # (pod 2, model 2) posit8_ef: one of ln2's 256 residual entries a code step
-# apart (f32 moments with 2 microbatches, posit8 moments with one)
-EF_FLIPS = {"/blocks/moe/ln2": 1}
+# apart (f32 moments with 2 microbatches, posit8 moments with one); with the
+# vocab-parallel loss, one of ln_f's 128 (posit8 moments, one microbatch;
+# pod 1's entry 8: 6.0492e-5 in the reference summed as the grid's two
+# vocab blocks, 6.0455e-5 in the reference on whole logits, -6.0710e-5 on
+# the grid): the value lay within 1.3e-7 of a code's midpoint, which each
+# side rounded to its own neighbour (check_pod_case holds every such entry
+# to that mirror). Against the partitioned-order reference this is the one
+# entry past the gates besides ln2's (``python tests/sum_order_drift.py
+# --ef-flips``; test_moe_pod_ef_flips_against_the_partitioned_reference)
+EF_FLIPS = {"/blocks/moe/ln2": 1, "/ln_f": 1}
 
 
 @pytest.fixture(scope="module")
@@ -91,6 +99,15 @@ def test_moe_pod_grid_three_steps_match_reference(pool, comp, quant, micro):
     reference's composition (``grid_bridge.check_pod_case``), each pod
     routing its own rows."""
     check_pod_case(pool, ARCH, POD_GRID, comp, quant, micro, ef_flips=EF_FLIPS)
+
+
+def test_moe_pod_ef_flips_against_the_partitioned_reference(pool):
+    """posit8_ef, posit8 moments, one microbatch against the reference with
+    its loss summed as the grid's two vocab blocks
+    (``grid_bridge.partitioned_ce``), the order in which the grid sums it:
+    the same gates and exemptions as against the reference on whole
+    logits."""
+    check_pod_case(pool, ARCH, POD_GRID, "posit8_ef", "posit8", 0, ef_flips=EF_FLIPS, blocks=2)
 
 
 @pytest.mark.parametrize("micro", (0, 2))
